@@ -1,0 +1,1 @@
+"""recon layer of the PyTorch port (see the package docstring)."""
