@@ -24,28 +24,22 @@ the kernel or raises.  There is no fallback between the two.  Each
 wrapper counts its kernel launches in ``.launches``.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
-``nksr_tpu_torch/_build/`` (a plain-C shared library loaded with
-ctypes); nothing is compiled when this module is imported.
+``nksr_tpu_torch/_build/`` (``cuda_build.py``: a plain-C shared library
+loaded with ctypes); nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "av0_cascade.cu"
-BUILD_DIR = _PKG / "_build"
+from .. import cuda_build as CB
+
+SOURCE = CB.CSRC / "av0_cascade.cu"
 _MAX_DEPTH = 8
 _CORNERS = tuple((i, j, l) for i in (0, 1) for j in (0, 1) for l in (0, 1))
 
@@ -55,50 +49,9 @@ class _Av0Spec(ctypes.Structure):
                 ("dims", (ctypes.c_int32 * 3) * _MAX_DEPTH)]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found: the AV0 cascade kernels are built from "
-        f"{SOURCE} on a machine with the CUDA toolkit")
-
-
-def build_kernels() -> Tuple[Path, float, str]:
-    """Compile ``csrc/av0_cascade.cu`` for sm_90a into the build
-    directory.  Returns (library path, seconds, ptxas report).  The
-    library is written under a temporary name and renamed into place, so
-    concurrent builders never load a half-written file."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / "libav0_cascade.so"
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0, proc.stderr
-
-
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib_path = BUILD_DIR / "libav0_cascade.so"
-    if (not lib_path.exists()
-            or lib_path.stat().st_mtime < SOURCE.stat().st_mtime):
-        lib_path = build_kernels()[0]
-    lib = ctypes.CDLL(str(lib_path))
+    lib = CB.library("av0_cascade")
     for fn in (lib.av0_cascade_fwd, lib.av0_cascade_adj):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(_Av0Spec), ctypes.c_void_p,
@@ -116,23 +69,6 @@ def _c_spec(spec) -> _Av0Spec:
         for a in range(3):
             s.dims[d][a] = int(spec.dims[d][a])
     return s
-
-
-def _check_cuda(t: torch.Tensor, shape, dtype, name: str) -> None:
-    if t.device.type != "cuda":
-        raise RuntimeError(f"{name}: expected a CUDA tensor, got "
-                           f"{t.device} (only CPU tensors take the plain "
-                           "version)")
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {rc}")
 
 
 def _check_dtype(dtype) -> None:
@@ -208,7 +144,7 @@ def av0_cascade(spec, xs: Sequence[torch.Tensor], dtype) -> torch.Tensor:
         return av0_cascade_plain(spec, xs, dtype)
     cs = _c_spec(spec)
     for d in range(spec.depth):
-        _check_cuda(xs[d], (spec.n_cells(d), spec.k), torch.float32,
+        CB.check_cuda(xs[d], (spec.n_cells(d), spec.k), torch.float32,
                     f"av0_cascade xs[{d}]")
     out = torch.empty((spec.n_cells(0), spec.lanes), dtype=dtype,
                       device=xs[0].device)
@@ -217,7 +153,7 @@ def av0_cascade(spec, xs: Sequence[torch.Tensor], dtype) -> torch.Tensor:
         ctypes.byref(cs), ptrs, out.data_ptr(),
         int(dtype == torch.bfloat16),
         torch.cuda.current_stream(out.device).cuda_stream)
-    _raise_on(rc, "av0_cascade_fwd launch")
+    CB.raise_on(rc, "av0_cascade_fwd launch")
     av0_cascade.launches += 1
     return out
 
@@ -236,7 +172,7 @@ def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
     cs = _c_spec(spec)
     if z0_buf.dtype != compute_dtype:
         z0_buf = z0_buf.to(compute_dtype)
-    _check_cuda(z0_buf, (spec.n_cells(0), spec.lanes), compute_dtype,
+    CB.check_cuda(z0_buf, (spec.n_cells(0), spec.lanes), compute_dtype,
                 "av0_adjoint_cascade z0")
     outs = tuple(torch.empty((spec.n_cells(d), spec.k), dtype=torch.float32,
                              device=z0_buf.device)
@@ -246,7 +182,7 @@ def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
         ctypes.byref(cs), z0_buf.data_ptr(), ptrs,
         int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(z0_buf.device).cuda_stream)
-    _raise_on(rc, "av0_cascade_adj launch")
+    CB.raise_on(rc, "av0_cascade_adj launch")
     av0_adjoint_cascade.launches += 1
     return outs
 

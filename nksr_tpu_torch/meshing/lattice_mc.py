@@ -174,17 +174,17 @@ def newton_step(ctx, verts: torch.Tensor, centers: torch.Tensor, f: int,
 @torch.no_grad()
 def extract_dual_mesh_dense(ctx, mise_iter: int = 0, grid_upsample: int = 1,
                             max_points: Optional[int] = None
-                            ) -> TriangleMesh:
+                            ) -> Optional[TriangleMesh]:
     """Dense-lattice extraction.  ``mise_iter`` rounds double the
     extraction resolution and add a Newton polish; ``max_points`` bounds
-    each evaluation wave."""
+    each evaluation wave.  None when the fine grid is over
+    ``DENSE_CELL_BUDGET``: the host mesher (``meshing/host_mc.py``) takes
+    over."""
     spec = ctx.spec
     f = max(int(grid_upsample), 1) * (2 ** max(int(mise_iter), 0))
     X, Y, Z = spec.dims[0]
     if X * Y * Z * f ** 3 > DENSE_CELL_BUDGET:
-        raise NotImplementedError(
-            f"fine grid {X}x{Y}x{Z} x {f}^3 exceeds DENSE_CELL_BUDGET; the "
-            "host mesher is not ported yet (ROADMAP.md queue 1, item 12)")
+        return None
     tables = ctx.tables()
     cand, corner = candidates(tables.shell0, spec.dims[0], f)
     v_dense = corner_values(ctx, corner, f, max_points)

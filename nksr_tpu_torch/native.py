@@ -1,7 +1,8 @@
-"""Host sort and lattice-index ops: ctypes over the JAX package's own C++
-source ``nksr_tpu/native/sortops.cpp``, compiled with ``g++`` into this
+"""Host sort, join and lattice-index ops: ctypes over the JAX package's
+own C++ sources ``nksr_tpu/native/sortops.cpp`` and ``kdtree.cpp`` (for
+its key searches), compiled with ``g++`` into one library in this
 package's build directory at first use.  Importing ``nksr_tpu`` would
-import JAX, so only the source file is shared, read by path.
+import JAX, so only the source files are shared, read by path.
 
 Every op keeps the numpy fallback the original module has
 (nksr_tpu/native/__init__.py), taken when no C++ toolchain is present;
@@ -20,8 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-SOURCE = (Path(__file__).resolve().parent.parent / "nksr_tpu" / "native"
-          / "sortops.cpp")
+_NATIVE = Path(__file__).resolve().parent.parent / "nksr_tpu" / "native"
+SOURCES = (_NATIVE / "sortops.cpp", _NATIVE / "kdtree.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -35,7 +36,7 @@ def _build(lib_path: Path) -> None:
     try:
         subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
                         "-fPIC", "-pthread", "-shared", "-o", tmp,
-                        str(SOURCE)],
+                        *map(str, SOURCES)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, lib_path)
     finally:
@@ -45,9 +46,10 @@ def _build(lib_path: Path) -> None:
 
 @functools.lru_cache(maxsize=1)
 def _load() -> Optional[ctypes.CDLL]:
-    lib_path = BUILD_DIR / "libnksr_sortops.so"
+    lib_path = BUILD_DIR / "libnksr_host.so"
     if (not lib_path.exists()
-            or lib_path.stat().st_mtime < SOURCE.stat().st_mtime):
+            or any(lib_path.stat().st_mtime < src.stat().st_mtime
+                   for src in SOURCES)):
         try:
             _build(lib_path)
         except (OSError, subprocess.SubprocessError):
@@ -70,6 +72,15 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.half_keys_i64.argtypes = [_I64P, ctypes.c_int64, _I64P]
     lib.unpack_keys_i64.argtypes = [_I64P, ctypes.c_int64, _I32P]
     lib.minmax_i32.argtypes = [_I32P, ctypes.c_int64, _I32P]
+    lib.radix_sort_unique_i64.restype = ctypes.c_int64
+    lib.radix_sort_unique_i64.argtypes = [_I64P, ctypes.c_int64]
+    lib.stencil_join_i64.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                     ctypes.c_int64, _I64P, ctypes.c_int32,
+                                     ctypes.c_int32, _I32P]
+    lib.keysearch_i64.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                  ctypes.c_int64, _I32P, ctypes.c_int32]
+    lib.sorted_join_i64.argtypes = [_I64P, ctypes.c_int64, _I64P,
+                                    ctypes.c_int64, _I32P]
     return lib
 
 
@@ -89,6 +100,74 @@ def radix_argsort(keys: np.ndarray) -> np.ndarray:
         return np.argsort(k, kind="stable")
     out = np.empty(k.shape[0], np.int64)
     lib.radix_argsort_i64(_p64(k), k.shape[0], _p64(out))
+    return out
+
+
+def sort_unique(keys: np.ndarray) -> np.ndarray:
+    """Sorted unique int64 keys."""
+    lib = _load()
+    k = np.ascontiguousarray(keys, np.int64).copy()
+    if lib is None:
+        return np.unique(k)
+    m = lib.radix_sort_unique_i64(_p64(k), k.shape[0])
+    return k[:m]
+
+
+def _searchsorted_join(keys: np.ndarray, q: np.ndarray) -> np.ndarray:
+    pos = np.searchsorted(keys, q)
+    pos_c = np.minimum(pos, max(len(keys) - 1, 0))
+    found = (len(keys) > 0) & (keys[pos_c] == q)
+    return np.where(found, pos_c, -1).astype(np.int32)
+
+
+def sorted_join(sorted_keys: np.ndarray,
+                sorted_queries: np.ndarray) -> np.ndarray:
+    """Positions of sorted queries in sorted keys (-1 absent); O(n+m)."""
+    lib = _load()
+    keys = np.ascontiguousarray(sorted_keys, np.int64)
+    q = np.ascontiguousarray(sorted_queries, np.int64)
+    if lib is None:
+        return _searchsorted_join(keys, q)
+    out = np.empty(q.shape[0], np.int32)
+    lib.sorted_join_i64(_p64(keys), keys.shape[0], _p64(q), q.shape[0],
+                        _p32(out))
+    return out
+
+
+def keysearch(sorted_keys: np.ndarray, queries: np.ndarray,
+              n_threads: int = 0) -> np.ndarray:
+    """Index of each (unsorted) query in sorted int64 keys, -1 if absent
+    (a multithreaded binary search)."""
+    lib = _load()
+    keys = np.ascontiguousarray(sorted_keys, np.int64)
+    q = np.ascontiguousarray(queries, np.int64)
+    if lib is None:
+        return _searchsorted_join(keys, q)
+    out = np.empty(q.shape[0], np.int32)
+    lib.keysearch_i64(_p64(keys), keys.shape[0], _p64(q), q.shape[0],
+                      _p32(out), n_threads)
+    return out
+
+
+def stencil_join(sorted_keys: np.ndarray, sorted_base: np.ndarray,
+                 deltas: np.ndarray, cap: Optional[int] = None
+                 ) -> np.ndarray:
+    """(len(base), K) positions of base + delta_k in sorted keys, -1 if
+    absent or >= cap: K monotone merge cursors in one pass."""
+    lib = _load()
+    keys = np.ascontiguousarray(sorted_keys, np.int64)
+    base = np.ascontiguousarray(sorted_base, np.int64)
+    d = np.ascontiguousarray(deltas, np.int64)
+    capv = (1 << 31) - 1 if cap is None else int(cap)
+    out = np.empty((base.shape[0], d.shape[0]), np.int32)
+    if lib is None:
+        for k in range(d.shape[0]):
+            col = sorted_join(keys, base + d[k])
+            out[:, k] = np.where(col < capv, col, -1)
+        return out
+    lib.stencil_join_i64(_p64(keys), keys.shape[0], _p64(base),
+                         base.shape[0], _p64(d), d.shape[0], capv,
+                         _p32(out))
     return out
 
 

@@ -1,15 +1,29 @@
 """Public reconstruction API (counterpart of
-nksr_tpu/recon/reconstructor.py, splat structure on the dense lattice):
+nksr_tpu/recon/reconstructor.py, splat structure):
 
     recon = Reconstructor()                     # device="cuda"
     field = recon.reconstruct(xyz, normal, structure="splat")
     mesh  = field.extract_dual_mesh(mise_iter=1)   # mesh.v / mesh.f
 
-Stages: host grid build and lattice plan (numpy + C++), the dense conv3d
-UNet, the primal lattice CG solve, the lattice evaluator and the dense
-dual marching cubes.  Routes that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them; nothing
-falls back to another engine or to the CPU.
+Stages: host grid build and lattice plan (numpy + C++), the UNet, the
+kernel solve, the field evaluator and dual marching cubes.  The route is
+chosen as the JAX package chooses it, by the same budgets in the same
+order:
+
+  * lattice: the plan exists and its feature lattices fit
+    ``DENSE_UNET_CELLMAP_BUDGET``: the dense conv3d UNet, the primal
+    lattice CG solve and the lattice evaluator;
+  * route A: the plan exists but the feature lattices do not fit: the
+    gather-conv UNet over host tables, then the lattice solve;
+  * route B (the sparse fallback): ``plan_lattice`` returns None (the
+    dense coefficients would exceed its budget): the gather-conv UNet,
+    the support-row kernel solve and the host dual MC.
+
+The dense mesher meshes a lattice field whose fine grid fits
+``meshing.lattice_mc.DENSE_CELL_BUDGET``, the host mesher any other
+field.  ``_last_unet_engine`` records "dense" or "sparse".  Routes that
+are not ported yet raise ``NotImplementedError`` naming the ROADMAP item
+that ports them; nothing falls back to another engine or to the CPU.
 """
 
 from __future__ import annotations
@@ -26,12 +40,15 @@ from ..fields.lattice import lattice_solve, plan_lattice
 from ..fields.lattice_eval import LatticeEvalContext
 from ..models import dense_unet as DU
 from ..models import pipeline as P
+from ..models import sparse_unet as SU
 from ..models.network import NKSRNetwork
+from ..ops.gather_scatter import stencil_offsets
 from ..utils.checkpoint import params_to_torch
 from ..utils.profiling import PhaseTimer
 from .host_field import HostField, SolverStats
 
-# total dense cells (all depths) x f_maps the conv3d UNet may hold
+# total dense cells (all depths) x f_maps the conv3d UNet may hold;
+# beyond it the gather-conv UNet runs
 DENSE_UNET_CELLMAP_BUDGET = 400_000_000
 
 
@@ -63,6 +80,12 @@ def _splat_normals_dense(spec, origins, d, voxel_size, xyz, normal,
                                 g - base.float(), normal)
     rows = torch.where(vox_active[:, None], acc[vox_cell], 0.0)
     return rows / (torch.linalg.norm(rows, dim=-1, keepdim=True) + 1e-6)
+
+
+def _dense_unet_fits(spec, cfg) -> bool:
+    """The dense conv3d UNet's feature lattices fit the budget."""
+    total = sum(spec.n_cells(d) for d in range(spec.depth))
+    return total * cfg.f_maps <= DENSE_UNET_CELLMAP_BUDGET
 
 
 def _set_matmul_precision() -> None:
@@ -111,8 +134,9 @@ class Reconstructor:
                     mesh=None) -> HostField:
         """Reconstruct an implicit field from a point cloud (parameter
         semantics of ``nksr_tpu.Reconstructor.reconstruct``).
-        ``fused_mode`` is satisfied by construction: the lattice solve is
-        matrix-free either way."""
+        ``fused_mode`` selects the support-row solve that recomputes its
+        supports in every matvec; the lattice solve is matrix-free
+        either way."""
         xyz = np.asarray(input_xyz, np.float32)
         normal = None if input_normal is None else np.asarray(
             input_normal, np.float32)
@@ -139,7 +163,8 @@ class Reconstructor:
         cfg = self._runtime_config(
             self._pick_voxel_size(xyz, detail_level, voxel_size),
             approx_kernel_grad, solver_tol, solver_max_iters,
-            feature="normal" if normal is not None else "sensor")
+            feature="normal" if normal is not None else "sensor",
+            fused_mode=fused_mode)
         if structure is not None:
             cfg = dataclasses.replace(cfg, structure_mode=structure)
         if cfg.structure_mode != "splat":
@@ -148,7 +173,8 @@ class Reconstructor:
         return self._reconstruct_host(cfg, xyz, normal, sens)
 
     def _reconstruct_host(self, cfg, xyz, normal, sens) -> HostField:
-        """Host-built grids and plan, then the device stages."""
+        """Host-built grids, plan and tables, then the device stages of
+        the route the budgets pick (see the module docstring)."""
         dev = self.device
         times: dict = {}
         tm = PhaseTimer(dev, times)
@@ -159,43 +185,67 @@ class Reconstructor:
         plan = plan_lattice(grids, caps, xyz, orders[0][0], orders[0][1],
                             cfg.voxel_size, cfg.tree_depth,
                             cfg.adaptive_depth, k=cfg.kernel_dim)
-        if plan is None:
-            raise _not_ported("the sparse fallback for a bounding box over "
-                              "the dense lattice budget", "item 12")
-        spec = plan.spec
-        total = sum(spec.n_cells(d) for d in range(spec.depth))
-        if total * cfg.f_maps > DENSE_UNET_CELLMAP_BUDGET:
-            raise _not_ported(
-                f"the gather-conv UNet for {total} cells x {cfg.f_maps} maps "
-                "(over DENSE_UNET_CELLMAP_BUDGET)", "item 12")
+        dense_unet = plan is not None and _dense_unet_fits(plan.spec, cfg)
+        self._last_unet_engine = "dense" if dense_unet else "sparse"
 
         def up(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
 
         i64 = torch.int64
-        tables = DU.build_tables(spec, plan.origins, grids, caps, dev)
         xyz_t = up(xyz)
         feat = P.point_features(
             cfg, xyz_t, normal=None if normal is None else up(normal),
             sensor=None if sens is None else up(sens))
-        perm = up(orders[0][1], i64)
-        base0 = up(HB.unpack64(orders[0][0]), i64)
-        vox_cell = tuple(up(v, i64) for v in plan.vox_cell)
-        vox_active = tuple(up(v) for v in plan.vox_active)
+        input_normal = feat if cfg.feature == "normal" else None
         tm.lap("host build + plan + upload")
 
-        basis_f, normal_f = DU.dense_unet_apply(
-            cfg, self.network, spec, plan.origins, tables, xyz_t[perm],
-            None if feat is None else feat[perm], base0)
-        tm.lap("dense unet")
+        if dense_unet:
+            tables = DU.build_tables(plan.spec, plan.origins, grids, caps,
+                                     dev)
+            perm = up(orders[0][1], i64)
+            base0 = up(HB.unpack64(orders[0][0]), i64)
+            basis_f, normal_f = DU.dense_unet_apply(
+                cfg, self.network, plan.spec, plan.origins, tables,
+                xyz_t[perm], None if feat is None else feat[perm], base0)
+            tm.lap("dense unet")
+        else:
+            # the points' splat rows: the encoder's depth-0 table, the
+            # normal prior's (adaptive depths) and route B's value rows
+            # (every depth)
+            n_sup = cfg.tree_depth if plan is None else cfg.adaptive_depth
+            pt_sup = tuple(up(t, i64) for t in HB.support_indices(
+                grids[:n_sup], caps[:n_sup], xyz, presorted=orders[:n_sup]))
+            ut = HB.build_unet_tables(grids, caps, stencil_offsets(3))
+            ut = HB.UNetTables(*(tuple(up(t, i64) for t in part)
+                                 for part in ut))
+            coords = tuple(up(g.coords, i64) for g in grids)
+            tm.lap("unet tables")
+            basis_f, normal_f = SU.sparse_unet_apply(
+                cfg, self.network, ut, [len(g.keys) for g in grids], caps,
+                coords, xyz_t, feat, pt_sup[0])
+            del ut, coords
+            tm.lap("sparse unet")
 
+        if plan is None:
+            return self._support_row_solve(cfg, grids, caps, xyz_t,
+                                           input_normal, basis_f, normal_f,
+                                           pt_sup, tm, times)
+
+        spec = plan.spec
+        vox_cell = tuple(up(v, i64) for v in plan.vox_cell)
+        vox_active = tuple(up(v) for v in plan.vox_active)
         nvals = []
         for d in range(cfg.adaptive_depth):
             nv = normal_f[d]
-            if cfg.feature == "normal":
-                nv = nv + _splat_normals_dense(
-                    spec, plan.origins, d, cfg.voxel_size, xyz_t, feat,
-                    vox_cell[d], vox_active[d])
+            if input_normal is not None:
+                if dense_unet:
+                    nv = nv + _splat_normals_dense(
+                        spec, plan.origins, d, cfg.voxel_size, xyz_t,
+                        input_normal, vox_cell[d], vox_active[d])
+                else:
+                    nv = nv + P.splat_normals_to_grid(
+                        P.level_voxel_size(cfg, d), caps[d], xyz_t,
+                        input_normal, pt_sup[d])
             nvals.append(nv)
         cdt = getattr(torch, cfg.solver_compute_dtype)
         alphas, dense_xs, (iters, rel_res) = lattice_solve(
@@ -223,6 +273,27 @@ class Reconstructor:
                                      cfg.solver_max_iters),
                          phase_times=times)
 
+    def _support_row_solve(self, cfg, grids, caps, xyz_t, input_normal,
+                           basis_f, normal_f, pt_sup, tm, times
+                           ) -> HostField:
+        """Route B: the support-row kernel solve on the splat hierarchy
+        (value rows at the points, gradient rows at the voxel centers of
+        the adaptive depths)."""
+        grad_sup = tuple(
+            torch.as_tensor(t.astype(np.int64), device=self.device)
+            for t in HB.support_indices(grids, caps,
+                                        P.grad_row_centers(cfg, grids)))
+        tm.lap("support tables")
+        field = P.solve_kernel_field(cfg, self.network, grids, caps, xyz_t,
+                                     input_normal, basis_f, normal_f,
+                                     pt_sup, grad_sup)
+        tm.lap("support-row solve")
+        iters, rel_res = field.cg_stats
+        return HostField(cfg, grids, field.alpha, None,
+                         SolverStats(iters, rel_res, cfg.solver_tol,
+                                     cfg.solver_max_iters),
+                         phase_times=times, field=field, capacities=caps)
+
     # -------------------------------------------------------------- helpers
     def _pick_voxel_size(self, xyz: np.ndarray,
                          detail_level: Optional[float],
@@ -243,11 +314,12 @@ class Reconstructor:
 
     def _runtime_config(self, vs: float, approx_kernel_grad: bool,
                         solver_tol: float, solver_max_iters: Optional[int],
-                        feature: str) -> P.PipelineConfig:
+                        feature: str, fused_mode: bool = False
+                        ) -> P.PipelineConfig:
         return dataclasses.replace(
             self.config, voxel_size=vs,
             approx_kernel_grad=approx_kernel_grad, solver_tol=solver_tol,
             solver_max_iters=solver_max_iters or self.config.solver_max_iters,
-            feature=feature,
+            feature=feature, fused_mode=fused_mode,
             solver_compute_dtype=resolve_solver_dtype(
                 self.config.solver_compute_dtype, self.device))

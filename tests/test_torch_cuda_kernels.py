@@ -1,8 +1,9 @@
-"""The AV0 cascade CUDA kernels against their plain PyTorch versions on
-the card (marker ``cuda``; skipped where there is no CUDA device).  Run
-on a machine with the card:
+"""The CUDA kernels (the AV0 cascade pair and the window) against their
+plain PyTorch versions on the card (marker ``cuda``; skipped where there
+is no CUDA device).  Run on a machine with the card, where JAX need not
+be installed (``--noconftest`` skips the JAX set-up of conftest.py):
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
 import pytest
@@ -63,3 +64,32 @@ def test_adjoint_pair(gen):
     rhs = float(sum((a.double() * x.double()).sum()
                     for a, x in zip(adj, xs)))
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.parametrize("q", [1, 1000, 1 << 20])
+def test_window_kernel_matches_plain(gen, q):
+    """The window kernel against its plain version on local offsets that
+    reach past the support (|t| up to 2.5): rtol 1e-5 / atol 1e-6, the
+    bound of the JAX package's own window test (FMA contraction may move
+    an ulp).  The counter counts the launch."""
+    from nksr_tpu_torch.ops import window_basis as WB
+    x = (torch.rand((q, 8, 3), device="cuda", generator=gen) * 5.0 - 2.5)
+    before = WB.window_and_grad_fused.launches
+    w, dw = WB.window_and_grad_fused(x)
+    torch.cuda.synchronize()
+    rw, rdw = WB.window_and_grad_plain(x)
+    assert w.shape == (q, 8) and dw.shape == (q, 8, 3)
+    torch.testing.assert_close(w, rw, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dw, rdw, rtol=1e-5, atol=1e-6)
+    assert WB.window_and_grad_fused.launches == before + 1
+
+
+def test_window_kernel_rejects_bad_input(gen):
+    """A CUDA tensor of another shape or type raises instead of falling
+    back to the plain version."""
+    from nksr_tpu_torch.ops import window_basis as WB
+    with pytest.raises(ValueError):
+        WB.window_and_grad_fused(torch.zeros((4, 8, 3), device="cuda",
+                                             dtype=torch.float64))
+    with pytest.raises(ValueError):
+        WB.window_and_grad_fused(torch.zeros((4, 3, 8), device="cuda"))

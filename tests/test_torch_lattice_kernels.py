@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from nksr_tpu.fields import lattice as JLAT
 from nksr_tpu.fields import lattice_pallas as JLP
+from nksr_tpu_torch import cuda_build as CB
 from nksr_tpu_torch.fields import lattice as LAT
 from nksr_tpu_torch.fields import lattice_kernels as LK
 
@@ -146,7 +147,9 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """The kernels' build (nksr_tpu_torch/cuda_build.py) raises where
+    there is no nvcc."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        LK._nvcc()
+        CB.build_kernels()
