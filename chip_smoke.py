@@ -6,11 +6,17 @@
 Phases (any failure ends the run with a non-zero exit):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build every kernel of nksr_tpu_torch/csrc with nvcc for sm_90a (one
-     nvcc per source, all at once);
-  2. hold each kernel against its plain PyTorch version on the card, at
-     a small size and at the size its route gives it, and time both;
+     nvcc per source, all at once), then run the kernel probes
+     (``python -m nksr_tpu_torch.scripts.probe_kernels``: 17 probe
+     kernels and the cascade kernels at the TPU bisect's specs, each on
+     its script's input and a random one) and hold each probe kernel
+     against its plain version, both timed as device time in a CUDA graph;
+  2. hold each cascade and window kernel against its plain PyTorch
+     version on the card, at small sizes (the bisect's depth-2 spec and
+     the test's depth-3 spec) and at the size its route gives it, and
+     time both;
   3. the splat path on the dense lattice at the bench's size: the
-     scene_big checkpoint, bench.synthetic_scene(1_000_000),
+     scene_big checkpoint, utils.scenes.synthetic_scene(1_000_000),
      reconstruct(structure="splat", voxel_size=0.1, solver_tol=1e-4,
      solver_max_iters=16) and extract_dual_mesh(mise_iter=1); one
      warm-up lap and two timed laps, the kernels' launch counts, and the
@@ -20,9 +26,15 @@ Phases (any failure ends the run with a non-zero exit):
      support-row solve with the window kernel, host dual MC);
   5. route A: a 60 m x 60 m tile of 1M points, whose feature lattices are
      over the dense UNet's budget (gather-conv UNet, lattice solve with
-     the cascade kernels, host dual MC over the lattice evaluator).
-Each path is driven with every launch count set to 0 just before it and
-read just after.
+     the cascade kernels, host dual MC over the lattice evaluator);
+  6. the row-stage scatter microbenchmark at its study's shapes
+     (``python -m nksr_tpu_torch.scripts.microbench_scatter``: S = 2^19
+     rows into C0 = 5,326,848 cells at 32 and 128 lanes), which holds the
+     three sorted-scatter kernels against their plain versions and times
+     them beside PyTorch's index_add_, index_copy_ and index_select.
+Each path (the probe run, the three reconstructions, the microbenchmark)
+is driven with every launch count set to 0 just before it and read just
+after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -35,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -50,6 +63,7 @@ ERR_LIMIT = 0.0075
 # density (0.00562, 160k points on 40 m x 40 m, measured on the CPU)
 ROUTE_ERR_LIMIT = 0.0085
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
+BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 # H100 SXM data-sheet peaks: HBM bytes and f32 operations per millisecond
 HBM_B_PER_MS = 3.35e12 / 1e3
 F32_OP_PER_MS = 67e12 / 1e3
@@ -167,6 +181,55 @@ def compare_window(WB, q: int, gen, timed: bool):
     return out
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``, the host's dispatch taken
+    out: ``reps`` calls captured in one CUDA graph, one replay timed with
+    CUDA events after a warm-up replay.  For kernels of a few microseconds,
+    where ``cuda_ms`` would read the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings():
+        # the plain version of a reshape or a slice is a view: no device
+        # work, so its graph is empty
+        warnings.filterwarnings("ignore", message=".*CUDA Graph is empty")
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_probes(P, seed: int):
+    """Each probe kernel against its plain version on a random input:
+    exact, except the two f32 sums (rtol 1e-5, atol 1e-5 of the largest
+    value); both timed in turns by ``graph_ms``.  The bound counts the
+    bytes each probe's function needs (``Probe.n_bytes``)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for p in P.PROBES:
+        ins = [torch.from_numpy(x).cuda() for x in p.inputs("random", rng)]
+        got = p(*ins)
+        ok, err = P.agree(got.cpu().numpy(), p.plain(*ins).cpu().numpy(),
+                          p.exact)
+        if not ok:
+            raise AssertionError(f"probe {p.key}: kernel differs from its "
+                                 f"plain version, max abs error {err}")
+        p1 = graph_ms(lambda: p.plain(*ins), 100)
+        k1 = graph_ms(lambda: p(*ins), 100)
+        k2 = graph_ms(lambda: p(*ins), 100)
+        p2 = graph_ms(lambda: p.plain(*ins), 100)
+        out[p.key] = {"err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "bound": bound_ms(p.n_bytes(), p.ops)}
+    return out
+
+
 def main_path_lap(recon, xyz, nrm):
     """One reconstruct + extract_dual_mesh; (t_recon, t_mesh, field, mesh)."""
     t0 = time.perf_counter()
@@ -236,16 +299,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from bench import synthetic_scene
     from nksr_tpu_torch import PipelineConfig, Reconstructor
     from nksr_tpu_torch import cuda_build as CB
     from nksr_tpu_torch.fields import lattice as LAT
     from nksr_tpu_torch.fields import lattice_kernels as LK
     from nksr_tpu_torch.fields import support as S
+    from nksr_tpu_torch.ops import probes as P
+    from nksr_tpu_torch.ops import sorted_scatter as SS
     from nksr_tpu_torch.ops import window_basis as WB
+    from nksr_tpu_torch.scripts import microbench_scatter as MB
+    from nksr_tpu_torch.scripts import probe_kernels as PK
     from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.scenes import synthetic_scene
     counters = (LK.av0_cascade, LK.av0_adjoint_cascade,
                 WB.window_and_grad_fused)
+    scatter_counters = (SS.scatter_rate_write, SS.scatter_rate_read,
+                        SS.blocked_sorted_scatter)
 
     # ---- phase 0: the card
     smi = subprocess.run(
@@ -266,15 +335,39 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 print("  " + line.strip())
 
-    # ---- phase 2: kernels vs plain versions (test spec, then the plan
-    # spec of the main path, taken from a warm-up lap of phase 3)
-    small = LAT.LatticeSpec(dims=SMALL_DIMS, k=4, depth=3, adaptive_depth=1,
-                            s_pt=64, p_rows=4, s_gr=32, n_pts_cap=256)
+    # ---- phase 1: the probe run (its own path), then each probe kernel
+    # against its plain version
+    t_phase = time.perf_counter()
+    reset_counts(P.PROBES)
+    probe_res = PK.run_probes(
+        "cuda", log=lambda m: print("[phase 1] probe " + m, flush=True))
+    probe_launches = {p.key: p.launches for p in P.PROBES}
+    failed = [r["name"] for r in probe_res if not r["ok"]]
+    if failed:
+        raise AssertionError(f"[phase 1] probes failed: {failed}")
+    if min(probe_launches.values()) <= 0:
+        raise AssertionError(f"[phase 1] a probe kernel did not run: "
+                             f"{probe_launches}")
+    probe_cmp = compare_probes(P, seed=1)
+    probe_err = {r["name"]: r["max_abs_err"] for r in probe_res}
+    print(f"[phase 1] {len(P.PROBES)} probe kernels against their plain "
+          "versions: " + ", ".join(f"{k} {v['ms'] * 1e3:.1f} us"
+                                   for k, v in probe_cmp.items())
+          + f"; probes and checks {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- phase 2: kernels vs plain versions (the bisect's and the test's
+    # specs, then the plan spec of the main path, taken from a warm-up lap
+    # of phase 3)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res_small = compare_kernels(LK, small, gen, timed=False)
-    print(f"[phase 2] test spec {SMALL_DIMS}: forward exact (f32, bf16), "
-          f"adjoint max err {res_small['adj_err']:.3e}, pair rel "
-          f"{res_small['pair_rel']:.2e}", flush=True)
+    for dims in (BISECT_DIMS, SMALL_DIMS):
+        small = LAT.LatticeSpec(dims=dims, k=4, depth=len(dims),
+                                adaptive_depth=1, s_pt=64, p_rows=4, s_gr=32,
+                                n_pts_cap=256)
+        res_small = compare_kernels(LK, small, gen, timed=False)
+        print(f"[phase 2] spec {dims}: forward exact (f32, bf16), adjoint "
+              f"max err {res_small['adj_err']:.3e}, pair rel "
+              f"{res_small['pair_rel']:.2e}", flush=True)
     win_small = compare_window(WB, 1000, gen, timed=False)
     print(f"[phase 2] window kernel at Q 1000: max err "
           f"{win_small['err']:.3e}", flush=True)
@@ -365,6 +458,19 @@ def main() -> int:
         raise AssertionError(f"[phase 5] a cascade kernel did not run on "
                              f"route A: {a_launches}")
     del field, mesh
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the row-stage scatter microbenchmark (its own path)
+    t_phase = time.perf_counter()
+    reset_counts(scatter_counters)
+    bench_res = MB.run("cuda", log=lambda m: print("[phase 6] " + m,
+                                                   flush=True))
+    scatter_launches = [fn.launches for fn in scatter_counters]
+    print(f"[phase 6] launches {scatter_launches} in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if min(scatter_launches) <= 0:
+        raise AssertionError(f"[phase 6] a scatter kernel did not run: "
+                             f"{scatter_launches}")
 
     (fb, fby), (ab, aby) = av0_bounds(spec)
     kernels = [
@@ -388,6 +494,28 @@ def main() -> int:
          "bound_ms": win["bound"][0], "bound_by": win["bound"][1],
          "library_ms": None},
     ]
+    # the scatter kernels at w = 32 and unique indices (the study's width;
+    # phase 6 prints w = 128 too); max_abs_err over every check of the run
+    for fn, body in zip(scatter_counters, (":69", ":78", ":129")):
+        rec = bench_res[fn.__name__]
+        kb, kby = bound_ms(rec["bytes"], rec["ops"])
+        kernels.append(
+            {"name": fn.__name__, "route": "cuda",
+             "source": "nksr_tpu_torch/csrc/sorted_scatter.cu",
+             "replaces": "scripts/microbench_scatter.py" + body,
+             "launches": fn.launches, "max_abs_err": rec["max_abs_err"],
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": kb,
+             "bound_by": kby, "library_ms": rec["library_ms"]})
+    for p in P.PROBES:
+        rec = probe_cmp[p.key]
+        kernels.append(
+            {"name": f"probe_{p.key}", "route": "cuda",
+             "source": "nksr_tpu_torch/csrc/probes.cu",
+             "replaces": p.replaces, "launches": probe_launches[p.key],
+             "max_abs_err": max(rec["err"], probe_err[p.name]),
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+             "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

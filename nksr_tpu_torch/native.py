@@ -1,8 +1,9 @@
-"""Host sort, join and lattice-index ops: ctypes over the JAX package's
-own C++ sources ``nksr_tpu/native/sortops.cpp`` and ``kdtree.cpp`` (for
-its key searches), compiled with ``g++`` into one library in this
-package's build directory at first use.  Importing ``nksr_tpu`` would
-import JAX, so only the source files are shared, read by path.
+"""Host sort, join and lattice-index ops: ctypes over this package's copy
+of the JAX package's C++ host sources, ``host_src/sortops.cpp`` and
+``host_src/kdtree.cpp`` (for its key searches), compiled with ``g++``
+into one library in this package's build directory at first use.  The
+copies are the JAX package's code line for line (a test holds them
+equal), so the port builds from its own tree alone.
 
 Every op keeps the numpy fallback the original module has
 (nksr_tpu/native/__init__.py), taken when no C++ toolchain is present;
@@ -21,9 +22,9 @@ from typing import Optional
 
 import numpy as np
 
-_NATIVE = Path(__file__).resolve().parent.parent / "nksr_tpu" / "native"
-SOURCES = (_NATIVE / "sortops.cpp", _NATIVE / "kdtree.cpp")
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_PKG = Path(__file__).resolve().parent
+SOURCES = (_PKG / "host_src" / "sortops.cpp", _PKG / "host_src" / "kdtree.cpp")
+BUILD_DIR = _PKG / "_build"
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)

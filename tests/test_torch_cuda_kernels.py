@@ -1,16 +1,20 @@
-"""The CUDA kernels (the AV0 cascade pair and the window) against their
-plain PyTorch versions on the card (marker ``cuda``; skipped where there
-is no CUDA device).  Run on a machine with the card, where JAX need not
-be installed (``--noconftest`` skips the JAX set-up of conftest.py):
+"""The CUDA kernels (the AV0 cascade pair, the window, the sorted
+scatters and the probes) against their plain PyTorch versions on the card
+(marker ``cuda``; skipped where there is no CUDA device).  Run on a
+machine with the card, where JAX need not be installed (``--noconftest``
+skips the JAX set-up of conftest.py):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from nksr_tpu_torch.fields import lattice as LAT
 from nksr_tpu_torch.fields import lattice_kernels as LK
+from nksr_tpu_torch.ops import probes as P
+from nksr_tpu_torch.ops import sorted_scatter as SS
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +97,78 @@ def test_window_kernel_rejects_bad_input(gen):
                                              dtype=torch.float64))
     with pytest.raises(ValueError):
         WB.window_and_grad_fused(torch.zeros((4, 3, 8), device="cuda"))
+
+
+@pytest.mark.parametrize("dup", [False, True], ids=["unique", "dup"])
+@pytest.mark.parametrize("w", [32, 128])
+def test_scatter_kernels_match_plain(gen, w, dup):
+    """The three sorted-scatter kernels against their plain versions:
+    exact for unique indices (one row a cell), else rtol 1e-5 and atol
+    1e-5 of the largest output (f32 sums in another order).  The blocked
+    kernel at the card's block size and at a tile near the shared-memory
+    limit; each counter counts its launches."""
+    rng = np.random.default_rng(0)
+    c0, s = 100_003, 8192
+    idx = (np.sort(rng.integers(0, c0 // 8, s)) if dup else
+           np.sort(rng.choice(c0, s, replace=False))).astype(np.int32)
+    y = torch.from_numpy(rng.standard_normal((s, w)).astype(np.float32)
+                         ).cuda()
+    ji = torch.from_numpy(idx).cuda()
+    before = SS.blocked_sorted_scatter.launches
+    for bc in (SS.card_block_cells(w), SS.MAX_TILE_BYTES // (4 * w)):
+        starts = torch.from_numpy(SS.block_starts(idx, c0, bc)).cuda()
+        got = SS.blocked_sorted_scatter(y, ji, starts, c0, bc)
+        ref = SS.blocked_sorted_scatter_plain(y, ji, starts, c0, bc)
+        if dup:
+            torch.testing.assert_close(got, ref, rtol=1e-5,
+                                       atol=1e-5 * float(ref.abs().max()))
+        else:
+            assert torch.equal(got, ref)
+    assert SS.blocked_sorted_scatter.launches == before + 2
+    r_idx = torch.from_numpy(np.sort(rng.integers(0, 2048, 4096)).astype(
+        np.int32)).cuda()
+    ry = torch.randn((4096, w), device="cuda", generator=gen)
+    for got, ref in ((SS.scatter_rate_write(r_idx, ry, 2048),
+                      SS.scatter_rate_write_plain(r_idx, ry, 2048)),
+                     (SS.scatter_rate_read(r_idx, ry),
+                      SS.scatter_rate_read_plain(r_idx, ry))):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_scatter_kernels_reject_bad_input(gen):
+    y = torch.zeros((16, 6), device="cuda")
+    idx = torch.zeros((16,), dtype=torch.int32, device="cuda")
+    starts = torch.tensor([0, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):          # w not a multiple of 4
+        SS.blocked_sorted_scatter(y, idx, starts, 16, 16)
+    with pytest.raises(ValueError):          # int64 indices
+        SS.scatter_rate_write(idx.long(), y, 16)
+    with pytest.raises(ValueError):          # tile over shared memory
+        SS.blocked_sorted_scatter(torch.zeros((16, 128), device="cuda"),
+                                  idx, starts, 16, 1024)
+
+
+@pytest.mark.parametrize("key", [p.key for p in P.PROBES])
+def test_probe_kernel_matches_plain(gen, key):
+    """Each probe kernel on its script's input and a random one, against
+    its plain version on the card and on the CPU; the counter counts
+    both."""
+    p = next(p for p in P.PROBES if p.key == key)
+    rng = np.random.default_rng(0)
+    before = p.launches
+    for kind in ("script", "random"):
+        ins = p.inputs(kind, rng)
+        cu = [torch.from_numpy(x).cuda() for x in ins]
+        got = p(*cu)
+        torch.cuda.synchronize()
+        assert P.agree(got.cpu().numpy(), p.plain(*cu).cpu().numpy(),
+                       p.exact)[0], kind
+        assert P.agree(got.cpu().numpy(), p.plain(*map(
+            torch.from_numpy, ins)).numpy(), p.exact)[0], kind
+    assert p.launches == before + 2
+
+
+def test_probe_kernels_reject_bad_input(gen):
+    with pytest.raises(ValueError):
+        P.PROBES[0](torch.zeros((32, 256), device="cuda"))
