@@ -14,13 +14,17 @@ Phases (any failure ends the run with a non-zero exit):
   2. hold each cascade and window kernel against its plain PyTorch
      version on the card, at small sizes (the bisect's depth-2 spec and
      the test's depth-3 spec) and at the size its route gives it, and
-     time both;
+     time both; the adjoint in its three input forms (an f32 buffer read
+     in bf16, as the solve calls it and as it is timed; a bf16 buffer; an
+     f32 buffer read in f32), each also bit-equal from call to call;
   3. the splat path on the dense lattice at the bench's size: the
      scene_big checkpoint, utils.scenes.synthetic_scene(1_000_000),
      reconstruct(structure="splat", voxel_size=0.1, solver_tol=1e-4,
      solver_max_iters=16) and extract_dual_mesh(mise_iter=1); one
      warm-up lap and two timed laps, the kernels' launch counts, and the
-     terrain vertex error against the analytic height field;
+     terrain vertex error against the analytic height field; then one
+     more lap in which torch.profiler records one lattice-solve matvec
+     (the ten device ops by device time and the matvec's device total);
   4. route B, the sparse fallback: the same call on a 100 m x 100 m tile
      of 1M points, whose lattice plan is over budget (gather-conv UNet,
      support-row solve with the window kernel, host dual MC);
@@ -64,6 +68,11 @@ ERR_LIMIT = 0.0075
 ROUTE_ERR_LIMIT = 0.0085
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
 BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
+# the adjoint's input forms: (buffer dtype, compute dtype) of the solve's
+# matvec and right-hand side, of a bf16 buffer, of the Jacobi diagonal
+ADJ_FORMS = ((torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.float32))
 # H100 SXM data-sheet peaks: HBM bytes and f32 operations per millisecond
 HBM_B_PER_MS = 3.35e12 / 1e3
 F32_OP_PER_MS = 67e12 / 1e3
@@ -95,21 +104,24 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def av0_bounds(spec):
-    """Bytes and operations of the bf16 forward and the bf16-read adjoint
-    at ``spec``: every coefficient row read (written) once in f32, every
-    cell-0 lane written (read) once in bf16; the adjoint adds each lane
-    into its coefficient once."""
+    """Bounds of the bf16 forward, of the adjoint reading an f32 buffer
+    (the solve's form) and of the adjoint reading a bf16 buffer, at
+    ``spec``: every coefficient row read (written) once in f32, every
+    cell-0 lane written (read) once in its buffer's type; the adjoint
+    adds each lane into its coefficient once."""
     coef = sum(spec.n_cells(d) for d in range(spec.depth)) * spec.k * 4
     lanes = spec.n_cells(0) * spec.lanes
-    return (bound_ms(coef + 2 * lanes, 0), bound_ms(coef + 2 * lanes, lanes))
+    return (bound_ms(coef + 2 * lanes, 0), bound_ms(coef + 4 * lanes, lanes),
+            bound_ms(coef + 2 * lanes, lanes))
 
 
 def compare_kernels(LK, spec, gen, timed: bool):
     """Kernel vs plain version on the same random inputs.  Forward: exact
     in f32 and bf16 (pure selection).  Adjoint: rtol 1e-5, atol 1e-5 of
-    the largest output (f32 sums in another order), in f32 and with the
-    bf16 read the solve uses.  Pair <fwd(x), z> = <x, adj(z)> to 1e-5
-    relative."""
+    the largest output (f32 sums in another order), in each of
+    ``ADJ_FORMS``, and two calls bit-equal.  Pair <fwd(x), z> = <x,
+    adj(z)> to 1e-5 relative.  Timed: the bf16 forward, the adjoint in
+    the solve's form (f32 buffer read in bf16) and on a bf16 buffer."""
     dev = "cuda"
     xs = [torch.randn((spec.n_cells(d), spec.k), device=dev, generator=gen)
           for d in range(spec.depth)]
@@ -122,15 +134,21 @@ def compare_kernels(LK, spec, gen, timed: bool):
             raise AssertionError(f"av0_cascade {dt} differs from plain: max "
                                  f"{(got.float() - ref.float()).abs().max()}")
         del got, ref
-        zt = z.to(dt)
-        got = LK.av0_adjoint_cascade(spec, zt, dt)
-        ref = LK.av0_adjoint_cascade_plain(spec, zt, dt)
+    for zdt, cdt in ADJ_FORMS:
+        zt = z.to(zdt)
+        got = LK.av0_adjoint_cascade(spec, zt, cdt)
+        ref = LK.av0_adjoint_cascade_plain(spec, zt, cdt)
         for g, r in zip(got, ref):
             err = float((g - r).abs().max())
             torch.testing.assert_close(g, r, rtol=1e-5,
                                        atol=1e-5 * float(r.abs().max()))
             out["adj_err"] = max(out["adj_err"], err)
-        del got, ref, zt
+        del ref
+        again = LK.av0_adjoint_cascade(spec, zt, cdt)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"av0_adjoint_cascade {zdt} read in {cdt}:"
+                                 " two calls differ")
+        del got, again, zt
     fwd = LK.av0_cascade(spec, xs, torch.float32)
     lhs = float((fwd.double() * z.double()).sum())
     del fwd
@@ -140,8 +158,6 @@ def compare_kernels(LK, spec, gen, timed: bool):
         raise AssertionError(f"adjoint pair: {lhs} vs {rhs}")
     out["pair_rel"] = abs(lhs - rhs) / abs(lhs)
     if timed:
-        zb = z.to(torch.bfloat16)
-        del z
         bf = torch.bfloat16
         # plain, kernel, kernel, plain: each version timed in two turns
         p1 = cuda_ms(lambda: LK.av0_cascade_plain(spec, xs, bf), 2)
@@ -149,11 +165,15 @@ def compare_kernels(LK, spec, gen, timed: bool):
         k2 = cuda_ms(lambda: LK.av0_cascade(spec, xs, bf), 10)
         p2 = cuda_ms(lambda: LK.av0_cascade_plain(spec, xs, bf), 2)
         out["fwd_ms"], out["fwd_plain_ms"] = min(k1, k2), min(p1, p2)
-        p1 = cuda_ms(lambda: LK.av0_adjoint_cascade_plain(spec, zb, bf), 2)
-        k1 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, zb, bf), 10)
-        k2 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, zb, bf), 10)
-        p2 = cuda_ms(lambda: LK.av0_adjoint_cascade_plain(spec, zb, bf), 2)
+        p1 = cuda_ms(lambda: LK.av0_adjoint_cascade_plain(spec, z, bf), 2)
+        k1 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, z, bf), 10)
+        k2 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, z, bf), 10)
+        p2 = cuda_ms(lambda: LK.av0_adjoint_cascade_plain(spec, z, bf), 2)
         out["adj_ms"], out["adj_plain_ms"] = min(k1, k2), min(p1, p2)
+        zb = z.to(bf)
+        out["adj_bf16_ms"] = min(
+            cuda_ms(lambda: LK.av0_adjoint_cascade(spec, zb, bf), 10)
+            for _ in range(2))
     return out
 
 
@@ -179,6 +199,44 @@ def compare_window(WB, q: int, gen, timed: bool):
         # 96 B read, 128 B written and 26 f32 operations a (query, corner)
         out["bound"] = bound_ms(q * 224, q * 8 * 26)
     return out
+
+
+def profile_matvec(LAT, recon, xyz, nrm):
+    """One more splat reconstruct in which the lattice solve's first
+    matvec runs once more, warmed, under torch.profiler (CPU and CUDA
+    activity), and is then timed by CUDA events over 3 calls.  Returns
+    (device events, the kernels and copies, as (device ms, name, calls)
+    by device time; their total in ms; CUDA-event ms a matvec)."""
+    real_pcg = LAT.pcg
+    rec = {}
+
+    def pcg_probe(matvec, rhs, **kw):
+        matvec(rhs)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            matvec(rhs)
+            torch.cuda.synchronize()
+        rec["prof"] = prof
+        rec["ms"] = cuda_ms(lambda: matvec(rhs), 3)
+        return real_pcg(matvec, rhs, **kw)
+
+    LAT.pcg = pcg_probe
+    try:
+        recon.reconstruct(xyz, nrm, structure="splat", **KW)
+    finally:
+        LAT.pcg = real_pcg
+    rows = []
+    for e in rec["prof"].key_averages():
+        # device events only: an operator's row repeats its kernels' time
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        t = e.self_device_time_total
+        if t > 0:
+            rows.append((t / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows), rec["ms"]
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -383,12 +441,17 @@ def main() -> int:
     del field, mesh
     torch.cuda.empty_cache()
     res = compare_kernels(LK, spec, gen, timed=True)
+    (fb, fby), (ab, aby), (ab16, _) = av0_bounds(spec)
     print(f"[phase 2] main-path spec {spec.dims} lanes {spec.lanes}: "
-          f"forward exact (f32, bf16), adjoint max err {res['adj_err']:.3e},"
-          f" pair rel {res['pair_rel']:.2e}", flush=True)
+          f"forward exact (f32, bf16), adjoint max err {res['adj_err']:.3e} "
+          "in its three forms, bit-equal from call to call, pair rel "
+          f"{res['pair_rel']:.2e}", flush=True)
+    print(f"[phase 2] adjoint on a bf16 buffer {res['adj_bf16_ms']:.3f} ms "
+          f"(bound {ab16:.3f} ms)", flush=True)
     print(f"[phase 2] bf16 forward {res['fwd_ms']:.3f} ms (plain "
-          f"{res['fwd_plain_ms']:.3f}); bf16-read adjoint {res['adj_ms']:.3f}"
-          f" ms (plain {res['adj_plain_ms']:.3f})", flush=True)
+          f"{res['fwd_plain_ms']:.3f}, bound {fb:.3f}); adjoint on the "
+          f"solve's f32 buffer read in bf16 {res['adj_ms']:.3f} ms (plain "
+          f"{res['adj_plain_ms']:.3f}, bound {ab:.3f} by {aby})", flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at the bench's size, two timed laps
@@ -424,6 +487,16 @@ def main() -> int:
         raise AssertionError(f"terrain error mean {err.mean()} > {ERR_LIMIT}")
     splat_launches = launches
     del field, mesh
+    torch.cuda.empty_cache()
+    rows, dev_ms, ev_ms = profile_matvec(LAT, recon, xyz, nrm)
+    if rows:
+        print(f"[phase 3] profiled matvec: device total {dev_ms:.3f} ms "
+              f"(CUDA events {ev_ms:.3f} ms a matvec); top ten: "
+              + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                          for t, name, n in rows[:10]), flush=True)
+    else:
+        print("[phase 3] profiled matvec: the profiler saw no device time; "
+              f"CUDA events {ev_ms:.3f} ms a matvec", flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 4: route B (plan over the lattice budget)
@@ -472,7 +545,6 @@ def main() -> int:
         raise AssertionError(f"[phase 6] a scatter kernel did not run: "
                              f"{scatter_launches}")
 
-    (fb, fby), (ab, aby) = av0_bounds(spec)
     kernels = [
         {"name": "av0_cascade", "route": "cuda",
          "source": "nksr_tpu_torch/csrc/av0_cascade.cu",

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels in nksr_tpu/fields/lattice_pallas.py:
 //   av0_cascade_pallas          (_kernel_fwd)  -> av0_fwd_kernel
-//   av0_adjoint_cascade_pallas  (_kernel_adj + halo fold) -> av0_adj_kernel
+//   av0_adjoint_cascade_pallas  (_kernel_adj + halo fold)
+//                               -> av0_adj_bricks, then av0_adj_corners
 //
 // Per depth d and cell corner (i, j, l) in {0,1}^3, with lane group
 // g = 8d + 4i + 2j + l:
@@ -16,28 +17,53 @@
 // What bounds them on the H100: both move data and do no arithmetic to
 // speak of.  The forward writes cells_0 * lanes values (2.2 GB of bf16
 // at the 1M-point bench plan: 8.6M cells x 128 lanes) and reads
-// coefficient rows that the L2 mostly serves; the adjoint reads the same
-// buffer once.
+// coefficient rows that the L2 mostly serves.  The adjoint reads that
+// buffer once and writes the coefficients: the lattice solve hands it
+// f32 (4.42 GB at that plan; with the 0.17 GB coefficient write its
+// bound is 1.368 ms at 3.35 TB/s), read in bf16 by the matvec.
 //
-// Design:
-//   * forward: one thread per (depth-0 cell, depth, corner), the depth
-//     from blockIdx.y.  It reads one k-wide f32 coefficient row (one
-//     16 B load at k=4) and writes k values in the output type (one 8 B
-//     store in bf16); the 8 corner threads of a cell write one contiguous
-//     8k-lane block.
-//   * adjoint, written as a gather: one thread per (depth d, coarse cell,
-//     corner c).  It sums corner c's k lanes over the 2^(3d) depth-0
-//     cells below the ancestor whose corner c is this coarse cell,
-//     reading the compute type and accumulating in f32; the 8 corner
-//     threads of a cell are adjacent lanes and combine by a fixed
-//     butterfly.  Every AV0 element is read by exactly one thread, there
-//     are no atomics, the result is deterministic, and the Pallas halo
-//     fold disappears.  The deepest depth (the longest sums) takes
-//     blockIdx.y = 0, so its blocks start first.
-//   * per-depth lattice pointers and dims are read from the kernel
-//     parameters with constant indices only (select_depth): a dynamic
-//     index spills the parameter struct to local memory in every thread,
-//     which cost 10x the write bound in the first version.
+// Forward: one thread per (depth-0 cell, depth, corner), the depth from
+// blockIdx.y.  It reads one k-wide f32 coefficient row (one 16 B load at
+// k=4) and writes k values in the output type (one 8 B store in bf16);
+// the 8 corner threads of a cell write one contiguous 8k-lane block.
+//
+// Adjoint, two kernels, no atomics, every f32 sum in a fixed order (two
+// calls on one input are bit-equal):
+//   * av0_adj_bricks: one CTA per brick of 8^3 depth-0 cells (any plan of
+//     depth <= 4 nests every depth-d ancestor, d <= 3, inside one brick).
+//     It streams the lanes of depths >= 1 (lane 8k onward) of its rows
+//     once: neighbouring threads load neighbouring 16 B, so every 128 B
+//     line is used whole.  Each thread sums the 8 children of a depth-1
+//     ancestor in registers; shared memory then folds 8 of those into a
+//     depth-2 ancestor and 8 of those into the brick, every value owned
+//     by one thread.  Depth d's lanes stop at level min(d, 3) and are
+//     written as partials P_d, one row of 8k f32 per ancestor (138, 17
+//     and 2 MB at the bench plan).
+//   * av0_adj_corners: one thread per (depth, coefficient cell) sums the
+//     8 corner partials P_d[cell - off(c), c] in corner order, dropping
+//     ancestors past the edge.  Depth 0 takes its 8 neighbours straight
+//     from the input's depth-0 lanes: a warp's 32 cells read 16 B of 32
+//     neighbouring rows per corner, the other half of each sector comes
+//     with the next corner, and the neighbouring x-plane (2.6 MB of
+//     depth-0 lanes at the bench plan) is still in the 50 MB L2.  A
+//     depth above 3 (no plan uses one) loops over the 8^(d-3) brick
+//     partials under each ancestor.
+//   About 4.9 GB move per f32 call at the bench plan.  An f32 buffer read
+//   in bf16 is rounded in registers (__float2bfloat16_rn), bit for bit
+//   the cast the solve would otherwise make first.
+//
+// Lessons kept:
+//   * per-depth pointers, dims and partial offsets are read from the
+//     kernel parameters with constant indices only (select_depth,
+//     select_part): a dynamic index spills the parameter struct to local
+//     memory in every thread, which cost 10x the write bound in the first
+//     forward.
+//   * cell indices are 32-bit (dims_ok checks every n_d * 8 < 2^31);
+//     element offsets are 64-bit.
+//   * depth 0 staged in shared memory instead (a CTA walking x-planes of a
+//     16 x 16 (y, z) tile, each plane's depth-0 lanes loaded once) was 3%
+//     slower on an H100 than the gather above, whose neighbour rows L1
+//     and L2 already serve.
 // Nothing assumes lanes == 128: lanes = depth * 8 * k.
 
 #include <cuda_bf16.h>
@@ -45,12 +71,23 @@
 #include <stdint.h>
 
 #define AV0_MAX_DEPTH 8
+#define ADJ_LEVELS 3        // a stage-1 brick is 2^3 depth-0 cells a side
+#define ADJ_CHUNK 96        // lanes one pass of a brick folds (shared memory)
+#define ADJ_THREADS 256
 
 extern "C" {
 struct Av0Spec {
   int32_t depth;
   int32_t k;
   int32_t dims[AV0_MAX_DEPTH][3];
+};
+// The adjoint's stage-1 partials (fields/lattice_kernels.py,
+// adjoint_partials): for depth d >= 1, one row of 8k f32 per group of
+// 2^min(d, 3) depth-0 cells a side, over grid[d] = ceil(dims_0 /
+// 2^min(d, 3)) groups, from float offset[d] of the scratch buffer.
+struct Av0AdjLayout {
+  int32_t grid[AV0_MAX_DEPTH][3];
+  int64_t offset[AV0_MAX_DEPTH];
 };
 }
 
@@ -61,10 +98,6 @@ struct MutPtrs {
   float* p[AV0_MAX_DEPTH];
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -74,6 +107,17 @@ __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// One input value as the adjoint sums it: bf16 as it is; f32 as it is,
+// or rounded to bf16 first when the compute type is bf16 (ROUND).
+template <bool ROUND>
+__device__ __forceinline__ float read_as(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <bool ROUND>
+__device__ __forceinline__ float read_as(float v) {
+  return ROUND ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 // k values of one type as one aligned vector: a 16 B row of k=4 f32 is a
@@ -97,6 +141,22 @@ __device__ __forceinline__ void select_depth(const Av0Spec& s, const P& ptrs,
     if (q == d) {
       p = ptrs.p[q];
       xd = s.dims[q][0], yd = s.dims[q][1], zd = s.dims[q][2];
+    }
+  }
+}
+
+// Depth d's partials (d >= 1) and their group grid, likewise.
+template <typename F>
+__device__ __forceinline__ void select_part(const Av0AdjLayout& lay, F* part,
+                                            int d, F*& p, int& gx, int& gy,
+                                            int& gz) {
+  p = part;
+  gx = gy = gz = 0;
+#pragma unroll
+  for (int q = 1; q < AV0_MAX_DEPTH; ++q) {
+    if (q == d) {
+      p = part + lay.offset[q];
+      gx = lay.grid[q][0], gy = lay.grid[q][1], gz = lay.grid[q][2];
     }
   }
 }
@@ -133,62 +193,205 @@ __global__ void av0_fwd_kernel(Av0Spec s, ConstPtrs coeff, T* __restrict__ out,
       o;
 }
 
-// grid (ceil(max_d n_d * 8 / blockDim.x), depth), blockIdx.y = q takes
-// depth d = depth-1-q so the deepest (longest) sums start first.
-// Thread = (coarse cell, corner c): it sums corner c's lanes over the
-// 2^(3d) depth-0 children of the ancestor whose corner c is this cell;
-// the 8 corner threads of a cell are adjacent lanes of one warp and
-// combine by a fixed butterfly, so the result is deterministic.
-template <typename T, int K>
-__global__ void av0_adj_kernel(Av0Spec s, const T* __restrict__ z, MutPtrs out) {
-  const int d = s.depth - 1 - (int)blockIdx.y;
+// Store level-L groups (n = 8 >> L a side, rows of ADJ_CHUNK floats in
+// shared memory from lane lo) of brick (bx, by, bz) as depth d's partial
+// rows; groups past the grid (no depth-0 cell below) are not stored.
+template <int K>
+__device__ __forceinline__ void store_groups(const float* q, int n, int lo,
+                                             float* dst, int gx, int gy,
+                                             int gz, int bx, int by, int bz) {
+  constexpr int DW4 = 2 * K;  // float4s in one depth's 8k lanes
+  for (int o = threadIdx.x; o < n * n * n * DW4; o += ADJ_THREADS) {
+    const int f = o % DW4, a = o / DW4;
+    const int x = bx * n + a / (n * n), y = by * n + (a / n) % n,
+              z = bz * n + a % n;
+    if (x < gx && y < gy && z < gz)
+      *reinterpret_cast<float4*>(dst + (((int64_t)x * gy + y) * gz + z) *
+                                           (8 * K) + 4 * f) =
+          *reinterpret_cast<const float4*>(q + a * ADJ_CHUNK + lo + 4 * f);
+  }
+}
+
+// Stage 1.  grid: one CTA per 8^3 brick of depth-0 cells (z fastest).
+// Each pass folds the lanes of up to ADJ_CHUNK / 8k depths.
+template <typename T, bool ROUND, int K>
+__global__ void __launch_bounds__(ADJ_THREADS)
+    av0_adj_bricks(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
+                   float* __restrict__ part) {
+  constexpr int VW = 16 / sizeof(T);  // values in one 16 B load
+  constexpr int DW = 8 * K;           // lanes of one depth
+  constexpr int DPC = ADJ_CHUNK / DW;
+  __shared__ __align__(16) float q1[64 * ADJ_CHUNK];  // 4^3 depth-1 groups
+  __shared__ __align__(16) float q2[8 * ADJ_CHUNK];   // 2^3 depth-2 groups
+  const int x0 = s.dims[0][0], y0 = s.dims[0][1], z0 = s.dims[0][2];
+  const int nby = (y0 + 7) >> 3, nbz = (z0 + 7) >> 3;
+  const int bz = blockIdx.x % nbz, bxy = blockIdx.x / nbz;
+  const int by = bxy % nby, bx = bxy / nby;
+  const int lanes = s.depth * DW;
+  for (int dlo = 1; dlo < s.depth; dlo += DPC) {
+    const int dhi = min(dlo + DPC, s.depth);
+    const int cw = (dhi - dlo) * DW;
+    // level 1: owner (group a, 16 B unit u) sums unit u of its 8 children
+    const int nu = cw / VW;
+    for (int o = threadIdx.x; o < 64 * nu; o += ADJ_THREADS) {
+      const int u = o % nu, a = o / nu;
+      const int x = bx * 8 + 2 * (a >> 4), y = by * 8 + 2 * ((a >> 2) & 3),
+                zc = bz * 8 + 2 * (a & 3);
+      float acc[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc[e] = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        const int cx = x + (ch >> 2), cy = y + ((ch >> 1) & 1),
+                  cz = zc + (ch & 1);
+        if (cx < x0 && cy < y0 && cz < z0) {
+          const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(
+              z + (((int64_t)cx * y0 + cy) * z0 + cz) * lanes + dlo * DW +
+              u * VW);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) acc[e] += read_as<ROUND>(v.v[e]);
+        }
+      }
+      float* q = q1 + a * ADJ_CHUNK + u * VW;
+#pragma unroll
+      for (int e = 0; e < VW; e += 4)
+        *reinterpret_cast<float4*>(q + e) =
+            make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+    }
+    __syncthreads();
+    if (dlo == 1)
+      store_groups<K>(q1, 4, 0, part + lay.offset[1], lay.grid[1][0],
+                      lay.grid[1][1], lay.grid[1][2], bx, by, bz);
+    // level 2: lanes of depths >= 2, 8 depth-1 groups each
+    const int l2 = (max(dlo, 2) - dlo) * DW;
+    const int w2 = (cw - l2) >> 2;
+    for (int o = threadIdx.x; o < 8 * w2; o += ADJ_THREADS) {
+      const int lane = l2 + 4 * (o % w2), g = o / w2;
+      const int ax = 2 * (g >> 2), ay = 2 * ((g >> 1) & 1), az = 2 * (g & 1);
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        const int a = ((ax + (ch >> 2)) * 4 + ay + ((ch >> 1) & 1)) * 4 + az +
+                      (ch & 1);
+        const float4 v =
+            *reinterpret_cast<const float4*>(q1 + a * ADJ_CHUNK + lane);
+        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+      }
+      *reinterpret_cast<float4*>(q2 + g * ADJ_CHUNK + lane) = acc;
+    }
+    __syncthreads();
+    if (dlo <= 2 && 2 < dhi)
+      store_groups<K>(q2, 2, (2 - dlo) * DW, part + lay.offset[2],
+                      lay.grid[2][0], lay.grid[2][1], lay.grid[2][2], bx, by,
+                      bz);
+    // level 3: lanes of depths >= 3, the brick's 8 depth-2 groups, stored
+    // as depth d's row of this brick
+    const int l3 = (max(dlo, 3) - dlo) * DW;
+    for (int o = threadIdx.x; o < (cw - l3) >> 2; o += ADJ_THREADS) {
+      const int lane = l3 + 4 * o;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(q2 + g * ADJ_CHUNK + lane);
+        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+      }
+      float* dst;
+      int gx, gy, gz;
+      select_part(lay, part, dlo + lane / DW, dst, gx, gy, gz);
+      *reinterpret_cast<float4*>(dst + (((int64_t)bx * gy + by) * gz + bz) *
+                                           DW + lane % DW) = acc;
+    }
+    __syncthreads();  // q1 and q2 are refilled by the next pass
+  }
+}
+
+// Sum over the 8 corners c of src[cell - off(c), c*K .. c*K+K), rows of
+// ``stride`` values over a (gx, gy, gz) grid; rows outside it add nothing.
+template <typename TS, bool ROUND, int K>
+__device__ __forceinline__ void corner_sum(const TS* __restrict__ src,
+                                           int stride, int gx, int gy, int gz,
+                                           int cx, int cy, int cz,
+                                           float (&acc)[K]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int ax = cx - ((c >> 2) & 1), ay = cy - ((c >> 1) & 1),
+              az = cz - (c & 1);
+    if (ax >= 0 && ay >= 0 && az >= 0 && ax < gx && ay < gy && az < gz) {
+      const Vec<TS, K> v = *reinterpret_cast<const Vec<TS, K>*>(
+          src + (((int64_t)ax * gy + ay) * gz + az) * stride + c * K);
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) acc[kk] += read_as<ROUND>(v.v[kk]);
+    }
+  }
+}
+
+// Depth d > 3: each ancestor covers 2^sh brick partials a side (sh = d - 3),
+// summed in x, y, z order under each corner.
+template <int K>
+__device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
+                                int gz, int sh, int cx, int cy, int cz,
+                                float (&acc)[K]) {
+  const int f = 1 << sh;
+  const int ex = (gx + f - 1) >> sh, ey = (gy + f - 1) >> sh,
+            ez = (gz + f - 1) >> sh;
+  for (int c = 0; c < 8; ++c) {
+    const int ax = cx - ((c >> 2) & 1), ay = cy - ((c >> 1) & 1),
+              az = cz - (c & 1);
+    if (ax < 0 || ay < 0 || az < 0 || ax >= ex || ay >= ey || az >= ez)
+      continue;
+    for (int qx = ax << sh; qx < min((ax + 1) << sh, gx); ++qx)
+      for (int qy = ay << sh; qy < min((ay + 1) << sh, gy); ++qy)
+        for (int qz = az << sh; qz < min((az + 1) << sh, gz); ++qz) {
+          const float* row =
+              src + (((int64_t)qx * gy + qy) * gz + qz) * (8 * K) + c * K;
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) acc[kk] += row[kk];
+        }
+  }
+}
+
+// Stage 2.  grid: ceil(n_d / ADJ_THREADS) blocks for each depth, depth 0
+// first; thread = one coefficient cell of its block's depth.
+template <typename T, bool ROUND, int K>
+__global__ void __launch_bounds__(ADJ_THREADS)
+    av0_adj_corners(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
+                    const float* __restrict__ part, MutPtrs out) {
+  int d = 0, first = 0, start = 0;
+#pragma unroll
+  for (int q = 0; q < AV0_MAX_DEPTH; ++q) {
+    if (q < s.depth) {
+      if ((int)blockIdx.x >= start) d = q, first = start;
+      start += (s.dims[q][0] * s.dims[q][1] * s.dims[q][2] + ADJ_THREADS - 1) /
+               ADJ_THREADS;
+    }
+  }
   float* dst;
   int xd, yd, zd;
   select_depth(s, out, d, dst, xd, yd, zd);
-  const int n = xd * yd * zd;
-  // block-uniform exit: the butterfly below needs every lane of a warp
-  if ((int64_t)blockIdx.x * blockDim.x >= (int64_t)n * 8) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cell = t >> 3;
-  const bool live = cell < n;
-  const int c = t & 7;
+  const int cell = ((int)blockIdx.x - first) * ADJ_THREADS + threadIdx.x;
+  if (cell >= xd * yd * zd) return;
   const int cz = cell % zd, cxy = cell / zd;
   const int cy = cxy % yd, cx = cxy / yd;
-  const int x0 = s.dims[0][0], y0 = s.dims[0][1], z0 = s.dims[0][2];
-  const int lanes = s.depth * 8 * K;
   float acc[K];
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) acc[kk] = 0.0f;
-  const int ax = cx - ((c >> 2) & 1), ay = cy - ((c >> 1) & 1),
-            az = cz - (c & 1);
-  if (live && ax >= 0 && ay >= 0 && az >= 0) {
-    const int xb = ax << d, yb = ay << d, zb = az << d;
-    const int xe = min(xb + (1 << d), x0), ye = min(yb + (1 << d), y0),
-              ze = min(zb + (1 << d), z0);
-    for (int x = xb; x < xe; ++x) {
-      for (int y = yb; y < ye; ++y) {
-        const T* row =
-            z + (((int64_t)x * y0 + y) * z0 + zb) * lanes + (d * 8 + c) * K;
-        for (int zz = zb; zz < ze; ++zz, row += lanes) {
-          const Vec<T, K> v = *reinterpret_cast<const Vec<T, K>*>(row);
-#pragma unroll
-          for (int kk = 0; kk < K; ++kk) acc[kk] += to_f32(v.v[kk]);
-        }
-      }
-    }
+  if (d == 0) {
+    corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
+                            s.dims[0][2], cx, cy, cz, acc);
+  } else {
+    const float* src;
+    int gx, gy, gz;
+    select_part(lay, part, d, src, gx, gy, gz);
+    if (d <= ADJ_LEVELS)
+      corner_sum<float, false, K>(src, 8 * K, gx, gy, gz, cx, cy, cz, acc);
+    else
+      corner_sum_wide<K>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz, acc);
   }
+  Vec<float, K> o;
 #pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-    float v = acc[kk];
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    acc[kk] = v;
-  }
-  if (live && c == 0) {
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) dst[(int64_t)cell * K + kk] = acc[kk];
-  }
+  for (int kk = 0; kk < K; ++kk) o.v[kk] = acc[kk];
+  *reinterpret_cast<Vec<float, K>*>(dst + (int64_t)cell * K) = o;
 }
 
 template <typename T, int K>
@@ -201,14 +404,38 @@ static void launch_fwd(const Av0Spec& s, const ConstPtrs& c, void* out,
                                                   cells0);
 }
 
-template <typename T, int K>
-static void launch_adj(const Av0Spec& s, const void* z, const MutPtrs& o,
-                       int max_cells, cudaStream_t st) {
-  const int threads = 256;
-  const dim3 grid((unsigned)(((int64_t)max_cells * 8 + threads - 1) / threads),
-                  (unsigned)s.depth);
-  av0_adj_kernel<T, K><<<grid, threads, 0, st>>>(
-      s, static_cast<const T*>(z), o);
+template <typename T, bool ROUND, int K>
+static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
+                      const void* z, float* part, const MutPtrs& o,
+                      cudaStream_t st) {
+  const T* zt = static_cast<const T*>(z);
+  if (s.depth > 1) {
+    const int bricks = ((s.dims[0][0] + 7) >> 3) * ((s.dims[0][1] + 7) >> 3) *
+                       ((s.dims[0][2] + 7) >> 3);
+    av0_adj_bricks<T, ROUND, K><<<bricks, ADJ_THREADS, 0, st>>>(s, lay, zt,
+                                                                part);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = 0;
+  for (int d = 0; d < s.depth; ++d)
+    blocks += (s.dims[d][0] * s.dims[d][1] * s.dims[d][2] + ADJ_THREADS - 1) /
+              ADJ_THREADS;
+  av0_adj_corners<T, ROUND, K><<<blocks, ADJ_THREADS, 0, st>>>(s, lay, zt,
+                                                               part, o);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool ROUND>
+static int adj_k(const Av0Spec& s, const Av0AdjLayout& lay, const void* z,
+                 float* part, const MutPtrs& o, cudaStream_t st) {
+  switch (s.k) {
+    case 1: return launch_adj<T, ROUND, 1>(s, lay, z, part, o, st);
+    case 2: return launch_adj<T, ROUND, 2>(s, lay, z, part, o, st);
+    case 4: return launch_adj<T, ROUND, 4>(s, lay, z, part, o, st);
+    case 8: return launch_adj<T, ROUND, 8>(s, lay, z, part, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 #define AV0_DISPATCH_K(FN, T, ...)             \
@@ -227,6 +454,24 @@ static bool dims_ok(const Av0Spec* spec) {
     const int64_t n =
         (int64_t)spec->dims[d][0] * spec->dims[d][1] * spec->dims[d][2];
     if (n <= 0 || n * 8 >= ((int64_t)1 << 31)) return false;
+  }
+  return true;
+}
+
+// The partial layout the kernels index by: the grids as stage 1 groups
+// the depth-0 cells, rows that do not overlap.
+static bool layout_ok(const Av0Spec* spec, const Av0AdjLayout* lay) {
+  int64_t end = 0;
+  for (int d = 1; d < spec->depth; ++d) {
+    const int g = d < ADJ_LEVELS ? d : ADJ_LEVELS;
+    int64_t rows = 1;
+    for (int a = 0; a < 3; ++a) {
+      if (lay->grid[d][a] != (spec->dims[0][a] + (1 << g) - 1) >> g)
+        return false;
+      rows *= lay->grid[d][a];
+    }
+    if (lay->offset[d] < end) return false;
+    end = lay->offset[d] + rows * 8 * spec->k;
   }
   return true;
 }
@@ -251,25 +496,22 @@ int av0_cascade_fwd(const Av0Spec* spec, const void* const* coeff, void* out,
   return (int)cudaGetLastError();
 }
 
-// z: (cells_0, depth*8*k) in f32 (in_bf16=0) or bf16 (in_bf16=1);
-// out[d]: (n_d, k) f32, every element written.  Returns cudaGetLastError().
-int av0_cascade_adj(const Av0Spec* spec, const void* z, void* const* out,
-                    int in_bf16, void* stream) {
-  if (!dims_ok(spec)) return (int)cudaErrorInvalidValue;
+// z: (cells_0, depth*8*k) in f32 (in_bf16=0) or bf16 (in_bf16=1), an f32
+// buffer read in bf16 when round_bf16=1; scratch: the stage-1 partials
+// at ``lay``; out[d]: (n_d, k) f32, every element written.  Returns the
+// first launch error, else 0.
+int av0_cascade_adj(const Av0Spec* spec, const Av0AdjLayout* lay,
+                    const void* z, void* scratch, void* const* out,
+                    int in_bf16, int round_bf16, void* stream) {
+  if (!dims_ok(spec) || !layout_ok(spec, lay))
+    return (int)cudaErrorInvalidValue;
   MutPtrs o;
-  int max_cells = 0;
-  for (int d = 0; d < spec->depth; ++d) {
-    o.p[d] = static_cast<float*>(out[d]);
-    const int n = spec->dims[d][0] * spec->dims[d][1] * spec->dims[d][2];
-    if (n > max_cells) max_cells = n;
-  }
+  for (int d = 0; d < spec->depth; ++d) o.p[d] = static_cast<float*>(out[d]);
+  float* part = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_bf16) {
-    AV0_DISPATCH_K(launch_adj, __nv_bfloat16, *spec, z, o, max_cells, st)
-  } else {
-    AV0_DISPATCH_K(launch_adj, float, *spec, z, o, max_cells, st)
-  }
-  return (int)cudaGetLastError();
+  if (in_bf16) return adj_k<__nv_bfloat16, false>(*spec, *lay, z, part, o, st);
+  if (round_bf16) return adj_k<float, true>(*spec, *lay, z, part, o, st);
+  return adj_k<float, false>(*spec, *lay, z, part, o, st);
 }
 
 }  // extern "C"

@@ -8,8 +8,11 @@ beside its plain PyTorch version.
 ``csrc/av0_cascade.cu``; its header says what bounds the kernels on the
 H100 and how their design answers that.  In short: both only move data,
 so the forward is one coalesced write of AV0 with L2-served coefficient
-reads, and the adjoint is a gather with one read of AV0, no atomics and
-a deterministic f32 sum.
+reads, and the adjoint reads AV0 once, coalesced, in two stages (8^3
+bricks fold the ancestors of depths >= 1 into partials, then one thread
+per coefficient sums its 8 corners), with no atomics and a fixed order
+of every f32 sum.  It reads an f32 buffer in bf16 by rounding in
+registers, so the solve hands it its f32 buffer with no cast.
 
 Semantics (per depth d, corner (i, j, l), lane group g = 8d + 4i + 2j + l):
 ``AV0[x, y, z, g*k + kk] = coeff_d[(x>>d)+i, (y>>d)+j, (z>>d)+l, kk]``
@@ -41,6 +44,8 @@ from .. import cuda_build as CB
 
 SOURCE = CB.CSRC / "av0_cascade.cu"
 _MAX_DEPTH = 8
+# the adjoint's stage-1 brick is 2^3 depth-0 cells a side (ADJ_LEVELS)
+_BRICK_LEVELS = 3
 _CORNERS = tuple((i, j, l) for i in (0, 1) for j in (0, 1) for l in (0, 1))
 
 
@@ -49,13 +54,23 @@ class _Av0Spec(ctypes.Structure):
                 ("dims", (ctypes.c_int32 * 3) * _MAX_DEPTH)]
 
 
+class _Av0AdjLayout(ctypes.Structure):
+    _fields_ = [("grid", (ctypes.c_int32 * 3) * _MAX_DEPTH),
+                ("offset", ctypes.c_int64 * _MAX_DEPTH)]
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = CB.library("av0_cascade")
-    for fn in (lib.av0_cascade_fwd, lib.av0_cascade_adj):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_Av0Spec), ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.av0_cascade_fwd.restype = ctypes.c_int
+    lib.av0_cascade_fwd.argtypes = [
+        ctypes.POINTER(_Av0Spec), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.av0_cascade_adj.restype = ctypes.c_int
+    lib.av0_cascade_adj.argtypes = [
+        ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -74,6 +89,23 @@ def _c_spec(spec) -> _Av0Spec:
 def _check_dtype(dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cascade dtype {dtype} not float32/bfloat16")
+
+
+def adjoint_partials(spec) -> Tuple[Tuple[Tuple[Tuple[int, int, int], int],
+                                          ...], int]:
+    """Layout of the adjoint kernel's stage-1 partials.  For each depth
+    d >= 1: the grid of its groups of 2^min(d, 3) depth-0 cells a side
+    (``ceil(dims_0 / 2^min(d, 3))``: every depth-d ancestor for d <= 3,
+    every 8^3 brick above) and the float offset of its rows, 8k f32 a
+    group, in one scratch buffer.  Returns (((grid, offset) for d = 1 ..
+    depth-1), buffer length in floats)."""
+    parts, total = [], 0
+    for d in range(1, spec.depth):
+        g = min(d, _BRICK_LEVELS)
+        grid = tuple((n + (1 << g) - 1) >> g for n in spec.dims[0])
+        parts.append((grid, total))
+        total += grid[0] * grid[1] * grid[2] * 8 * spec.k
+    return tuple(parts), total
 
 
 # ------------------------------------------------------------ plain versions
@@ -164,24 +196,34 @@ av0_cascade.launches = 0
 def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
                         compute_dtype) -> Tuple[torch.Tensor, ...]:
     """Adjoint of ``av0_cascade``: (cells_0, depth*8k) -> per-depth
-    (n_d, k) f32.  ``z0_buf`` is read in ``compute_dtype`` (bf16 halves
-    the dominant read, as the Pallas adjoint does); sums are f32."""
+    (n_d, k) f32.  ``z0_buf`` (f32 or bf16) is read in ``compute_dtype``:
+    an f32 buffer with a bf16 compute dtype is rounded to bf16 as it is
+    read, as the Pallas adjoint does; sums are f32."""
     _check_dtype(compute_dtype)
     if z0_buf.device.type == "cpu":
         return av0_adjoint_cascade_plain(spec, z0_buf, compute_dtype)
     cs = _c_spec(spec)
-    if z0_buf.dtype != compute_dtype:
-        z0_buf = z0_buf.to(compute_dtype)
-    CB.check_cuda(z0_buf, (spec.n_cells(0), spec.lanes), compute_dtype,
-                "av0_adjoint_cascade z0")
+    _check_dtype(z0_buf.dtype)
+    CB.check_cuda(z0_buf, (spec.n_cells(0), spec.lanes), z0_buf.dtype,
+                  "av0_adjoint_cascade z0")
+    parts, n_part = adjoint_partials(spec)
+    lay = _Av0AdjLayout()
+    for d, (grid, offset) in enumerate(parts, start=1):
+        for a in range(3):
+            lay.grid[d][a] = grid[a]
+        lay.offset[d] = offset
+    dev = z0_buf.device
+    scratch = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
     outs = tuple(torch.empty((spec.n_cells(d), spec.k), dtype=torch.float32,
-                             device=z0_buf.device)
+                             device=dev)
                  for d in range(spec.depth))
     ptrs = (ctypes.c_void_p * spec.depth)(*[o.data_ptr() for o in outs])
+    in_bf16 = z0_buf.dtype == torch.bfloat16
     rc = _lib().av0_cascade_adj(
-        ctypes.byref(cs), z0_buf.data_ptr(), ptrs,
-        int(compute_dtype == torch.bfloat16),
-        torch.cuda.current_stream(z0_buf.device).cuda_stream)
+        ctypes.byref(cs), ctypes.byref(lay), z0_buf.data_ptr(),
+        scratch.data_ptr(), ptrs, int(in_bf16),
+        int(compute_dtype == torch.bfloat16 and not in_bf16),
+        torch.cuda.current_stream(dev).cuda_stream)
     CB.raise_on(rc, "av0_cascade_adj launch")
     av0_adjoint_cascade.launches += 1
     return outs

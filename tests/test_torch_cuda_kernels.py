@@ -32,42 +32,101 @@ def _spec(depth):
                            s_pt=64, p_rows=4, s_gr=32, n_pts_cap=256)
 
 
+def _ragged_spec(depth, k):
+    """Depth-0 dims that are no multiple of the adjoint's 8^3 brick, each
+    coarser lattice one cell past its last ancestor."""
+    dims = tuple(tuple(((n + (1 << d) - 1) >> d) + (d > 0) for n in
+                       (20, 12, 10)) for d in range(depth))
+    return LAT.LatticeSpec(dims=dims, k=k, depth=depth, adaptive_depth=1,
+                           s_pt=8, p_rows=4, s_gr=8, n_pts_cap=8)
+
+
+# (buffer dtype, compute dtype): the solve's matvec and right-hand side,
+# the kernel table's bf16 buffer, the Jacobi diagonal
+FORMS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.float32)]
+FORM_IDS = ["f32-read-bf16", "bf16", "f32"]
+
+
+def _check_adjoint(spec, z, cdt):
+    """Adjoint kernel against its plain version: rtol 1e-5 and atol 1e-5
+    of the largest output (f32 sums in another order); a second call is
+    bit-equal to the first (no atomics, a fixed summation order)."""
+    got = LK.av0_adjoint_cascade(spec, z, cdt)
+    ref = LK.av0_adjoint_cascade_plain(spec, z, cdt)
+    assert len(got) == spec.depth
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+    again = LK.av0_adjoint_cascade(spec, z, cdt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("depth", [3, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain(gen, depth, dtype):
-    """Forward: exactly equal (pure selection).  Adjoint: rtol 1e-5 and
-    atol 1e-5 of the largest output (f32 sums in another order), both
-    reading z in ``dtype``.  The launch counters count these launches."""
+@pytest.mark.parametrize("form", FORMS, ids=FORM_IDS)
+def test_kernels_match_plain(gen, depth, form):
+    """Forward: exactly equal (pure selection), in the compute dtype.
+    Adjoint: rtol 1e-5 and atol 1e-5 of the largest output (f32 sums in
+    another order), reading the buffer in the compute dtype, and bit-equal
+    from call to call.  The launch counters count these launches."""
+    zdt, cdt = form
     spec = _spec(depth)
     xs = [torch.randn((spec.n_cells(d), spec.k), device="cuda",
                       generator=gen) for d in range(depth)]
     z = torch.randn((spec.n_cells(0), spec.lanes), device="cuda",
-                    generator=gen).to(dtype)
+                    generator=gen).to(zdt)
     before = (LK.av0_cascade.launches, LK.av0_adjoint_cascade.launches)
-    assert torch.equal(LK.av0_cascade(spec, xs, dtype),
-                       LK.av0_cascade_plain(spec, xs, dtype))
-    got = LK.av0_adjoint_cascade(spec, z, dtype)
-    ref = LK.av0_adjoint_cascade_plain(spec, z, dtype)
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=1e-5,
-                                   atol=1e-5 * float(r.abs().max()))
+    assert torch.equal(LK.av0_cascade(spec, xs, cdt),
+                       LK.av0_cascade_plain(spec, xs, cdt))
+    _check_adjoint(spec, z, cdt)
     assert (LK.av0_cascade.launches, LK.av0_adjoint_cascade.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 1, before[1] + 2)
 
 
-def test_adjoint_pair(gen):
-    """<fwd(x), z> == <x, adj(z)> to 1e-5 relative (f64 dot products)."""
-    spec = _spec(3)
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_adjoint_ragged_specs(gen, depth, k):
+    """Every depth the wrapper accepts up to 5 (depth 5 takes the brick
+    partials' loop) and every kernel dim, on depth-0 dims (20, 12, 10)
+    that no brick divides: the three input forms against the plain
+    version, as in ``_check_adjoint`` (rtol 1e-5, atol 1e-5 of the
+    largest output; bit-equal from call to call)."""
+    spec = _ragged_spec(depth, k)
+    z = torch.randn((spec.n_cells(0), spec.lanes), device="cuda",
+                    generator=gen)
+    for zdt, cdt in FORMS:
+        _check_adjoint(spec, z.to(zdt), cdt)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("spec", [_spec(3), _ragged_spec(5, 2)],
+                         ids=["depth3", "ragged-depth5"])
+def test_adjoint_pair(gen, spec, cdt):
+    """<fwd(x), z> == <x, adj(z)> to 1e-5 relative (f64 dot products).
+    With a bf16 compute dtype the adjoint reads the f32 buffer rounded to
+    bf16, so the pair holds for that rounded z."""
     xs = [torch.randn((spec.n_cells(d), spec.k), device="cuda",
                       generator=gen) for d in range(spec.depth)]
     z = torch.randn((spec.n_cells(0), spec.lanes), device="cuda",
                     generator=gen)
     lhs = float((LK.av0_cascade(spec, xs, torch.float32).double()
-                 * z.double()).sum())
-    adj = LK.av0_adjoint_cascade(spec, z, torch.float32)
+                 * z.to(cdt).double()).sum())
+    adj = LK.av0_adjoint_cascade(spec, z, cdt)
     rhs = float(sum((a.double() * x.double()).sum()
                     for a, x in zip(adj, xs)))
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def test_adjoint_rejects_bad_input(gen):
+    """A CUDA buffer of another dtype or shape raises instead of falling
+    back to the plain version."""
+    spec = _spec(3)
+    z = torch.zeros((spec.n_cells(0), spec.lanes), device="cuda")
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_cascade(spec, z.half(), torch.float32)
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_cascade(spec, z[:, :-4], torch.bfloat16)
 
 
 @pytest.mark.parametrize("q", [1, 1000, 1 << 20])

@@ -83,6 +83,98 @@ def test_adjoint_matches_pallas():
                                    rtol=1e-5, atol=1e-5)
 
 
+def test_adjoint_bf16_read_of_f32_matches_pallas():
+    """The solve's call: an f32 buffer read in bf16, against the Pallas
+    kernel reading it with ``compute_dtype=bfloat16``; rtol/atol 1e-5 as
+    above (the same bf16 values, f32 sums in another order)."""
+    jspec, spec = _specs()
+    rng = np.random.default_rng(17)
+    z = rng.normal(size=(spec.n_cells(0), spec.lanes)).astype(np.float32)
+    ref = JLP.av0_adjoint_cascade_pallas(jspec, jnp.asarray(z),
+                                         interpret=True,
+                                         compute_dtype=jnp.bfloat16)
+    got = LK.av0_adjoint_cascade(spec, torch.from_numpy(z), torch.bfloat16)
+    for d in range(spec.depth):
+        np.testing.assert_allclose(got[d].numpy().reshape(-1),
+                                   np.asarray(ref[d]).reshape(-1),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _ragged_spec(depth, k):
+    dims = tuple(tuple(((n + (1 << d) - 1) >> d) + (d > 0) for n in
+                       (20, 12, 10)) for d in range(depth))
+    return LAT.LatticeSpec(dims=dims, k=k, depth=depth, adaptive_depth=1,
+                           s_pt=8, p_rows=4, s_gr=8, n_pts_cap=8)
+
+
+def _staged_adjoint(spec, z: np.ndarray):
+    """The adjoint kernel's two stages in numpy (f64): partials of each
+    depth d >= 1 at ``adjoint_partials``' grids, then, per coefficient
+    cell, the 8 corner ancestors, each the sum of the partials under it;
+    depth 0 reads the buffer's own depth-0 lanes."""
+    x0, y0, z0 = spec.dims[0]
+    k = spec.k
+    zz = z.reshape(x0, y0, z0, spec.depth, 8, k).astype(np.float64)
+    cells = np.stack(np.meshgrid(np.arange(x0), np.arange(y0),
+                                 np.arange(z0), indexing="ij"), -1)
+    parts, _ = LK.adjoint_partials(spec)
+    outs = []
+    for d in range(spec.depth):
+        g = min(d, 3)
+        src = zz[:, :, :, 0]
+        if d:
+            src = np.zeros(parts[d - 1][0] + (8, k))
+            q = cells >> g
+            np.add.at(src, (q[..., 0], q[..., 1], q[..., 2]), zz[:, :, :, d])
+        f = d - g
+        grid = np.array(src.shape[:3])
+        anc = np.zeros(tuple((grid + (1 << f) - 1) >> f) + (8, k))
+        qs = np.stack(np.meshgrid(*(np.arange(n) for n in grid),
+                                  indexing="ij"), -1) >> f
+        np.add.at(anc, (qs[..., 0], qs[..., 1], qs[..., 2]), src)
+        out = np.zeros(spec.dims[d] + (k,))
+        for c, off in enumerate(LK._CORNERS):
+            hi = [min(n, e + o) for n, e, o in
+                  zip(spec.dims[d], anc.shape[:3], off)]
+            out[off[0]:hi[0], off[1]:hi[1], off[2]:hi[2]] += \
+                anc[:hi[0] - off[0], :hi[1] - off[1], :hi[2] - off[2], c]
+        outs.append(out.reshape(-1, k))
+    return outs
+
+
+@pytest.mark.parametrize("depth,k", [(1, 4), (3, 4), (4, 4), (5, 2),
+                                     (6, 1), (3, 8)])
+def test_adjoint_partials_cover_every_ancestor(depth, k):
+    """``adjoint_partials`` (the host side of the adjoint kernel's
+    stage 1) on depth-0 dims (20, 12, 10), which no 8^3 brick divides:
+    each grid is the brute-force count of the distinct groups the
+    depth-0 cells fall into, the rows of one depth follow the last of
+    the one before, and the two stages over that layout give the plain
+    adjoint (f64 against f32 sums: rtol 1e-5, atol 1e-5 of the largest
+    output)."""
+    spec = _ragged_spec(depth, k)
+    parts, total = LK.adjoint_partials(spec)
+    assert len(parts) == depth - 1
+    x0, y0, z0 = spec.dims[0]
+    cells = np.stack(np.meshgrid(np.arange(x0), np.arange(y0),
+                                 np.arange(z0), indexing="ij"), -1)
+    end = 0
+    for d, (grid, offset) in enumerate(parts, start=1):
+        groups = np.unique((cells >> min(d, 3)).reshape(-1, 3), axis=0)
+        assert tuple(groups.max(0) + 1) == grid
+        assert len(groups) == grid[0] * grid[1] * grid[2]
+        assert offset == end
+        end += len(groups) * 8 * k
+    assert total == end
+    z = np.random.default_rng(18).normal(
+        size=(spec.n_cells(0), spec.lanes)).astype(np.float32)
+    ref = LK.av0_adjoint_cascade_plain(spec, torch.from_numpy(z),
+                                       torch.float32)
+    for got, r in zip(_staged_adjoint(spec, z), ref):
+        np.testing.assert_allclose(got, r.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
 def test_forward_equals_xla_cascade_on_interior():
     """The JAX package's default (XLA) cascade agrees exactly on every
     cell a solve can reach."""
