@@ -11,20 +11,30 @@ Phases (any failure ends the run with a non-zero exit):
      kernels and the cascade kernels at the TPU bisect's specs, each on
      its script's input and a random one) and hold each probe kernel
      against its plain version, both timed as device time in a CUDA graph;
-  2. hold each cascade and window kernel against its plain PyTorch
-     version on the card, at small sizes (the bisect's depth-2 spec and
-     the test's depth-3 spec) and at the size its route gives it, and
-     time both; the adjoint in its three input forms (an f32 buffer read
-     in bf16, as the solve calls it and as it is timed; a bf16 buffer; an
-     f32 buffer read in f32), each also bit-equal from call to call;
+  2. hold each cascade, slot-row and window kernel against its plain
+     PyTorch version on the card, at small sizes (the bisect's depth-2
+     spec and the test's depth-3 spec) and at the size its route gives
+     it, and time both; the adjoint in its three input forms (an f32
+     buffer read in bf16, as the solve calls it and as it is timed; a
+     bf16 buffer; an f32 buffer read in f32), each also bit-equal from
+     call to call; the slot rows bit-equal to their plain version in f32
+     and bf16, at the main path on the plan's real slot cells and the
+     coefficients of its first matvec (both captured in the warm-up
+     lap), and timed in turns against the chain they replace (the dense
+     bf16 forward, the two row gathers and their casts to f32);
   3. the splat path on the dense lattice at the bench's size: the
      scene_big checkpoint, utils.scenes.synthetic_scene(1_000_000),
      reconstruct(structure="splat", voxel_size=0.1, solver_tol=1e-4,
      solver_max_iters=16) and extract_dual_mesh(mise_iter=1); one
-     warm-up lap and two timed laps, the kernels' launch counts, and the
-     terrain vertex error against the analytic height field; then one
-     more lap in which torch.profiler records one lattice-solve matvec
-     (the ten device ops by device time and the matvec's device total);
+     warm-up lap and two timed laps, the kernels' launch counts (one
+     slot-row launch a matvec, the dense forward once, for the evaluator
+     tables), whether the two laps' coefficients and meshes are
+     bit-equal (a measurement, not a gate), and the terrain vertex error
+     against the analytic height field; then one more lap in which
+     torch.profiler records one lattice-solve matvec (the ten device ops
+     by device time and the matvec's device total), and one in which it
+     records the whole lattice solve (host and device ms of each of its
+     ``lattice_solve: ...`` ranges);
   4. route B, the sparse fallback: the same call on a 100 m x 100 m tile
      of 1M points, whose lattice plan is over budget (gather-conv UNet,
      support-row solve with the window kernel, host dual MC);
@@ -177,6 +187,88 @@ def compare_kernels(LK, spec, gen, timed: bool):
     return out
 
 
+def row_cells(spec, gen, n_random: int = 4000):
+    """Random depth-0 cells, every cell on the last x, y and z planes and
+    repeats of them, in a random (unsorted) order, int32 on the card."""
+    x0, y0, z0 = spec.dims[0]
+    grid = torch.arange(spec.n_cells(0), device="cuda").view(x0, y0, z0)
+    cells = torch.cat([
+        torch.randint(0, spec.n_cells(0), (n_random,), device="cuda",
+                      generator=gen),
+        grid[-1].reshape(-1), grid[:, -1].reshape(-1),
+        grid[:, :, -1].reshape(-1)])
+    cells = torch.cat([cells, cells[:256]])
+    perm = torch.randperm(len(cells), device="cuda", generator=gen)
+    return cells[perm].to(torch.int32).contiguous()
+
+
+def rows_bound(spec, cells):
+    """Bound of the slot rows in the solve's form (bf16 values): the f32
+    rows written, the int32 cells read, and each distinct coefficient row
+    the cells' corners touch read once (counted with torch.unique); one
+    rounding a value."""
+    u = torch.unique(cells.long())
+    x0, y0, z0 = spec.dims[0]
+    cz, cxy = u % z0, u // z0
+    cy, cx = cxy % y0, cxy // y0
+    n_coef = 0
+    for d in range(spec.depth):
+        xd, yd, zd = spec.dims[d]
+        flats = []
+        for i in (0, 1):
+            for j in (0, 1):
+                for l in (0, 1):
+                    ax, ay, az = (cx >> d) + i, (cy >> d) + j, (cz >> d) + l
+                    ok = (ax < xd) & (ay < yd) & (az < zd)
+                    flats.append(((ax * yd + ay) * zd + az)[ok])
+        n_coef += int(torch.unique(torch.cat(flats)).numel())
+    r = cells.numel()
+    return bound_ms(r * spec.lanes * 4 + r * 4 + n_coef * spec.k * 4,
+                    r * spec.lanes)
+
+
+def compare_rows(LK, spec, xs, cells, timed: bool):
+    """Slot-row kernel vs its plain version on the same inputs: exactly
+    equal in f32 and bf16 (pure selection, one rounding), and to the
+    dense plain forward's rows.  Timed (bf16, the
+    solve's form): kernel and plain version in turns, and the chain the
+    kernel replaces in the matvec (the dense bf16 forward, then the
+    point-slot and gradient-slot row gathers, each cast to f32), chain,
+    kernel, kernel, chain."""
+    out = {"err": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        got = LK.av0_rows(spec, xs, cells, dt)
+        ref = LK.av0_rows_plain(spec, xs, cells, dt)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"av0_rows {dt} differs from plain: max "
+                                 f"{(got - ref).abs().max()}")
+        if not torch.equal(
+                got, LK.av0_cascade_plain(spec, xs, dt)[cells.long()]
+                .float()):
+            raise AssertionError(f"av0_rows {dt} differs from the dense "
+                                 "plain forward's rows")
+        del got, ref
+    if timed:
+        bf = torch.bfloat16
+        pt, gr = cells[:spec.s_pt].long(), cells[spec.s_pt:].long()
+
+        def chain():
+            av0 = LK.av0_cascade(spec, xs, bf)
+            return (av0.index_select(0, pt).float(),
+                    av0.index_select(0, gr).float())
+
+        c1 = cuda_ms(chain, 10)
+        k1 = cuda_ms(lambda: LK.av0_rows(spec, xs, cells, bf), 20)
+        k2 = cuda_ms(lambda: LK.av0_rows(spec, xs, cells, bf), 20)
+        c2 = cuda_ms(chain, 10)
+        p1 = cuda_ms(lambda: LK.av0_rows_plain(spec, xs, cells, bf), 2)
+        p2 = cuda_ms(lambda: LK.av0_rows_plain(spec, xs, cells, bf), 2)
+        out.update(ms=min(k1, k2), ms_turns=(k1, k2), chain_ms=min(c1, c2),
+                   chain_turns=(c1, c2), plain_ms=min(p1, p2),
+                   bound=rows_bound(spec, cells))
+    return out
+
+
 def compare_window(WB, q: int, gen, timed: bool):
     """Window kernel vs plain version on local offsets in [-1.25, 1.25]
     (the support's [-1, 1) plus the clamped margin): rtol 1e-5 / atol
@@ -237,6 +329,42 @@ def profile_matvec(LAT, recon, xyz, nrm):
             rows.append((t / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     return rows, sum(r[0] for r in rows), rec["ms"]
+
+
+def profile_solve(RC, recon, xyz, nrm):
+    """One more splat reconstruct whose whole lattice solve runs under
+    torch.profiler (CPU and CUDA activity).  Returns, for the solve and
+    each of its ``lattice_solve: ...`` ranges in order, (name, host ms,
+    device ms): the range's host span, and the device time of the kernels
+    launched inside it."""
+    real_solve = RC.lattice_solve
+    rec = {}
+
+    def solve_probe(*a, **kw):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("lattice_solve"):
+                out = real_solve(*a, **kw)
+            torch.cuda.synchronize()
+        rec["prof"] = prof
+        return out
+
+    RC.lattice_solve = solve_probe
+    try:
+        recon.reconstruct(xyz, nrm, structure="splat", **KW)
+    finally:
+        RC.lattice_solve = real_solve
+    out = []
+    for e in rec["prof"].events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not \
+                e.name.startswith("lattice_solve"):
+            continue
+        out.append((e.time_range.start, e.name, e.cpu_time_total / 1e3,
+                    e.device_time_total / 1e3))
+    out.sort()
+    return [r[1:] for r in out]
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -341,7 +469,8 @@ def print_route(tag, recon, field, launches, lap):
           + json.dumps({k: round(v, 4) for k, v in field.phase_times.items()}),
           flush=True)
     print(f"[{tag}] {field.solver_stats}  launches fwd {launches[0]} adj "
-          f"{launches[1]} window {launches[2]}  peak memory "
+          f"{launches[1]} window {launches[2]} rows {launches[3]}  peak "
+          "memory "
           f"{lap['peak_gib']:.2f} GiB  mesh verts {lap['verts']} faces "
           f"{lap['faces']}", flush=True)
     print(f"[{tag}] terrain vertex error on {lap['n_inner']} interior "
@@ -350,6 +479,46 @@ def print_route(tag, recon, field, launches, lap):
     if not lap["faces"] or not lap["err_mean"] <= ROUTE_ERR_LIMIT:
         raise AssertionError(f"[{tag}] empty mesh or terrain error mean "
                              f"{lap['err_mean']} > {ROUTE_ERR_LIMIT}")
+
+
+def check_lattice_launches(tag, launches, field):
+    """A lattice lap: the adjoint ran, the slot-row kernel once a matvec
+    (one matvec a CG iteration) and the dense forward once, for the
+    evaluator tables."""
+    iters = field.solver_stats.iters
+    if not (launches[1] > 0 and iters > 0 and launches[3] == iters
+            and launches[0] == 1):
+        raise AssertionError(
+            f"[{tag}] launches fwd {launches[0]} adj {launches[1]} rows "
+            f"{launches[3]}: expected fwd 1, adj > 0 and rows = {iters} "
+            "CG iterations")
+
+
+def lap_diff(a, b) -> str:
+    """Two laps' (alphas, mesh vertices, mesh faces): "bit-equal", or
+    the largest absolute and relative differences."""
+    (al_a, v_a, f_a), (al_b, v_b, f_b) = a, b
+    parts = []
+    if all(torch.equal(x, y) for x, y in zip(al_a, al_b)):
+        parts.append("coefficients bit-equal")
+    else:
+        da = max(float((x - y).abs().max()) for x, y in zip(al_a, al_b))
+        ra = max(float(((x - y).abs().max() / y.abs().max().clamp(
+            min=1e-30))) for x, y in zip(al_a, al_b))
+        parts.append(f"coefficients differ: max abs {da:.3e}, max abs "
+                     f"over the largest {ra:.3e}")
+    if v_a.shape == v_b.shape and np.array_equal(f_a, f_b) \
+            and np.array_equal(v_a, v_b):
+        parts.append("mesh bit-equal")
+    elif v_a.shape == v_b.shape and f_a.shape == f_b.shape:
+        dv = float(np.abs(v_a - v_b).max())
+        parts.append(f"mesh differs: vertices max abs {dv:.3e} (relative "
+                     f"{dv / float(np.abs(v_b).max()):.3e}), faces "
+                     f"{'equal' if np.array_equal(f_a, f_b) else 'differ'}")
+    else:
+        parts.append(f"mesh differs: {len(v_a)} / {len(v_b)} vertices, "
+                     f"{len(f_a)} / {len(f_b)} faces")
+    return "; ".join(parts)
 
 
 def main() -> int:
@@ -365,12 +534,14 @@ def main() -> int:
     from nksr_tpu_torch.ops import probes as P
     from nksr_tpu_torch.ops import sorted_scatter as SS
     from nksr_tpu_torch.ops import window_basis as WB
+    from nksr_tpu_torch.recon import reconstructor as RC
     from nksr_tpu_torch.scripts import microbench_scatter as MB
     from nksr_tpu_torch.scripts import probe_kernels as PK
+    from nksr_tpu_torch.scripts import time_rows as TR
     from nksr_tpu_torch.utils.checkpoint import load_tree
     from nksr_tpu_torch.utils.scenes import synthetic_scene
     counters = (LK.av0_cascade, LK.av0_adjoint_cascade,
-                WB.window_and_grad_fused)
+                WB.window_and_grad_fused, LK.av0_rows)
     scatter_counters = (SS.scatter_rate_write, SS.scatter_rate_read,
                         SS.blocked_sorted_scatter)
 
@@ -423,9 +594,15 @@ def main() -> int:
                                 adaptive_depth=1, s_pt=64, p_rows=4, s_gr=32,
                                 n_pts_cap=256)
         res_small = compare_kernels(LK, small, gen, timed=False)
+        xs_small = [torch.randn((small.n_cells(d), small.k), device="cuda",
+                                generator=gen) for d in range(small.depth)]
+        cells_small = row_cells(small, gen)
+        compare_rows(LK, small, xs_small, cells_small, timed=False)
         print(f"[phase 2] spec {dims}: forward exact (f32, bf16), adjoint "
               f"max err {res_small['adj_err']:.3e}, pair rel "
-              f"{res_small['pair_rel']:.2e}", flush=True)
+              f"{res_small['pair_rel']:.2e}; slot rows exact (f32, bf16) "
+              f"at {len(cells_small)} unsorted cells with edge planes and "
+              "repeats", flush=True)
     win_small = compare_window(WB, 1000, gen, timed=False)
     print(f"[phase 2] window kernel at Q 1000: max err "
           f"{win_small['err']:.3e}", flush=True)
@@ -434,11 +611,29 @@ def main() -> int:
     params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
     recon = Reconstructor(config=PipelineConfig(conv_dtype="bfloat16"),
                           params=params)
-    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm)   # warm-up
+    # warm-up lap, capturing the slot cells and the first matvec's
+    # coefficients
+    (tr, tm, field, mesh), _, slot_cells, xs_mv = TR.capture_rows(
+        LK, lambda: main_path_lap(recon, xyz, nrm))
     print(f"[phase 3] warm-up lap: reconstruct_s {tr:.3f} extract_mesh_s "
           f"{tm:.3f}", flush=True)
     spec = field.lattice_ctx.spec
     del field, mesh
+    torch.cuda.empty_cache()
+    rows_res = compare_rows(LK, spec, xs_mv, slot_cells, timed=True)
+    rb, rby = rows_res["bound"]
+    n_distinct = int(torch.unique(slot_cells).numel())
+    print(f"[phase 2] slot rows at the main path: {len(slot_cells)} slot "
+          f"cells ({n_distinct} distinct), the first matvec's "
+          "coefficients: exact (f32, bf16; against the plain version and "
+          "the dense plain forward's rows); bf16 kernel "
+          f"{rows_res['ms']:.4f} ms (turns {rows_res['ms_turns'][0]:.4f}, "
+          f"{rows_res['ms_turns'][1]:.4f}; plain {rows_res['plain_ms']:.3f}"
+          f", bound {rb:.4f} by {rby}); the chain it replaces (dense bf16 "
+          f"forward + 2 row gathers + casts) {rows_res['chain_ms']:.4f} ms "
+          f"(turns {rows_res['chain_turns'][0]:.4f}, "
+          f"{rows_res['chain_turns'][1]:.4f})", flush=True)
+    del xs_mv
     torch.cuda.empty_cache()
     res = compare_kernels(LK, spec, gen, timed=True)
     (fb, fby), (ab, aby), (ab16, _) = av0_bounds(spec)
@@ -455,13 +650,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at the bench's size, two timed laps
-    laps = []
+    laps, lap_out = [], []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(counters)
         tr, tm, field, mesh = main_path_lap(recon, xyz, nrm)
         launches = [fn.launches for fn in counters]
         laps.append((tr, tm))
+        lap_out.append(([a.clone() for a in field.alpha], mesh.v, mesh.f))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[phase 3] lap: reconstruct_s {tr:.3f} extract_mesh_s "
               f"{tm:.3f} phases "
@@ -474,13 +670,15 @@ def main() -> int:
           f"extract_mesh_s {tm:.3f} pts/s {N_POINTS / (tr + tm):.1f} "
           f"mesh verts {len(mesh.v)} faces {len(mesh.f)}", flush=True)
     print(f"[phase 3] {field.solver_stats}  launches fwd {launches[0]} adj "
-          f"{launches[1]}  peak memory {peak:.2f} GiB", flush=True)
+          f"{launches[1]} rows {launches[3]}  peak memory {peak:.2f} GiB",
+          flush=True)
+    print("[phase 3] the two laps on one input: " + lap_diff(*lap_out),
+          flush=True)
+    del lap_out
     print(f"[phase 3] terrain vertex error on {n_inner} interior vertices: "
           f"mean {err.mean():.5f} q90 {np.quantile(err, 0.9):.5f} max "
           f"{err.max():.5f} (limit {ERR_LIMIT})", flush=True)
-    if min(launches[:2]) <= 0:
-        raise AssertionError(f"a cascade kernel did not run on the splat "
-                             f"path: {launches}")
+    check_lattice_launches("phase 3", launches, field)
     if not len(mesh.f) or not np.isfinite(mesh.v).all():
         raise AssertionError("empty or non-finite mesh")
     if not err.mean() <= ERR_LIMIT:
@@ -497,6 +695,11 @@ def main() -> int:
     else:
         print("[phase 3] profiled matvec: the profiler saw no device time; "
               f"CUDA events {ev_ms:.3f} ms a matvec", flush=True)
+    torch.cuda.empty_cache()
+    split = profile_solve(RC, recon, xyz, nrm)
+    print("[phase 3] profiled lattice solve, host ms / device ms: "
+          + "; ".join(f"{name} {h:.3f} / {dv:.3f}" for name, h, dv in split),
+          flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 4: route B (plan over the lattice budget)
@@ -527,9 +730,7 @@ def main() -> int:
             and field.lattice_ctx is not None
             and "host dual mc" in field.phase_times):
         raise AssertionError("[phase 5] the 60 m tile did not take route A")
-    if min(a_launches[:2]) <= 0:
-        raise AssertionError(f"[phase 5] a cascade kernel did not run on "
-                             f"route A: {a_launches}")
+    check_lattice_launches("phase 5", a_launches, field)
     del field, mesh
     torch.cuda.empty_cache()
 
@@ -552,6 +753,13 @@ def main() -> int:
          "launches": splat_launches[0], "max_abs_err": res["fwd_err"],
          "ms": res["fwd_ms"], "plain_ms": res["fwd_plain_ms"],
          "bound_ms": fb, "bound_by": fby, "library_ms": None},
+        {"name": "av0_rows", "route": "cuda",
+         "source": "nksr_tpu_torch/csrc/av0_cascade.cu",
+         "replaces": "nksr_tpu/fields/lattice_pallas.py:189 + "
+                     "nksr_tpu/fields/lattice.py:874",
+         "launches": splat_launches[3], "max_abs_err": rows_res["err"],
+         "ms": rows_res["ms"], "plain_ms": rows_res["plain_ms"],
+         "bound_ms": rb, "bound_by": rby, "library_ms": None},
         {"name": "av0_adjoint_cascade", "route": "cuda",
          "source": "nksr_tpu_torch/csrc/av0_cascade.cu",
          "replaces": "nksr_tpu/fields/lattice_pallas.py:279",

@@ -2,6 +2,9 @@
 //
 // Replaces the Pallas TPU kernels in nksr_tpu/fields/lattice_pallas.py:
 //   av0_cascade_pallas          (_kernel_fwd)  -> av0_fwd_kernel
+//   av0_cascade_pallas followed by the matvec's sorted row gather
+//     (nksr_tpu/fields/lattice.py _take_rows_sorted; the same function
+//     as its _row_blocks)                      -> av0_rows_kernel
 //   av0_adjoint_cascade_pallas  (_kernel_adj + halo fold)
 //                               -> av0_adj_bricks, then av0_adj_corners
 //
@@ -26,6 +29,32 @@
 // blockIdx.y.  It reads one k-wide f32 coefficient row (one 16 B load at
 // k=4) and writes k values in the output type (one 8 B store in bf16);
 // the 8 corner threads of a cell write one contiguous 8k-lane block.
+// The evaluator's tables are its only caller.
+//
+// Slot rows (av0_rows_kernel): the lattice matvec reads AV0 only at its
+// slot cells (2^20 rows at the bench plan, on 420k distinct cells: 4.9%
+// of the lattice).  Building all of AV0 and gathering the rows wrote
+// 2.2 GB to keep 0.27 GB; this kernel writes the rows straight from the
+// coefficient lattices, as f32 holding values rounded to the compute
+// type (the solve's bmm input).  It is a pure gather bound by its write
+// (0.54 GB of f32 rows at the bench plan, 0.16 ms at 3.35 TB/s; the
+// coefficient rows it touches are a fraction of the 0.17 GB lattices and
+// sorted slots make neighbouring warps read neighbouring rows, from L1
+// and L2).  Design: items (row, depth, corner) in row-major order, item
+// t writing out[t*k .. t*k+k), so a warp writes whole 128 B lines (at
+// depth 4, k=4 a warp's 32 items are one 512 B row, 16 B a thread, and
+// read one broadcast cell index); one 16 B __ldg of a coefficient row an
+// item; streaming stores (the rows are not read back before they leave
+// L2, the coefficients are).  Each thread takes two items a block width
+// apart and issues both load chains (cell index, then coefficient row)
+// before either store; divisions by runtime extents use host-made magic
+// numbers (FastDiv); each thread takes its depth's pointer and dims from
+// a shared-memory copy of the parameters, filled with constant indices.
+// Measured on an H100 at the bench plan (scripts/time_rows.py, trees
+// that differ only here, in turns): two items a thread in blocks of 128
+// 0.209 ms (79% of the 0.165 ms bound), one item in blocks of 256 0.262
+// ms, three items 0.207 ms, select_depth's chain of selects in place of
+// the shared copy 0.330 ms.  Cells outside [0, cells_0) give zero rows.
 //
 // Adjoint, two kernels, no atomics, every f32 sum in a fixed order (two
 // calls on one input are bit-equal):
@@ -55,9 +84,10 @@
 // Lessons kept:
 //   * per-depth pointers, dims and partial offsets are read from the
 //     kernel parameters with constant indices only (select_depth,
-//     select_part): a dynamic index spills the parameter struct to local
-//     memory in every thread, which cost 10x the write bound in the first
-//     forward.
+//     select_part), or copied with constant indices into shared memory
+//     first (av0_rows_kernel): a dynamic index spills the parameter struct
+//     to local memory in every thread, which cost 10x the write bound in
+//     the first forward.
 //   * cell indices are 32-bit (dims_ok checks every n_d * 8 < 2^31);
 //     element offsets are 64-bit.
 //   * depth 0 staged in shared memory instead (a CTA walking x-planes of a
@@ -74,6 +104,8 @@
 #define ADJ_LEVELS 3        // a stage-1 brick is 2^3 depth-0 cells a side
 #define ADJ_CHUNK 96        // lanes one pass of a brick folds (shared memory)
 #define ADJ_THREADS 256
+#define ROWS_THREADS 128    // slot-row kernel: threads a block
+#define ROWS_ITEMS 2        // and items a thread
 
 extern "C" {
 struct Av0Spec {
@@ -191,6 +223,116 @@ __global__ void av0_fwd_kernel(Av0Spec s, ConstPtrs coeff, T* __restrict__ out,
   const int lanes = s.depth * 8 * K;
   *reinterpret_cast<Vec<T, K>*>(out + (int64_t)cell * lanes + (d * 8 + c) * K) =
       o;
+}
+
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 with one multiply-high: the
+// magic number m and shift s are made on the host (fast_div).
+struct FastDiv {
+  uint32_t d, m, s;
+};
+__device__ __forceinline__ uint32_t div_by(uint32_t n, const FastDiv& f) {
+  return (__umulhi(n, f.m) + n) >> f.s;
+}
+
+struct DepthLattice {
+  const float* p;
+  int32_t x, y, z;
+};
+
+// k f32 coefficients of one row, read through the read-only path in 16 B
+// (k >= 4), 8 B or 4 B loads.
+template <int K>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < K; q += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p + q));
+      v[q] = a.x, v[q + 1] = a.y, v[q + 2] = a.z, v[q + 3] = a.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// k f32 values as streaming (evict-first) stores of 16, 8 or 4 B.
+template <int K>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < K; q += 4)
+      __stcs(reinterpret_cast<float4*>(p + q),
+             make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+  } else if constexpr (K == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// grid ceil(rows * depth * 8 / (ROWS_THREADS * ROWS_ITEMS)): item t =
+// (row, depth, corner) in row-major order writes out[t*K .. t*K+K).  A
+// block takes ROWS_ITEMS runs of ROWS_THREADS items, one thread an item
+// of each run: a thread's loads are all issued before its stores.
+// ROUND: values rounded to bf16 and widened back (the compute type's
+// values in f32).
+template <bool ROUND, int K>
+__global__ void __launch_bounds__(ROWS_THREADS)
+    av0_rows_kernel(Av0Spec s, ConstPtrs coeff, FastDiv groups, FastDiv zdiv,
+                    FastDiv ydiv, const int32_t* __restrict__ cells,
+                    float* __restrict__ out, int n_items) {
+  __shared__ DepthLattice lat[AV0_MAX_DEPTH];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 0; q < AV0_MAX_DEPTH; ++q)
+      if (q < s.depth)
+        lat[q] = DepthLattice{coeff.p[q], s.dims[q][0], s.dims[q][1],
+                              s.dims[q][2]};
+  }
+  __syncthreads();
+  const int y0 = s.dims[0][1], z0 = s.dims[0][2];
+  const int n0 = s.dims[0][0] * y0 * z0;
+  uint32_t ts[ROWS_ITEMS];
+  int cl[ROWS_ITEMS];
+#pragma unroll
+  for (int i = 0; i < ROWS_ITEMS; ++i) {
+    ts[i] = (blockIdx.x * ROWS_ITEMS + i) * ROWS_THREADS + threadIdx.x;
+    cl[i] = ts[i] < (uint32_t)n_items ? __ldg(cells + div_by(ts[i], groups))
+                                      : -1;
+  }
+  float v[ROWS_ITEMS][K];
+#pragma unroll
+  for (int i = 0; i < ROWS_ITEMS; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) v[i][kk] = 0.0f;
+    const int cell = cl[i];
+    if (cell < 0 || cell >= n0) continue;
+    const uint32_t row = div_by(ts[i], groups);
+    const int g = (int)(ts[i] - row * groups.d);
+    const int d = g >> 3, c = g & 7;
+    const uint32_t xy = div_by((uint32_t)cell, zdiv);
+    const uint32_t x = div_by(xy, ydiv);
+    const int z = cell - (int)(xy * (uint32_t)z0);
+    const int y = (int)(xy - x * (uint32_t)y0);
+    const DepthLattice L = lat[d];
+    const int cx = ((int)x >> d) + ((c >> 2) & 1),
+              cy = (y >> d) + ((c >> 1) & 1), cz = (z >> d) + (c & 1);
+    if (cx < L.x && cy < L.y && cz < L.z)
+      load_row<K>(L.p + (((int64_t)cx * L.y + cy) * L.z + cz) * K, v[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS_ITEMS; ++i) {
+    if (ts[i] >= (uint32_t)n_items) continue;
+    if constexpr (ROUND) {
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        v[i][kk] = __bfloat162float(from_f32<__nv_bfloat16>(v[i][kk]));
+    }
+    store_row<K>(out + (int64_t)ts[i] * K, v[i]);
+  }
 }
 
 // Store level-L groups (n = 8 >> L a side, rows of ADJ_CHUNK floats in
@@ -404,6 +546,26 @@ static void launch_fwd(const Av0Spec& s, const ConstPtrs& c, void* out,
                                                   cells0);
 }
 
+static FastDiv fast_div(uint32_t d) {
+  uint32_t s = 0;
+  while (s < 32 && (1u << s) < d) ++s;
+  const uint64_t m = ((uint64_t)1 << 32) * (((uint64_t)1 << s) - d) / d + 1;
+  return FastDiv{d, (uint32_t)m, s};
+}
+
+template <bool ROUND, int K>
+static void launch_rows(const Av0Spec& s, const ConstPtrs& c,
+                        const int32_t* cells, float* out, int n_items,
+                        cudaStream_t st) {
+  const int64_t per_block = ROWS_THREADS * ROWS_ITEMS;
+  const unsigned blocks =
+      (unsigned)(((int64_t)n_items + per_block - 1) / per_block);
+  av0_rows_kernel<ROUND, K><<<blocks, ROWS_THREADS, 0, st>>>(
+      s, c, fast_div((uint32_t)(s.depth * 8)),
+      fast_div((uint32_t)s.dims[0][2]), fast_div((uint32_t)s.dims[0][1]),
+      cells, out, n_items);
+}
+
 template <typename T, bool ROUND, int K>
 static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
                       const void* z, float* part, const MutPtrs& o,
@@ -492,6 +654,31 @@ int av0_cascade_fwd(const Av0Spec* spec, const void* const* coeff, void* out,
     AV0_DISPATCH_K(launch_fwd, __nv_bfloat16, *spec, c, out, cells0, st)
   } else {
     AV0_DISPATCH_K(launch_fwd, float, *spec, c, out, cells0, st)
+  }
+  return (int)cudaGetLastError();
+}
+
+// coeff[d]: (n_d, k) f32; cells: (rows,) int32 depth-0 cells; out:
+// (rows, depth*8*k) f32, the values rounded to bf16 when round_bf16=1.
+// rows == 0 launches nothing.  Returns cudaGetLastError() after the
+// launch.
+int av0_rows(const Av0Spec* spec, const void* const* coeff,
+             const int32_t* cells, int rows, void* out, int round_bf16,
+             void* stream) {
+  if (!dims_ok(spec) || rows < 0 ||
+      (int64_t)rows * spec->depth * 8 >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  ConstPtrs c;
+  for (int d = 0; d < spec->depth; ++d)
+    c.p[d] = static_cast<const float*>(coeff[d]);
+  const int n_items = rows * spec->depth * 8;
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (round_bf16) {
+    AV0_DISPATCH_K(launch_rows, true, *spec, c, cells, o, n_items, st)
+  } else {
+    AV0_DISPATCH_K(launch_rows, false, *spec, c, cells, o, n_items, st)
   }
   return (int)cudaGetLastError();
 }

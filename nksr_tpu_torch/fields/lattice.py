@@ -7,12 +7,13 @@ byte-identical plans from the same host grids.
 
 The device half fits per-depth coefficient lattices ``xs[d]`` of shape
 ``(n_d, k)`` f32 by preconditioned CG on the normal equations
-``(A^T W A + reg I) x = A^T W y``.  Each matvec builds the fused
-depth-0 support buffer AV0 ``(cells_0, depth*8k)`` with the forward
-cascade kernel, gathers one AV0 row per slot, contracts it with the
-slot's basis block, scatter-adds the transposed contraction into a
-depth-0 buffer and maps that back with the adjoint cascade kernel
-(``fields/lattice_kernels.py``).
+``(A^T W A + reg I) x = A^T W y``.  Each matvec computes the slots'
+rows of the fused depth-0 support buffer AV0 ``(cells_0, depth*8k)``
+straight from the coefficient lattices with the slot-row kernel,
+contracts each with the slot's basis block, scatter-adds the transposed
+contraction into a depth-0 buffer and maps that back with the adjoint
+cascade kernel (``fields/lattice_kernels.py``).  The whole of AV0 is
+built only for the evaluator (``fields/lattice_eval.py``).
 
 The lattice is exact integer geometry: a point's support cell at depth d
 is ``floor(x / vs_d)`` and deeper cells are nested prefixes
@@ -28,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..core.host_build import unpack64
 from ..models.network import Interpolators, mlp_with_tangents
@@ -491,8 +493,10 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     Point arrays hold the real points only, in plan order
     (``plan.pt_perm``); ``gr_targets`` (s_gr, 3) are the gradient targets
     in hierarchy order (``gr_perm`` realigns them with the sorted slots).
-    Row blocks and AV0 are held in ``compute_dtype`` values (bf16 on the
-    card), every contraction and sum is f32.
+    Row blocks and AV0's slot rows are held in ``compute_dtype`` values
+    (bf16 on the card), every contraction and sum is f32.  The phases
+    outside the matvecs are ``torch.profiler`` ranges named
+    ``lattice_solve: ...``.
 
     Returns (alphas, dense_xs, (iters, rel_res)): per-voxel flat
     coefficients (cap_d * k,), the dense (n_d, k) solution lattices (zero
@@ -504,11 +508,14 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     dev = xyz_sorted.device
     gr_targets = gr_targets[gr_perm]
 
-    fdp, adp = scatter_tables(spec, basis_features, vox_cell, vox_active)
-    b_pt, m_pt, b_gr = assemble_rows(
-        spec, interp, fdp, adp, xyz_sorted, pt_cell0, pt_dest,
-        slot_cells_pt, gr_coords, gr_depth, gr_active, slot_cells_gr,
-        voxel_size, approx_grad)
+    with record_function("lattice_solve: scatter_tables"):
+        fdp, adp = scatter_tables(spec, basis_features, vox_cell,
+                                  vox_active)
+    with record_function("lattice_solve: assemble_rows"):
+        b_pt, m_pt, b_gr = assemble_rows(
+            spec, interp, fdp, adp, xyz_sorted, pt_cell0, pt_dest,
+            slot_cells_pt, gr_coords, gr_depth, gr_active, slot_cells_gr,
+            voxel_size, approx_grad)
     del fdp, adp
     # the blocks keep the compute dtype's values in f32 storage: a bf16
     # product is exact in f32, so the f32 bmm below sums what the JAX
@@ -521,11 +528,13 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     w_pt = m_pt * (pos_weight / n_pts)                          # (s_pt, r)
     w_gr = gr_active.float() * (normal_weight / m_vox * voxel_size ** 2)
     n_c0 = spec.n_cells(0)
+    # one index for both row families: point slots, then gradient slots
+    slot_cells0 = torch.cat([slot_cell0_pt, slot_cell0_gr]).to(torch.int32)
+    s_pt = slot_cell0_pt.shape[0]
 
     def apply_A(xs):
-        av0 = LK.av0_cascade(spec, xs, cdt)
-        av_pt = av0.index_select(0, slot_cell0_pt).float()
-        av_gr = av0.index_select(0, slot_cell0_gr).float()
+        av = LK.av0_rows(spec, xs, slot_cells0, cdt)
+        av_pt, av_gr = av[:s_pt], av[s_pt:]
         t_pt = torch.bmm(b_pt, av_pt[..., None])[..., 0]        # (s_pt, r)
         t_gr = torch.bmm(b_gr, av_gr[..., None])[..., 0]        # (s_gr, 3)
         return t_pt, t_gr
@@ -546,22 +555,26 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
         return tuple(yi + reg_weight * xi for yi, xi in zip(y, xs))
 
     # rhs = A_g^T W_g targets (value rows have target 0)
-    rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
+    with record_function("lattice_solve: rhs"):
+        rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
 
     # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k), mapped
     # back by the adjoint cascade in f32
-    dz = torch.zeros((n_c0, spec.lanes), dtype=f32, device=dev)
-    dz.index_add_(0, slot_cell0_pt, (b_pt ** 2 * w_pt[..., None]).sum(1))
-    dz.index_add_(0, slot_cell0_gr,
-                  (b_gr ** 2).sum(1) * w_gr[:, None])
-    diag = tuple(a + reg_weight
-                 for a in LK.av0_adjoint_cascade(spec, dz, f32))
-    del dz
+    with record_function("lattice_solve: jacobi diagonal"):
+        dz = torch.zeros((n_c0, spec.lanes), dtype=f32, device=dev)
+        dz.index_add_(0, slot_cell0_pt,
+                      (b_pt ** 2 * w_pt[..., None]).sum(1))
+        dz.index_add_(0, slot_cell0_gr,
+                      (b_gr ** 2).sum(1) * w_gr[:, None])
+        diag = tuple(a + reg_weight
+                     for a in LK.av0_adjoint_cascade(spec, dz, f32))
+        del dz
 
-    xs, iters, rel_res = pcg(
-        matvec, rhs, precond=lambda r: tuple(ri / di
-                                             for ri, di in zip(r, diag)),
-        tol=tol, max_iters=max_iters)
+    with record_function("lattice_solve: pcg"):
+        xs, iters, rel_res = pcg(
+            matvec, rhs,
+            precond=lambda r: tuple(ri / di for ri, di in zip(r, diag)),
+            tol=tol, max_iters=max_iters)
 
     alphas = []
     for d in range(depth):

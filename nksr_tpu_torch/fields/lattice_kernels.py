@@ -4,15 +4,20 @@ beside its plain PyTorch version.
 ``av0_cascade`` replaces ``av0_cascade_pallas`` and
 ``av0_adjoint_cascade`` replaces ``av0_adjoint_cascade_pallas``
 (nksr_tpu/fields/lattice_pallas.py, kernel bodies ``_kernel_fwd`` and
-``_kernel_adj`` plus its halo fold).  The CUDA source is
-``csrc/av0_cascade.cu``; its header says what bounds the kernels on the
-H100 and how their design answers that.  In short: both only move data,
-so the forward is one coalesced write of AV0 with L2-served coefficient
-reads, and the adjoint reads AV0 once, coalesced, in two stages (8^3
-bricks fold the ancestors of depths >= 1 into partials, then one thread
-per coefficient sums its 8 corners), with no atomics and a fixed order
-of every f32 sum.  It reads an f32 buffer in bf16 by rounding in
-registers, so the solve hands it its f32 buffer with no cast.
+``_kernel_adj`` plus its halo fold).  ``av0_rows`` replaces the
+matvec's pair of ``av0_cascade_pallas`` and the sorted row gather
+(nksr_tpu/fields/lattice.py ``_take_rows_sorted``): it computes AV0's
+rows at given depth-0 cells only, straight from the coefficient
+lattices.  The CUDA source is ``csrc/av0_cascade.cu``; its header says
+what bounds the kernels on the H100 and how their design answers that.
+In short: all three only move data, so the forward is one coalesced
+write of AV0 with L2-served coefficient reads, the row kernel one
+coalesced write of the rows, and the adjoint reads AV0 once, coalesced,
+in two stages (8^3 bricks fold the ancestors of depths >= 1 into
+partials, then one thread per coefficient sums its 8 corners), with no
+atomics and a fixed order of every f32 sum.  It reads an f32 buffer in
+bf16 by rounding in registers, so the solve hands it its f32 buffer with
+no cast.
 
 Semantics (per depth d, corner (i, j, l), lane group g = 8d + 4i + 2j + l):
 ``AV0[x, y, z, g*k + kk] = coeff_d[(x>>d)+i, (y>>d)+j, (z>>d)+l, kk]``
@@ -66,6 +71,10 @@ def _lib() -> ctypes.CDLL:
     lib.av0_cascade_fwd.argtypes = [
         ctypes.POINTER(_Av0Spec), ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p]
+    lib.av0_rows.restype = ctypes.c_int
+    lib.av0_rows.argtypes = [
+        ctypes.POINTER(_Av0Spec), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.av0_cascade_adj.restype = ctypes.c_int
     lib.av0_cascade_adj.argtypes = [
         ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout),
@@ -139,6 +148,33 @@ def av0_cascade_plain(spec, xs: Sequence[torch.Tensor],
     return out.reshape(spec.n_cells(0), spec.lanes)
 
 
+def av0_rows_plain(spec, xs: Sequence[torch.Tensor], cells0: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """Plain PyTorch slot rows: per depth and corner, index each row's
+    ancestor coefficient row, zero past the lattice edge; no dense
+    buffer.  Equal to ``av0_cascade_plain(spec, xs, dtype)[cells0]
+    .float()`` for cells in ``[0, cells_0)``; other cells give zero
+    rows, as in the kernel."""
+    _check_dtype(dtype)
+    x0, y0, z0 = spec.dims[0]
+    c = cells0.long()
+    inside = (c >= 0) & (c < spec.n_cells(0))
+    c = torch.where(inside, c, 0)
+    cz, cxy = c % z0, c // z0
+    cy, cx = cxy % y0, cxy // y0
+    out = torch.empty((c.shape[0], spec.depth, 8, spec.k),
+                      dtype=torch.float32, device=c.device)
+    for d in range(spec.depth):
+        xd, yd, zd = spec.dims[d]
+        for g, (i, j, l) in enumerate(_CORNERS):
+            ax, ay, az = (cx >> d) + i, (cy >> d) + j, (cz >> d) + l
+            ok = inside & (ax < xd) & (ay < yd) & (az < zd)
+            flat = torch.where(ok, (ax * yd + ay) * zd + az, 0)
+            v = torch.where(ok[:, None], xs[d].index_select(0, flat), 0.0)
+            out[:, d, g] = v.to(dtype).float()
+    return out.reshape(c.shape[0], spec.lanes)
+
+
 def av0_adjoint_cascade_plain(spec, z0_buf: torch.Tensor,
                               compute_dtype) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch adjoint: the exact transpose of
@@ -191,6 +227,41 @@ def av0_cascade(spec, xs: Sequence[torch.Tensor], dtype) -> torch.Tensor:
 
 
 av0_cascade.launches = 0
+
+
+def av0_rows(spec, xs: Sequence[torch.Tensor], cells0: torch.Tensor,
+             dtype) -> torch.Tensor:
+    """AV0's rows at the depth-0 cells ``cells0`` (R,) int32, computed
+    from the per-depth (n_d, k) f32 coefficient lattices ``xs``: (R,
+    depth*8k) f32 holding values rounded to ``dtype``, bit-equal to
+    ``av0_cascade(spec, xs, dtype)[cells0].float()``."""
+    _check_dtype(dtype)
+    if xs[0].device.type == "cpu":
+        return av0_rows_plain(spec, xs, cells0, dtype)
+    cs = _c_spec(spec)
+    for d in range(spec.depth):
+        CB.check_cuda(xs[d], (spec.n_cells(d), spec.k), torch.float32,
+                      f"av0_rows xs[{d}]")
+    rows = cells0.shape[0] if cells0.dim() else -1
+    CB.check_cuda(cells0, (rows,), torch.int32, "av0_rows cells0", align=4)
+    if rows * spec.depth * 8 >= 1 << 31:
+        raise ValueError(f"av0_rows: {rows} rows exceed 32-bit thread "
+                         "indices")
+    out = torch.empty((rows, spec.lanes), dtype=torch.float32,
+                      device=xs[0].device)
+    if rows == 0:
+        return out
+    ptrs = (ctypes.c_void_p * spec.depth)(*[x.data_ptr() for x in xs])
+    rc = _lib().av0_rows(
+        ctypes.byref(cs), ptrs, cells0.data_ptr(), rows, out.data_ptr(),
+        int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    CB.raise_on(rc, "av0_rows launch")
+    av0_rows.launches += 1
+    return out
+
+
+av0_rows.launches = 0
 
 
 def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,

@@ -1,6 +1,6 @@
-"""The CUDA kernels (the AV0 cascade pair, the window, the sorted
-scatters and the probes) against their plain PyTorch versions on the card
-(marker ``cuda``; skipped where there is no CUDA device).  Run on a
+"""The CUDA kernels (the AV0 cascade pair and slot rows, the window, the
+sorted scatters and the probes) against their plain PyTorch versions on
+the card (marker ``cuda``; skipped where there is no CUDA device).  Run on a
 machine with the card, where JAX need not be installed (``--noconftest``
 skips the JAX set-up of conftest.py):
 
@@ -127,6 +127,71 @@ def test_adjoint_rejects_bad_input(gen):
         LK.av0_adjoint_cascade(spec, z.half(), torch.float32)
     with pytest.raises(ValueError):
         LK.av0_adjoint_cascade(spec, z[:, :-4], torch.bfloat16)
+
+
+def _row_cells(spec, gen):
+    """Random depth-0 cells, every cell on the last x, y and z planes and
+    repeats of them, in a random (unsorted) order, as int32 on the card."""
+    x0, y0, z0 = spec.dims[0]
+    grid = torch.arange(spec.n_cells(0), device="cuda").view(x0, y0, z0)
+    cells = torch.cat([
+        torch.randint(0, spec.n_cells(0), (500,), device="cuda",
+                      generator=gen),
+        grid[-1].reshape(-1), grid[:, -1].reshape(-1),
+        grid[:, :, -1].reshape(-1)])
+    cells = torch.cat([cells, cells[:64]])
+    perm = torch.randperm(len(cells), device="cuda", generator=gen)
+    return cells[perm].to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_rows_kernel_matches_plain(gen, depth, k, dtype):
+    """The slot-row kernel is bit-equal to its plain version (pure
+    selection and one rounding) on the ragged depth-0 dims (20, 12, 10):
+    random cells, edge planes, duplicates, an unsorted order, R = 0, and
+    cells outside the lattice (zero rows).  Only launches count."""
+    spec = _ragged_spec(depth, k)
+    xs = [torch.randn((spec.n_cells(d), spec.k), device="cuda",
+                      generator=gen) for d in range(depth)]
+    cells = _row_cells(spec, gen)
+    before = LK.av0_rows.launches
+    got = LK.av0_rows(spec, xs, cells, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, LK.av0_rows_plain(spec, xs, cells, dtype))
+    assert torch.equal(got, LK.av0_cascade_plain(spec, xs, dtype)[
+        cells.long()].float())
+    empty = LK.av0_rows(spec, xs, cells[:0], dtype)
+    assert empty.shape == (0, spec.lanes)
+    bad = torch.tensor([-1, spec.n_cells(0), 0], dtype=torch.int32,
+                       device="cuda")
+    out = LK.av0_rows(spec, xs, bad, dtype)
+    assert torch.equal(out, LK.av0_rows_plain(spec, xs, bad, dtype))
+    assert not out[:2].any()
+    assert LK.av0_rows.launches == before + 2
+
+
+def test_rows_kernel_rejects_bad_input(gen):
+    """int64 or non-contiguous cells, a coefficient lattice of the wrong
+    shape or on the CPU, and an unsupported dtype raise instead of
+    falling back to the plain version."""
+    spec = _spec(3)
+    xs = [torch.zeros((spec.n_cells(d), spec.k), device="cuda")
+          for d in range(spec.depth)]
+    cells = torch.arange(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        LK.av0_rows(spec, xs, cells.long(), torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_rows(spec, xs, cells[::2], torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_rows(spec, xs[:-1] + [xs[-1][:-1]], cells, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        LK.av0_rows(spec, xs, cells.cpu(), torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_rows(spec, xs, cells, torch.float16)
 
 
 @pytest.mark.parametrize("q", [1, 1000, 1 << 20])

@@ -209,14 +209,93 @@ def test_adjoint_pair(compute_dtype):
     assert abs(lhs - rhs) / abs(lhs) < 1e-5
 
 
+def _row_cells(spec, seed, n_random=300):
+    """Depth-0 cells for the slot-row tests: random cells with repeats,
+    every cell on the last x, y and z planes, and 20 duplicates, in a
+    shuffled (unsorted) order."""
+    x0, y0, z0 = spec.dims[0]
+    rng = np.random.default_rng(seed)
+    grid = np.arange(spec.n_cells(0)).reshape(x0, y0, z0)
+    cells = np.concatenate([
+        rng.integers(0, spec.n_cells(0), n_random),
+        grid[-1].ravel(), grid[:, -1].ravel(), grid[:, :, -1].ravel()])
+    cells = np.concatenate([cells, cells[rng.integers(0, len(cells), 20)]])
+    return rng.permutation(cells).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_equal_pallas_gathered(dtype):
+    """The slot rows are exactly the Pallas forward's rows at the same
+    cells (the TPU pair: ``av0_cascade_pallas``, then the row gather),
+    edge planes, duplicates and an unsorted order included."""
+    jspec, spec = _specs()
+    xs = _coeffs(spec, 21)
+    cells = _row_cells(spec, 22)
+    ref = JLP.av0_cascade_pallas(
+        jspec, [jnp.asarray(x.reshape(-1, 128)) for x in xs],
+        getattr(jnp, dtype), interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))[cells]
+    tx = [torch.from_numpy(x) for x in xs]
+    cdt = getattr(torch, dtype)
+    got = LK.av0_rows_plain(spec, tx, torch.from_numpy(cells), cdt)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        LK.av0_rows(spec, tx, torch.from_numpy(cells), cdt).numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_equal_row_blocks_on_interior(dtype):
+    """Exactly the JAX package's own ``_row_blocks`` on every interior
+    cell, its per-depth slot cells being the depth-d flat index of each
+    cell's ancestor ``(x>>d, y>>d, z>>d)``."""
+    jspec, spec = _specs()
+    xs = _coeffs(spec, 23)
+    inner = np.flatnonzero(_interior(spec))
+    cells = np.random.default_rng(24).permutation(inner).astype(np.int32)
+    x0, y0, z0 = spec.dims[0]
+    cx, cy, cz = cells // (y0 * z0), (cells // z0) % y0, cells % z0
+    slot_cells = np.stack([
+        (((cx >> d) * spec.dims[d][1] + (cy >> d)) * spec.dims[d][2]
+         + (cz >> d)) for d in range(spec.depth)]).astype(np.int32)
+    ref = JLAT._row_blocks(jspec, tuple(jnp.asarray(x.reshape(-1))
+                                        for x in xs),
+                           jnp.asarray(slot_cells), getattr(jnp, dtype))
+    got = LK.av0_rows_plain(spec, [torch.from_numpy(x) for x in xs],
+                            torch.from_numpy(cells), getattr(torch, dtype))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("depth,k", [(1, 4), (3, 4), (4, 2), (5, 1),
+                                     (3, 8)])
+def test_rows_equal_dense_forward(depth, k, dtype):
+    """``av0_rows_plain`` is the dense plain forward's rows, cast to f32,
+    on the ragged depth-0 dims (20, 12, 10); a cell outside the lattice
+    gives a zero row."""
+    spec = _ragged_spec(depth, k)
+    xs = [torch.from_numpy(x) for x in _coeffs(spec, 25)]
+    cells = torch.from_numpy(_row_cells(spec, 26))
+    ref = LK.av0_cascade_plain(spec, xs, dtype)[cells.long()].float()
+    assert torch.equal(LK.av0_rows_plain(spec, xs, cells, dtype), ref)
+    bad = torch.tensor([-1, spec.n_cells(0)], dtype=torch.int32)
+    assert not LK.av0_rows_plain(spec, xs, bad, dtype).any()
+    assert LK.av0_rows_plain(spec, xs, cells[:0], dtype).shape == \
+        (0, spec.lanes)
+
+
 def test_cpu_calls_do_not_count_launches():
     _, spec = _specs()
     xs = [torch.from_numpy(x) for x in _coeffs(spec, 16)]
-    before = (LK.av0_cascade.launches, LK.av0_adjoint_cascade.launches)
+    before = (LK.av0_cascade.launches, LK.av0_adjoint_cascade.launches,
+              LK.av0_rows.launches)
     LK.av0_adjoint_cascade(spec, LK.av0_cascade(spec, xs, torch.float32),
                            torch.float32)
-    assert (LK.av0_cascade.launches,
-            LK.av0_adjoint_cascade.launches) == before
+    LK.av0_rows(spec, xs, torch.arange(8, dtype=torch.int32), torch.float32)
+    assert (LK.av0_cascade.launches, LK.av0_adjoint_cascade.launches,
+            LK.av0_rows.launches) == before
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
@@ -229,10 +308,14 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(LK, "av0_cascade_plain", fail)
     monkeypatch.setattr(LK, "av0_adjoint_cascade_plain", fail)
+    monkeypatch.setattr(LK, "av0_rows_plain", fail)
     xs = [torch.empty((spec.n_cells(d), spec.k), device="meta")
           for d in range(spec.depth)]
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         LK.av0_cascade(spec, xs, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        LK.av0_rows(spec, xs, torch.zeros(4, dtype=torch.int32,
+                                          device="meta"), torch.bfloat16)
     z = torch.empty((spec.n_cells(0), spec.lanes), device="meta")
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         LK.av0_adjoint_cascade(spec, z, torch.float32)

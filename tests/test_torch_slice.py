@@ -27,6 +27,7 @@ from nksr_tpu.models import pipeline as JP
 from nksr_tpu_torch import Reconstructor
 from nksr_tpu_torch.core import host_build as HB
 from nksr_tpu_torch.fields import lattice as LAT
+from nksr_tpu_torch.fields import lattice_kernels as LK
 from nksr_tpu_torch.fields.lattice_eval import LatticeEvalContext
 from nksr_tpu_torch.models import pipeline as P
 from nksr_tpu_torch.models.network import NKSRNetwork
@@ -97,6 +98,22 @@ def test_solve_matches_jax(max_iters):
     match nksr_tpu's XLA engine to rtol 1e-4 (f32 sums in other orders;
     atol 1e-4 of the largest coefficient for the near-zero ones), with
     equal iteration counts."""
+    _check_solve_against_jax(max_iters)
+
+
+def test_solve_never_builds_dense_av0(monkeypatch):
+    """The solve's matvec reads AV0's slot rows from the slot-row
+    kernel's function: with the dense forward made to raise, the solve
+    after 3 iterations still matches nksr_tpu as in
+    ``test_solve_matches_jax``, at the same tolerance."""
+    def fail(*a, **k):
+        raise AssertionError("lattice_solve built the dense AV0")
+
+    monkeypatch.setattr(LK, "av0_cascade", fail)
+    _check_solve_against_jax(3)
+
+
+def _check_solve_against_jax(max_iters):
     cfg = P.PipelineConfig(**SMALL)
     params = random_params(cfg, 2)
     xyz, plan, basis, tgt = _solve_inputs(cfg, 7)
