@@ -7,6 +7,11 @@
 //     as its _row_blocks)                      -> av0_rows_kernel
 //   av0_adjoint_cascade_pallas  (_kernel_adj + halo fold)
 //                               -> av0_adj_bricks, then av0_adj_corners
+//   the matvec's ordered scatter-add of its slot rows into the dense
+//     buffer (nksr_tpu/fields/lattice.py apply_AT, z0.at[...].add)
+//     followed by av0_adjoint_cascade_pallas
+//                               -> csrc/segment_sum.cu, then the MAPPED
+//                                  av0_adj_bricks and av0_adj_corners
 //
 // Per depth d and cell corner (i, j, l) in {0,1}^3, with lane group
 // g = 8d + 4i + 2j + l:
@@ -80,6 +85,25 @@
 //   About 4.9 GB move per f32 call at the bench plan.  An f32 buffer read
 //   in bf16 is rounded in registers (__float2bfloat16_rn), bit for bit
 //   the cast the solve would otherwise make first.
+//
+// Slot-row adjoint (av0_cascade_adj_rows, the MAPPED instances of the two
+// kernels above): the lattice solve's buffer is zero except at its slot
+// cells (420,028 of 8,629,248 depth-0 cells, 4.9%, in 3,996 of 16,854
+// bricks at the bench plan), so the solve no longer builds it.  The
+// wrapper (fields/lattice_kernels.py, av0_adjoint_rows) first sums the
+// slot rows of each cell in a fixed order into one compact f32 row
+// (csrc/segment_sum.cu), with the map from cell to compact row, the
+// occupied bricks and their occupancy built once per solve.  Then
+// av0_adj_bricks runs one CTA per occupied brick, reading its cells'
+// rows through the map (a cell with no row adds nothing), and
+// av0_adj_corners takes depth 0's 8 neighbours through the map and skips
+// the partials of unoccupied bricks, which were never written.  Each
+// cell's row is the sum the dense buffer would hold, rounded to bf16 as
+// it is read (ROUND), never row by row; the folds keep the dense form's
+// order, and a skipped cell or brick only omits a +0.0, so the result
+// equals the dense form's on that buffer bit for bit up to the sign of a
+// zero.  The function's bound at the bench plan: 0.54 GB of f32 slot
+// rows read and 0.17 GB of coefficients written, 0.21 ms at 3.35 TB/s.
 //
 // Lessons kept:
 //   * per-depth pointers, dims and partial offsets are read from the
@@ -335,6 +359,15 @@ __global__ void __launch_bounds__(ROWS_THREADS)
   }
 }
 
+// The row of depth-0 cell ``cell`` in the adjoint's input: the cell
+// itself in the dense buffer; through the solve's cell map (-1: no slot
+// row) for compact rows (MAPPED).
+template <bool MAPPED>
+__device__ __forceinline__ int64_t in_row(const int32_t* __restrict__ map,
+                                          int64_t cell) {
+  return MAPPED ? (int64_t)__ldg(map + cell) : cell;
+}
+
 // Store level-L groups (n = 8 >> L a side, rows of ADJ_CHUNK floats in
 // shared memory from lane lo) of brick (bx, by, bz) as depth d's partial
 // rows; groups past the grid (no depth-0 cell below) are not stored.
@@ -356,9 +389,11 @@ __device__ __forceinline__ void store_groups(const float* q, int n, int lo,
 
 // Stage 1.  grid: one CTA per 8^3 brick of depth-0 cells (z fastest).
 // Each pass folds the lanes of up to ADJ_CHUNK / 8k depths.
-template <typename T, bool ROUND, int K>
+template <typename T, bool ROUND, int K, bool MAPPED>
 __global__ void __launch_bounds__(ADJ_THREADS)
     av0_adj_bricks(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
+                   const int32_t* __restrict__ cell_row,
+                   const int32_t* __restrict__ bricks,
                    float* __restrict__ part) {
   constexpr int VW = 16 / sizeof(T);  // values in one 16 B load
   constexpr int DW = 8 * K;           // lanes of one depth
@@ -367,7 +402,8 @@ __global__ void __launch_bounds__(ADJ_THREADS)
   __shared__ __align__(16) float q2[8 * ADJ_CHUNK];   // 2^3 depth-2 groups
   const int x0 = s.dims[0][0], y0 = s.dims[0][1], z0 = s.dims[0][2];
   const int nby = (y0 + 7) >> 3, nbz = (z0 + 7) >> 3;
-  const int bz = blockIdx.x % nbz, bxy = blockIdx.x / nbz;
+  const int b = MAPPED ? __ldg(bricks + blockIdx.x) : (int)blockIdx.x;
+  const int bz = b % nbz, bxy = b / nbz;
   const int by = bxy % nby, bx = bxy / nby;
   const int lanes = s.depth * DW;
   for (int dlo = 1; dlo < s.depth; dlo += DPC) {
@@ -386,10 +422,13 @@ __global__ void __launch_bounds__(ADJ_THREADS)
       for (int ch = 0; ch < 8; ++ch) {
         const int cx = x + (ch >> 2), cy = y + ((ch >> 1) & 1),
                   cz = zc + (ch & 1);
-        if (cx < x0 && cy < y0 && cz < z0) {
+        const int64_t row =
+            cx < x0 && cy < y0 && cz < z0
+                ? in_row<MAPPED>(cell_row, ((int64_t)cx * y0 + cy) * z0 + cz)
+                : -1;
+        if (row >= 0) {
           const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(
-              z + (((int64_t)cx * y0 + cy) * z0 + cz) * lanes + dlo * DW +
-              u * VW);
+              z + row * lanes + dlo * DW + u * VW);
 #pragma unroll
           for (int e = 0; e < VW; ++e) acc[e] += read_as<ROUND>(v.v[e]);
         }
@@ -448,20 +487,55 @@ __global__ void __launch_bounds__(ADJ_THREADS)
   }
 }
 
-// Sum over the 8 corners c of src[cell - off(c), c*K .. c*K+K), rows of
-// ``stride`` values over a (gx, gy, gz) grid; rows outside it add nothing.
-template <typename TS, bool ROUND, int K>
+// Where the adjoint finds a row of its input: the row of a cell of the
+// dense buffer is the cell itself (DenseRow); a compact-row input maps
+// depth-0 cells through the solve's cell map, -1 where no slot lies
+// (MappedRow); the stage-1 partials of a brick that holds no slot were
+// never written and read as zero (OccupiedGroup: group (ax, ay, az) of
+// 2^(3 - sh) depth-0 cells a side lies in brick (ax, ay, az) >> sh).
+struct DenseRow {
+  __device__ __forceinline__ int64_t operator()(int64_t flat, int, int,
+                                                int) const {
+    return flat;
+  }
+};
+struct MappedRow {
+  const int32_t* map;
+  __device__ __forceinline__ int64_t operator()(int64_t flat, int, int,
+                                                int) const {
+    return __ldg(map + flat);
+  }
+};
+struct OccupiedGroup {
+  const uint8_t* occ;
+  int sh, nby, nbz;
+  __device__ __forceinline__ int64_t operator()(int64_t flat, int ax, int ay,
+                                                int az) const {
+    return __ldg(occ + ((int64_t)(ax >> sh) * nby + (ay >> sh)) * nbz +
+                 (az >> sh))
+               ? flat
+               : -1;
+  }
+};
+
+// Sum over the 8 corners c of src[row(cell - off(c)), c*K .. c*K+K), rows
+// of ``stride`` values over a (gx, gy, gz) grid; cells outside it and
+// rows of -1 add nothing.
+template <typename TS, bool ROUND, int K, typename RowOf>
 __device__ __forceinline__ void corner_sum(const TS* __restrict__ src,
                                            int stride, int gx, int gy, int gz,
                                            int cx, int cy, int cz,
-                                           float (&acc)[K]) {
+                                           RowOf row_of, float (&acc)[K]) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int ax = cx - ((c >> 2) & 1), ay = cy - ((c >> 1) & 1),
               az = cz - (c & 1);
     if (ax >= 0 && ay >= 0 && az >= 0 && ax < gx && ay < gy && az < gz) {
+      const int64_t row =
+          row_of(((int64_t)ax * gy + ay) * gz + az, ax, ay, az);
+      if (row < 0) continue;
       const Vec<TS, K> v = *reinterpret_cast<const Vec<TS, K>*>(
-          src + (((int64_t)ax * gy + ay) * gz + az) * stride + c * K);
+          src + row * stride + c * K);
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) acc[kk] += read_as<ROUND>(v.v[kk]);
     }
@@ -470,9 +544,11 @@ __device__ __forceinline__ void corner_sum(const TS* __restrict__ src,
 
 // Depth d > 3: each ancestor covers 2^sh brick partials a side (sh = d - 3),
 // summed in x, y, z order under each corner.
-template <int K>
+// Bricks that hold no slot (brick_occ 0, MAPPED) were never written.
+template <int K, bool MAPPED>
 __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
                                 int gz, int sh, int cx, int cy, int cz,
+                                const uint8_t* __restrict__ brick_occ,
                                 float (&acc)[K]) {
   const int f = 1 << sh;
   const int ex = (gx + f - 1) >> sh, ey = (gy + f - 1) >> sh,
@@ -485,8 +561,9 @@ __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
     for (int qx = ax << sh; qx < min((ax + 1) << sh, gx); ++qx)
       for (int qy = ay << sh; qy < min((ay + 1) << sh, gy); ++qy)
         for (int qz = az << sh; qz < min((az + 1) << sh, gz); ++qz) {
-          const float* row =
-              src + (((int64_t)qx * gy + qy) * gz + qz) * (8 * K) + c * K;
+          const int64_t q = ((int64_t)qx * gy + qy) * gz + qz;
+          if (MAPPED && !__ldg(brick_occ + q)) continue;
+          const float* row = src + q * (8 * K) + c * K;
 #pragma unroll
           for (int kk = 0; kk < K; ++kk) acc[kk] += row[kk];
         }
@@ -495,9 +572,11 @@ __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
 
 // Stage 2.  grid: ceil(n_d / ADJ_THREADS) blocks for each depth, depth 0
 // first; thread = one coefficient cell of its block's depth.
-template <typename T, bool ROUND, int K>
+template <typename T, bool ROUND, int K, bool MAPPED>
 __global__ void __launch_bounds__(ADJ_THREADS)
     av0_adj_corners(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
+                    const int32_t* __restrict__ cell_row,
+                    const uint8_t* __restrict__ brick_occ,
                     const float* __restrict__ part, MutPtrs out) {
   int d = 0, first = 0, start = 0;
 #pragma unroll
@@ -519,16 +598,29 @@ __global__ void __launch_bounds__(ADJ_THREADS)
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) acc[kk] = 0.0f;
   if (d == 0) {
-    corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
-                            s.dims[0][2], cx, cy, cz, acc);
+    if constexpr (MAPPED)
+      corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
+                              s.dims[0][2], cx, cy, cz, MappedRow{cell_row},
+                              acc);
+    else
+      corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
+                              s.dims[0][2], cx, cy, cz, DenseRow{}, acc);
   } else {
     const float* src;
     int gx, gy, gz;
     select_part(lay, part, d, src, gx, gy, gz);
-    if (d <= ADJ_LEVELS)
-      corner_sum<float, false, K>(src, 8 * K, gx, gy, gz, cx, cy, cz, acc);
+    if (d > ADJ_LEVELS)
+      corner_sum_wide<K, MAPPED>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz,
+                                 brick_occ, acc);
+    else if constexpr (MAPPED)
+      corner_sum<float, false, K>(
+          src, 8 * K, gx, gy, gz, cx, cy, cz,
+          OccupiedGroup{brick_occ, ADJ_LEVELS - d, (s.dims[0][1] + 7) >> 3,
+                        (s.dims[0][2] + 7) >> 3},
+          acc);
     else
-      corner_sum_wide<K>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz, acc);
+      corner_sum<float, false, K>(src, 8 * K, gx, gy, gz, cx, cy, cz,
+                                  DenseRow{}, acc);
   }
   Vec<float, K> o;
 #pragma unroll
@@ -566,16 +658,27 @@ static void launch_rows(const Av0Spec& s, const ConstPtrs& c,
       cells, out, n_items);
 }
 
-template <typename T, bool ROUND, int K>
+// The compact-row input of the slot-row adjoint (MAPPED): the cell map,
+// the occupied bricks and their occupancy over the brick grid.
+struct RowMap {
+  const int32_t* cell_row;
+  const int32_t* bricks;
+  int n_bricks;
+  const uint8_t* brick_occ;
+};
+
+template <typename T, bool ROUND, int K, bool MAPPED>
 static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
-                      const void* z, float* part, const MutPtrs& o,
-                      cudaStream_t st) {
+                      const void* z, const RowMap& m, float* part,
+                      const MutPtrs& o, cudaStream_t st) {
   const T* zt = static_cast<const T*>(z);
-  if (s.depth > 1) {
-    const int bricks = ((s.dims[0][0] + 7) >> 3) * ((s.dims[0][1] + 7) >> 3) *
-                       ((s.dims[0][2] + 7) >> 3);
-    av0_adj_bricks<T, ROUND, K><<<bricks, ADJ_THREADS, 0, st>>>(s, lay, zt,
-                                                                part);
+  const int bricks = MAPPED ? m.n_bricks
+                            : ((s.dims[0][0] + 7) >> 3) *
+                                  ((s.dims[0][1] + 7) >> 3) *
+                                  ((s.dims[0][2] + 7) >> 3);
+  if (s.depth > 1 && bricks > 0) {
+    av0_adj_bricks<T, ROUND, K, MAPPED><<<bricks, ADJ_THREADS, 0, st>>>(
+        s, lay, zt, m.cell_row, m.bricks, part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -583,19 +686,20 @@ static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
   for (int d = 0; d < s.depth; ++d)
     blocks += (s.dims[d][0] * s.dims[d][1] * s.dims[d][2] + ADJ_THREADS - 1) /
               ADJ_THREADS;
-  av0_adj_corners<T, ROUND, K><<<blocks, ADJ_THREADS, 0, st>>>(s, lay, zt,
-                                                               part, o);
+  av0_adj_corners<T, ROUND, K, MAPPED><<<blocks, ADJ_THREADS, 0, st>>>(
+      s, lay, zt, m.cell_row, m.brick_occ, part, o);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool ROUND>
+template <typename T, bool ROUND, bool MAPPED>
 static int adj_k(const Av0Spec& s, const Av0AdjLayout& lay, const void* z,
-                 float* part, const MutPtrs& o, cudaStream_t st) {
+                 const RowMap& m, float* part, const MutPtrs& o,
+                 cudaStream_t st) {
   switch (s.k) {
-    case 1: return launch_adj<T, ROUND, 1>(s, lay, z, part, o, st);
-    case 2: return launch_adj<T, ROUND, 2>(s, lay, z, part, o, st);
-    case 4: return launch_adj<T, ROUND, 4>(s, lay, z, part, o, st);
-    case 8: return launch_adj<T, ROUND, 8>(s, lay, z, part, o, st);
+    case 1: return launch_adj<T, ROUND, 1, MAPPED>(s, lay, z, m, part, o, st);
+    case 2: return launch_adj<T, ROUND, 2, MAPPED>(s, lay, z, m, part, o, st);
+    case 4: return launch_adj<T, ROUND, 4, MAPPED>(s, lay, z, m, part, o, st);
+    case 8: return launch_adj<T, ROUND, 8, MAPPED>(s, lay, z, m, part, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -696,9 +800,38 @@ int av0_cascade_adj(const Av0Spec* spec, const Av0AdjLayout* lay,
   for (int d = 0; d < spec->depth; ++d) o.p[d] = static_cast<float*>(out[d]);
   float* part = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_bf16) return adj_k<__nv_bfloat16, false>(*spec, *lay, z, part, o, st);
-  if (round_bf16) return adj_k<float, true>(*spec, *lay, z, part, o, st);
-  return adj_k<float, false>(*spec, *lay, z, part, o, st);
+  const RowMap dense{nullptr, nullptr, 0, nullptr};
+  if (in_bf16)
+    return adj_k<__nv_bfloat16, false, false>(*spec, *lay, z, dense, part, o,
+                                              st);
+  if (round_bf16)
+    return adj_k<float, true, false>(*spec, *lay, z, dense, part, o, st);
+  return adj_k<float, false, false>(*spec, *lay, z, dense, part, o, st);
+}
+
+// The slot-row adjoint: the adjoint of the dense buffer whose row of cell
+// c is rows[cell_row[c]] (zero where cell_row[c] == -1).  rows: (n_rows,
+// depth*8*k) f32, read in bf16 when round_bf16=1; cell_row: (cells_0,)
+// int32; bricks: the n_bricks 8^3 bricks (flat over the brick grid,
+// ceil(dims_0 / 8)) that hold a mapped cell; brick_occ: (bricks in the
+// grid,) uint8, 1 exactly at those.  scratch and out as above; stage 1
+// writes the partials of the listed bricks only, and stage 2 reads no
+// other.  Returns the first launch error, else 0.
+int av0_cascade_adj_rows(const Av0Spec* spec, const Av0AdjLayout* lay,
+                         const float* rows, const int32_t* cell_row,
+                         const int32_t* bricks, int n_bricks,
+                         const uint8_t* brick_occ, void* scratch,
+                         void* const* out, int round_bf16, void* stream) {
+  if (!dims_ok(spec) || !layout_ok(spec, lay) || n_bricks < 0)
+    return (int)cudaErrorInvalidValue;
+  MutPtrs o;
+  for (int d = 0; d < spec->depth; ++d) o.p[d] = static_cast<float*>(out[d]);
+  float* part = static_cast<float*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RowMap m{cell_row, bricks, n_bricks, brick_occ};
+  if (round_bf16)
+    return adj_k<float, true, true>(*spec, *lay, rows, m, part, o, st);
+  return adj_k<float, false, true>(*spec, *lay, rows, m, part, o, st);
 }
 
 }  // extern "C"

@@ -76,24 +76,29 @@ class KernelField:
         at a time."""
         shapes = self._shapes()
         sg = self.support(normal_xyz, normal_sup_idx, grad=True)
+        # the scatters' summation orders follow the host support rows
+        # only: built once for the whole solve
+        og = S.scatter_orders(sg, shapes)
         rhs = S.scatter_rows(sg, shapes, normal_w[:, None] * normal_value,
-                             grad=True)
-        dg = S.diag_contrib(sg, shapes, normal_w, grad=True)
+                             grad=True, orders=og)
+        dg = S.diag_contrib(sg, shapes, normal_w, grad=True, orders=og)
         sv = self.support(pos_xyz, pos_sup_idx)
-        dv = S.diag_contrib(sv, shapes, pos_w)
+        ov = S.scatter_orders(sv, shapes)
+        dv = S.diag_contrib(sv, shapes, pos_w, orders=ov)
         diag = tuple(a + b + reg_weight for a, b in zip(dv, dg))
         if fused:
             del sg, sv
 
         def matvec(a):
             sup_v = self.support(pos_xyz, pos_sup_idx) if fused else sv
-            out = S.scatter_rows(sup_v, shapes, pos_w * S.predict(sup_v, a))
+            out = S.scatter_rows(sup_v, shapes, pos_w * S.predict(sup_v, a),
+                                 orders=ov)
             del sup_v
             sup_g = (self.support(normal_xyz, normal_sup_idx, grad=True)
                      if fused else sg)
             _, fg = S.predict(sup_g, a, grad=True)
             out_g = S.scatter_rows(sup_g, shapes, normal_w[:, None] * fg,
-                                   grad=True)
+                                   grad=True, orders=og)
             return tuple(v + g + reg_weight * ai
                          for v, g, ai in zip(out, out_g, a))
 

@@ -10,9 +10,11 @@ The device half fits per-depth coefficient lattices ``xs[d]`` of shape
 ``(A^T W A + reg I) x = A^T W y``.  Each matvec computes the slots'
 rows of the fused depth-0 support buffer AV0 ``(cells_0, depth*8k)``
 straight from the coefficient lattices with the slot-row kernel,
-contracts each with the slot's basis block, scatter-adds the transposed
-contraction into a depth-0 buffer and maps that back with the adjoint
-cascade kernel (``fields/lattice_kernels.py``).  The whole of AV0 is
+contracts each with the slot's basis block, and maps the transposed
+contraction's slot rows back with the slot-row adjoint, which sums each
+cell's rows in a fixed order (``fields/lattice_kernels.py``).  No
+depth-0 buffer is built in the solve, and two solves on one input are
+bit-equal on the card.  The whole of AV0 is
 built only for the evaluator (``fields/lattice_eval.py``).
 
 The lattice is exact integer geometry: a point's support cell at depth d
@@ -527,10 +529,17 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     m_vox = torch.clamp(gr_active.float().sum(), min=1.0)
     w_pt = m_pt * (pos_weight / n_pts)                          # (s_pt, r)
     w_gr = gr_active.float() * (normal_weight / m_vox * voxel_size ** 2)
-    n_c0 = spec.n_cells(0)
     # one index for both row families: point slots, then gradient slots
     slot_cells0 = torch.cat([slot_cell0_pt, slot_cell0_gr]).to(torch.int32)
-    s_pt = slot_cell0_pt.shape[0]
+    s_pt, s_gr = slot_cell0_pt.shape[0], slot_cell0_gr.shape[0]
+    # pad point slots (no point) and inactive gradient slots hold zero
+    # rows; the adjoint drops them (cell -1) rather than fold +-0.0 into
+    # one cell, a segment of some 10^5 rows at the bench plan that one
+    # thread would walk alone.  Dropped zeros move at most a zero's sign.
+    real = torch.cat([m_pt.amax(1) > 0, gr_active])
+    with record_function("lattice_solve: adjoint tables"):
+        adj_tables = LK.adjoint_rows_tables(
+            spec, torch.where(real, slot_cells0, -1))
 
     def apply_A(xs):
         av = LK.av0_rows(spec, xs, slot_cells0, cdt)
@@ -540,14 +549,13 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
         return t_pt, t_gr
 
     def apply_AT(t_pt, t_gr):
-        y_pt = torch.bmm(b_pt.transpose(1, 2),
-                         t_pt.to(cdt).float()[..., None])[..., 0]
-        y_gr = torch.bmm(b_gr.transpose(1, 2),
-                         t_gr.to(cdt).float()[..., None])[..., 0]
-        z0 = torch.zeros((n_c0, spec.lanes), dtype=f32, device=dev)
-        z0.index_add_(0, slot_cell0_pt, y_pt)
-        z0.index_add_(0, slot_cell0_gr, y_gr)
-        return LK.av0_adjoint_cascade(spec, z0, cdt)
+        # the slot rows, point slots then gradient slots, in one buffer
+        y = torch.empty((s_pt + s_gr, spec.lanes), dtype=f32, device=dev)
+        torch.bmm(b_pt.transpose(1, 2), t_pt.to(cdt).float()[..., None],
+                  out=y[:s_pt, :, None])
+        torch.bmm(b_gr.transpose(1, 2), t_gr.to(cdt).float()[..., None],
+                  out=y[s_pt:, :, None])
+        return LK.av0_adjoint_rows(spec, adj_tables, y, cdt)
 
     def matvec(xs):
         t_pt, t_gr = apply_A(xs)
@@ -559,16 +567,13 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
         rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
 
     # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k), mapped
-    # back by the adjoint cascade in f32
+    # back by the adjoint in f32
     with record_function("lattice_solve: jacobi diagonal"):
-        dz = torch.zeros((n_c0, spec.lanes), dtype=f32, device=dev)
-        dz.index_add_(0, slot_cell0_pt,
-                      (b_pt ** 2 * w_pt[..., None]).sum(1))
-        dz.index_add_(0, slot_cell0_gr,
-                      (b_gr ** 2).sum(1) * w_gr[:, None])
-        diag = tuple(a + reg_weight
-                     for a in LK.av0_adjoint_cascade(spec, dz, f32))
-        del dz
+        dy = torch.cat([(b_pt ** 2 * w_pt[..., None]).sum(1),
+                        (b_gr ** 2).sum(1) * w_gr[:, None]])
+        diag = tuple(a + reg_weight for a in
+                     LK.av0_adjoint_rows(spec, adj_tables, dy, f32))
+        del dy
 
     with record_function("lattice_solve: pcg"):
         xs, iters, rel_res = pcg(

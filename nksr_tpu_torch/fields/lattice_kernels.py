@@ -4,20 +4,27 @@ beside its plain PyTorch version.
 ``av0_cascade`` replaces ``av0_cascade_pallas`` and
 ``av0_adjoint_cascade`` replaces ``av0_adjoint_cascade_pallas``
 (nksr_tpu/fields/lattice_pallas.py, kernel bodies ``_kernel_fwd`` and
-``_kernel_adj`` plus its halo fold).  ``av0_rows`` replaces the
-matvec's pair of ``av0_cascade_pallas`` and the sorted row gather
-(nksr_tpu/fields/lattice.py ``_take_rows_sorted``): it computes AV0's
-rows at given depth-0 cells only, straight from the coefficient
-lattices.  The CUDA source is ``csrc/av0_cascade.cu``; its header says
-what bounds the kernels on the H100 and how their design answers that.
-In short: all three only move data, so the forward is one coalesced
-write of AV0 with L2-served coefficient reads, the row kernel one
-coalesced write of the rows, and the adjoint reads AV0 once, coalesced,
-in two stages (8^3 bricks fold the ancestors of depths >= 1 into
-partials, then one thread per coefficient sums its 8 corners), with no
-atomics and a fixed order of every f32 sum.  It reads an f32 buffer in
-bf16 by rounding in registers, so the solve hands it its f32 buffer with
-no cast.
+``_kernel_adj`` plus its halo fold).  ``av0_adjoint_rows`` replaces the
+matvec's pair of the ordered scatter-add into the dense buffer
+(nksr_tpu/fields/lattice.py ``apply_AT``, ``z0.at[...].add``) and
+``av0_adjoint_cascade_pallas``: it reads the solve's slot rows and the
+order tables ``adjoint_rows_tables`` builds once per solve, sums each
+cell's rows in a fixed order (``ops/segment_sum.py``) and runs the
+adjoint's two stages over the occupied cells and bricks only.
+``av0_rows`` replaces the matvec's pair of ``av0_cascade_pallas`` and the
+sorted row gather (nksr_tpu/fields/lattice.py ``_take_rows_sorted``): it
+computes AV0's rows at given depth-0 cells only, straight from the
+coefficient lattices.  The CUDA source is ``csrc/av0_cascade.cu``; its
+header says what bounds the kernels on the H100 and how their design
+answers that.  In short: all of them only move data, so the forward is
+one coalesced write of AV0 with L2-served coefficient reads, the row
+kernel one coalesced write of the rows, and the adjoint reads its input
+once, coalesced, in two stages (8^3 bricks fold the ancestors of depths
+>= 1 into partials, then one thread per coefficient sums its 8 corners),
+with no atomics and a fixed order of every f32 sum; the slot-row form
+runs the same stages over the occupied bricks, through a cell map.  It
+reads f32 in bf16 by rounding in registers, so the solve hands it f32
+sums with no cast.
 
 Semantics (per depth d, corner (i, j, l), lane group g = 8d + 4i + 2j + l):
 ``AV0[x, y, z, g*k + kk] = coeff_d[(x>>d)+i, (y>>d)+j, (z>>d)+l, kk]``
@@ -40,12 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import cuda_build as CB
+from ..ops import segment_sum as SEG
 
 SOURCE = CB.CSRC / "av0_cascade.cu"
 _MAX_DEPTH = 8
@@ -80,6 +88,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout),
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
+    p = ctypes.c_void_p
+    lib.av0_cascade_adj_rows.restype = ctypes.c_int
+    lib.av0_cascade_adj_rows.argtypes = [
+        ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout), p, p, p,
+        ctypes.c_int, p, p, p, ctypes.c_int, p]
     return lib
 
 
@@ -115,6 +128,49 @@ def adjoint_partials(spec) -> Tuple[Tuple[Tuple[Tuple[int, int, int], int],
         parts.append((grid, total))
         total += grid[0] * grid[1] * grid[2] * 8 * spec.k
     return tuple(parts), total
+
+
+class AdjointRowsTables(NamedTuple):
+    """Once-per-solve tables of ``av0_adjoint_rows`` for the solve's slot
+    cells (``order.index``, point slots then gradient slots)."""
+    order: SEG.SegmentOrder   # merge order of the slot rows by depth-0
+    #                           cell; order.targets: the distinct cells
+    cell_row: torch.Tensor    # (cells_0,) int32 compact row, -1 elsewhere
+    bricks: torch.Tensor      # (B,) int32 8^3 bricks holding a slot cell
+    brick_occ: torch.Tensor   # (bricks in the grid,) uint8, 1 at ``bricks``
+
+
+def brick_grid(spec) -> Tuple[int, int, int]:
+    """The adjoint's 8^3 bricks a side: ceil(dims_0 / 8)."""
+    return tuple((n + (1 << _BRICK_LEVELS) - 1) >> _BRICK_LEVELS
+                 for n in spec.dims[0])
+
+
+def adjoint_rows_tables(spec, slot_cells0: torch.Tensor
+                        ) -> AdjointRowsTables:
+    """The order tables of ``av0_adjoint_rows`` for slot cells
+    ``slot_cells0`` (R,) in ``[0, cells_0)``, -1 for a slot whose row is
+    dropped: the stable merge order by cell, the distinct cells and
+    segment offsets (``segment_order``), the dense map from cell to
+    compact row and the occupied bricks.  Pure PyTorch on the cells'
+    device; built once per solve."""
+    n0 = spec.n_cells(0)
+    order = SEG.segment_order(slot_cells0, n0)
+    cells = order.targets
+    dev = cells.device
+    cell_row = torch.full((n0,), -1, dtype=torch.int32, device=dev)
+    cell_row[cells] = torch.arange(cells.numel(), dtype=torch.int32,
+                                   device=dev)
+    _, y0, z0 = spec.dims[0]
+    gx, gy, gz = brick_grid(spec)
+    cz, cxy = cells % z0, cells // z0
+    cy, cx = cxy % y0, cxy // y0
+    sh = _BRICK_LEVELS
+    brick = ((cx >> sh) * gy + (cy >> sh)) * gz + (cz >> sh)
+    brick_occ = torch.zeros(gx * gy * gz, dtype=torch.uint8, device=dev)
+    brick_occ[brick] = 1
+    bricks = torch.nonzero(brick_occ)[:, 0].to(torch.int32)
+    return AdjointRowsTables(order, cell_row, bricks, brick_occ)
 
 
 # ------------------------------------------------------------ plain versions
@@ -203,6 +259,17 @@ def av0_adjoint_cascade_plain(spec, z0_buf: torch.Tensor,
     return tuple(outs)
 
 
+def av0_adjoint_rows_plain(spec, tables: AdjointRowsTables,
+                           y: torch.Tensor, compute_dtype
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch slot-row adjoint: the dense chain, ``zeros((cells_0,
+    lanes)).index_add_(0, cells, y)`` over the kept slots (each cell's
+    rows summed in slot order from 0.0 on the CPU), then
+    ``av0_adjoint_cascade_plain``."""
+    z0 = SEG.segment_sum_plain(y, tables.order)
+    return av0_adjoint_cascade_plain(spec, z0, compute_dtype)
+
+
 # ------------------------------------------------------------------ wrappers
 def av0_cascade(spec, xs: Sequence[torch.Tensor], dtype) -> torch.Tensor:
     """Fused (cells_0, depth*8k) support buffer in ``dtype`` from the
@@ -264,6 +331,16 @@ def av0_rows(spec, xs: Sequence[torch.Tensor], cells0: torch.Tensor,
 av0_rows.launches = 0
 
 
+def _adj_layout(spec) -> Tuple[_Av0AdjLayout, int]:
+    parts, n_part = adjoint_partials(spec)
+    lay = _Av0AdjLayout()
+    for d, (grid, offset) in enumerate(parts, start=1):
+        for a in range(3):
+            lay.grid[d][a] = grid[a]
+        lay.offset[d] = offset
+    return lay, n_part
+
+
 def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
                         compute_dtype) -> Tuple[torch.Tensor, ...]:
     """Adjoint of ``av0_cascade``: (cells_0, depth*8k) -> per-depth
@@ -277,12 +354,7 @@ def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
     _check_dtype(z0_buf.dtype)
     CB.check_cuda(z0_buf, (spec.n_cells(0), spec.lanes), z0_buf.dtype,
                   "av0_adjoint_cascade z0")
-    parts, n_part = adjoint_partials(spec)
-    lay = _Av0AdjLayout()
-    for d, (grid, offset) in enumerate(parts, start=1):
-        for a in range(3):
-            lay.grid[d][a] = grid[a]
-        lay.offset[d] = offset
+    lay, n_part = _adj_layout(spec)
     dev = z0_buf.device
     scratch = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
     outs = tuple(torch.empty((spec.n_cells(d), spec.k), dtype=torch.float32,
@@ -301,3 +373,50 @@ def av0_adjoint_cascade(spec, z0_buf: torch.Tensor,
 
 
 av0_adjoint_cascade.launches = 0
+
+
+def av0_adjoint_rows(spec, tables: AdjointRowsTables, y: torch.Tensor,
+                     compute_dtype) -> Tuple[torch.Tensor, ...]:
+    """Adjoint of ``av0_cascade`` on the dense buffer that the slot rows
+    ``y`` (R, depth*8k) f32 sum into at the slot cells of ``tables``
+    (a dropped slot's row is not read), without that buffer: equal to
+    ``av0_adjoint_cascade(spec, zeros.index_add_(0, cells, y),
+    compute_dtype)`` with the CPU's index-order sums, bit for bit up to
+    the sign of a zero.  Each cell's summed row is read in
+    ``compute_dtype`` (rounded once, never row by row); sums are f32.
+    Returns per-depth (n_d, k) f32."""
+    _check_dtype(compute_dtype)
+    if y.device.type == "cpu":
+        return av0_adjoint_rows_plain(spec, tables, y, compute_dtype)
+    cs = _c_spec(spec)
+    r = tables.order.perm.shape[0]
+    CB.check_cuda(y, (r, spec.lanes), torch.float32, "av0_adjoint_rows y")
+    n0 = spec.n_cells(0)
+    CB.check_cuda(tables.cell_row, (n0,), torch.int32,
+                  "av0_adjoint_rows cell_row", align=4)
+    gx, gy, gz = brick_grid(spec)
+    CB.check_cuda(tables.brick_occ, (gx * gy * gz,), torch.uint8,
+                  "av0_adjoint_rows brick_occ", align=1)
+    n_bricks = tables.bricks.shape[0] if tables.bricks.dim() else -1
+    CB.check_cuda(tables.bricks, (n_bricks,), torch.int32,
+                  "av0_adjoint_rows bricks", align=4)
+    rows = SEG.segment_sum(y, tables.order, compact=True)
+    lay, n_part = _adj_layout(spec)
+    dev = y.device
+    scratch = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
+    outs = tuple(torch.empty((spec.n_cells(d), spec.k), dtype=torch.float32,
+                             device=dev)
+                 for d in range(spec.depth))
+    ptrs = (ctypes.c_void_p * spec.depth)(*[o.data_ptr() for o in outs])
+    rc = _lib().av0_cascade_adj_rows(
+        ctypes.byref(cs), ctypes.byref(lay), rows.data_ptr(),
+        tables.cell_row.data_ptr(), tables.bricks.data_ptr(), n_bricks,
+        tables.brick_occ.data_ptr(), scratch.data_ptr(), ptrs,
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    CB.raise_on(rc, "av0_cascade_adj_rows launch")
+    av0_adjoint_rows.launches += 1
+    return outs
+
+
+av0_adjoint_rows.launches = 0

@@ -7,7 +7,8 @@ basis is ``raw(x_loc, F_v) * window(x_loc)``, with the learned ``raw =
 1 + MLP`` and the C1 window ``prod_a (1 - t_a^2)^2`` on ``|t| < 1``.
 The support rows of a query are host-built (``core/host_build.
 support_indices``); the device does gathers, the interpolator MLP and
-index-add scatters.
+scatter-adds that sum each coefficient's rows in a fixed order
+(``scatter_orders``, built once per solve, and ``ops/segment_sum``).
 
 Layouts follow the JAX package's public ones, so tests compare like with
 like: ``idx_k (Q, 8K)`` flat-DoF indices, ``basis (Q, 8K)``, ``dbasis
@@ -29,6 +30,7 @@ import torch
 
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..models.network import MLP, mlp_with_tangents
+from ..ops import segment_sum as SEG
 from ..ops.gather_scatter import take_rows
 from ..ops.window_basis import window_and_grad_fused
 from ..ops.window_basis import window_and_grad_plain as window_and_grad
@@ -41,7 +43,8 @@ from ..ops.window_basis import window_and_grad_plain as window_and_grad
 _MLP_CHUNK = 1 << 20
 
 __all__ = ["window", "window_and_grad", "DepthSupport", "depth_support",
-           "svh_support", "predict", "scatter_rows", "diag_contrib"]
+           "svh_support", "predict", "scatter_order", "scatter_orders",
+           "scatter_rows", "diag_contrib"]
 
 
 def window(x_loc: torch.Tensor) -> torch.Tensor:
@@ -134,42 +137,66 @@ def predict(sup: Sequence[DepthSupport], alpha: Sequence[torch.Tensor],
     return (val, g) if grad else val
 
 
-def _scatter(s: DepthSupport, n_flat: int, contrib: torch.Tensor
-             ) -> torch.Tensor:
-    seg = torch.where(s.idx_k >= 0, s.idx_k, n_flat).reshape(-1)
-    acc = contrib.new_zeros(n_flat + 1)
-    acc.index_add_(0, seg, contrib.reshape(-1))
-    return acc[:-1]
+def scatter_order(s: DepthSupport, n_flat: int) -> SEG.SegmentOrder:
+    """The fixed summation order of a support's (Q, 8K) contributions onto
+    the n_flat = C_d * K flat coefficients, per voxel: row (q, corner) of
+    K values goes to voxel ``idx_k[q, corner * K] // K``, an absent corner
+    is dropped.  It depends on the host support rows only, so a solve
+    builds it once."""
+    k = s.kernel_dim
+    vox = s.idx_k.reshape(s.idx_k.shape[0], 8, k)[..., 0] // k  # -1 stays
+    return SEG.segment_order(vox, n_flat // k)
+
+
+def _scatter(s: DepthSupport, n_flat: int, contrib: torch.Tensor,
+             order: Optional[SEG.SegmentOrder] = None) -> torch.Tensor:
+    """(Q, 8K) contributions summed onto the flat coefficients, each
+    coefficient over its rows in (query, corner) order from 0.0 (the
+    fixed-order segment sum on the card, CPU ``index_add_`` here)."""
+    k = s.kernel_dim
+    if order is None:
+        order = scatter_order(s, n_flat)
+    rows = contrib.reshape(-1, k)
+    return SEG.segment_sum(rows.contiguous(), order).reshape(-1)
+
+
+def scatter_orders(sup: Sequence[DepthSupport], shapes
+                   ) -> Tuple[SEG.SegmentOrder, ...]:
+    """``scatter_order`` of each depth's support."""
+    return tuple(scatter_order(s, c * k) for s, (c, k) in zip(sup, shapes))
 
 
 def scatter_rows(sup: Sequence[DepthSupport], shapes, weights_times_resid,
-                 grad: bool = False) -> Tuple[torch.Tensor, ...]:
+                 grad: bool = False, orders=None) -> Tuple[torch.Tensor, ...]:
     """A^T w r: per-row residuals (Q,) for value rows or (Q, 3) for
     gradient rows accumulated onto the flat coefficients; ``shapes`` the
-    per-depth (C_d, K)."""
+    per-depth (C_d, K); ``orders`` the supports' ``scatter_orders``
+    (built here when None)."""
     out = []
-    for s, (c, k) in zip(sup, shapes):
+    for i, (s, (c, k)) in enumerate(zip(sup, shapes)):
         q, sk = s.basis.shape
         if grad:
             contrib = torch.einsum("qcs,qc->qs", s.dbasis.view(q, 3, sk),
                                    weights_times_resid)
         else:
             contrib = s.basis * weights_times_resid[:, None]
-        out.append(_scatter(s, c * k, contrib))
+        out.append(_scatter(s, c * k, contrib,
+                            None if orders is None else orders[i]))
     return tuple(out)
 
 
 def diag_contrib(sup: Sequence[DepthSupport], shapes, w: torch.Tensor,
-                 grad: bool = False) -> Tuple[torch.Tensor, ...]:
+                 grad: bool = False, orders=None) -> Tuple[torch.Tensor, ...]:
     """Jacobi diagonal: sum over rows of w * basis^2 per flat
     coefficient."""
     out = []
-    for s, (c, k) in zip(sup, shapes):
+    for i, (s, (c, k)) in enumerate(zip(sup, shapes)):
         q, sk = s.basis.shape
         if grad:
             d3 = s.dbasis.view(q, 3, sk)
             sq = (d3 * d3).sum(1)
         else:
             sq = s.basis * s.basis
-        out.append(_scatter(s, c * k, sq * w[:, None]))
+        out.append(_scatter(s, c * k, sq * w[:, None],
+                            None if orders is None else orders[i]))
     return tuple(out)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..native import flat_cells
+from ..ops import segment_sum as SEG
 from .network import ConvBlock, NKSRNetwork
 from .pipeline import PipelineConfig
 
@@ -65,11 +66,14 @@ def _occupancy(spec, tables: DenseUNetTables, d: int) -> torch.Tensor:
 
 def trilinear_splat(dims, origin, base: torch.Tensor, frac: torch.Tensor,
                     values: torch.Tensor) -> torch.Tensor:
-    """Trilinear 8-corner splat by ``index_add_``: point i adds
-    ``w_c(frac_i) * values[i, c]`` to the cell ``base_i + c - origin`` of
-    each corner c (corners off the lattice are dropped).  ``base`` (N, 3)
-    integer world cells, ``frac`` (N, 3) offsets in [0, 1), ``values``
-    (N, 8, C) or (N, C).  Returns (X*Y*Z, C) and the weights (N, 8)."""
+    """Trilinear 8-corner splat: point i adds ``w_c(frac_i) * values[i,
+    c]`` to the cell ``base_i + c - origin`` of each corner c (corners off
+    the lattice are dropped), each cell summing its (point, corner) rows
+    in that order from 0.0 (``ops/segment_sum.index_sum``: CPU
+    ``index_add_``, the fixed-order segment sum on the card).  ``base``
+    (N, 3) integer world cells, ``frac`` (N, 3) offsets in [0, 1),
+    ``values`` (N, 8, C) or (N, C).  Returns (X*Y*Z, C) and the weights
+    (N, 8)."""
     dev = base.device
     offs = torch.as_tensor(_OFFS, device=dev)
     w = torch.where(offs[None].bool(), frac[:, None, :],
@@ -80,10 +84,11 @@ def trilinear_splat(dims, origin, base: torch.Tensor, frac: torch.Tensor,
     loc = base[:, None, :] + offs - torch.as_tensor(
         np.asarray(origin, np.int64), device=dev)
     ok = ((loc >= 0) & (loc < torch.tensor([X, Y, Z], device=dev))).all(-1)
-    flat = (loc[..., 0] * Y + loc[..., 1]) * Z + loc[..., 2]
+    flat = torch.where(ok, (loc[..., 0] * Y + loc[..., 1]) * Z + loc[..., 2],
+                       -1)
     rows = values * w[..., None]
-    acc = torch.zeros((X * Y * Z, rows.shape[-1]), device=dev)
-    acc.index_add_(0, flat[ok], rows[ok])
+    acc = SEG.index_sum(rows.reshape(-1, rows.shape[-1]), flat.reshape(-1),
+                        X * Y * Z)
     return acc, w
 
 

@@ -18,6 +18,7 @@ import torch
 
 from ..core.grid import get_voxel_centers, point_splat_coords
 from ..fields.kernel_field import KernelField
+from ..ops import segment_sum as SEG
 from ..utils.checkpoint import torch_to_params
 from .network import NKSRNetwork
 
@@ -109,14 +110,12 @@ def splat_normals_to_grid(voxel_size: float, cap: int, xyz: torch.Tensor,
                           normal: torch.Tensor, splat_idx: torch.Tensor
                           ) -> torch.Tensor:
     """(cap, 3) per-voxel unit normals: the input normals splatted
-    trilinearly through the host splat rows ``splat_idx`` (N, 8)."""
+    trilinearly through the host splat rows ``splat_idx`` (N, 8), absent
+    corners (-1) dropped, each voxel summing in a fixed order
+    (``ops/segment_sum.index_sum``)."""
     _, w = point_splat_coords(voxel_size, xyz)
-    ok = splat_idx >= 0
-    w = torch.where(ok, w, 0.0)
-    seg = torch.where(ok, splat_idx, cap).reshape(-1)
-    acc = xyz.new_zeros((cap + 1, 3))
-    acc.index_add_(0, seg, (normal[:, None, :] * w[..., None]).reshape(-1, 3))
-    n = acc[:-1]
+    n = SEG.index_sum((normal[:, None, :] * w[..., None]).reshape(-1, 3),
+                      splat_idx.reshape(-1), cap)
     return n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-6)
 
 

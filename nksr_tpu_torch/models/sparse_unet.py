@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..ops import gather_scatter as gs
+from ..ops import segment_sum as SEG
 from .network import ConvBlock, NKSRNetwork
 from .pipeline import PipelineConfig
 
@@ -57,22 +58,21 @@ def encode_points(cfg: PipelineConfig, net: NKSRNetwork, n0: int,
     """Point encoder onto the n0 depth-0 voxels: weighted mean of the
     (feature, offset) rows splatted through the host splat table
     ``splat_idx`` (N, 8), log1p of the weight sum, then the 2-layer MLP.
-    Returns (n0, f_maps)."""
+    The splat sums in a fixed order on every device
+    (``ops/segment_sum.index_sum``).  Returns (n0, f_maps)."""
     vs = cfg.voxel_size
     n = xyz.shape[0]
     corner, w = point_splat_coords(vs, xyz)
     offset = world_to_grid(xyz[:, None, :] - grid_to_world(corner, vs), vs)
     pf = feat if feat is not None else xyz.new_zeros((n, 0))
     raw = torch.cat([pf[:, None, :].expand(n, 8, pf.shape[-1]), offset], -1)
-    ok = splat_idx >= 0
-    w = torch.where(ok, w, 0.0)
-    seg = torch.where(ok, splat_idx, n0).reshape(-1)
-    acc = xyz.new_zeros((n0 + 1, raw.shape[-1]))
-    acc.index_add_(0, seg, (raw * w[..., None]).reshape(-1, raw.shape[-1]))
-    wsum = xyz.new_zeros(n0 + 1)
-    wsum.index_add_(0, seg, w.reshape(-1))
-    vox = acc[:-1] / (wsum[:-1, None] + 1e-8)
-    density = torch.log1p(wsum[:-1])[:, None]
+    # the weighted rows and the weight as one (N*8, C+1) block, summed per
+    # voxel in (point, corner) order; absent corners (-1) are dropped
+    rows = torch.cat([raw * w[..., None], w[..., None]], -1)
+    acc = SEG.index_sum(rows.reshape(-1, rows.shape[-1]),
+                        splat_idx.reshape(-1), n0)
+    vox = acc[:, :-1] / (acc[:, -1:] + 1e-8)
+    density = torch.log1p(acc[:, -1:])
     return net.encoder(torch.cat([vox, density], -1))
 
 

@@ -28,31 +28,45 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def capture_rows(LK, fn):
-    """Run ``fn`` with ``LK.av0_rows`` (the module ``LK``'s wrapper)
-    recording its first call.  Returns (fn's result, the call's spec,
-    a copy of its cells, a copy of its coefficient lattices).  The
-    recorder puts the wrapper back before calling it: the wrapper counts
-    its launches on its module-level name."""
-    real, rec = LK.av0_rows, {}
+def _copy(a):
+    if isinstance(a, (list, tuple)):
+        return type(a)(_copy(x) for x in a)
+    return a.clone() if hasattr(a, "clone") else a
 
-    def recorder(spec, xs, cells0, dtype):
-        LK.av0_rows = real
-        rec.update(spec=spec, cells=cells0.clone(),
-                   xs=[x.clone() for x in xs])
-        return real(spec, xs, cells0, dtype)
 
-    LK.av0_rows = recorder
+def capture_first(module, name: str, fn):
+    """Run ``fn`` with ``module.<name>`` recording its first call.
+    Returns (fn's result, copies of the call's positional arguments).
+    The recorder puts the function back before calling it: a kernel
+    wrapper counts its launches on its module-level name."""
+    real, rec = getattr(module, name), {}
+
+    def recorder(*args):
+        setattr(module, name, real)
+        rec["args"] = _copy(args)
+        return real(*args)
+
+    setattr(module, name, recorder)
     try:
         res = fn()
     finally:
-        LK.av0_rows = real
-    return res, rec["spec"], rec["cells"], rec["xs"]
+        setattr(module, name, real)
+    return res, rec["args"]
+
+
+def capture_rows(LK, fn):
+    """Run ``fn`` with ``LK.av0_rows`` (the module ``LK``'s wrapper)
+    recording its first call.  Returns (fn's result, the call's spec,
+    a copy of its cells, a copy of its coefficient lattices)."""
+    res, (spec, xs, cells, _) = capture_first(LK, "av0_rows", fn)
+    return res, spec, cells, xs
 
 
 def _capture(path: str) -> None:
-    """One splat lap; saves the spec's dims, the slot cells and the
-    coefficients of the first ``av0_rows`` call to ``path``."""
+    """One splat lap; saves the spec's dims and point-slot count, the
+    slot cells and the coefficients of the first ``av0_rows`` call, and
+    the slot cells of the adjoint's tables (-1 at the dropped pad
+    slots), to ``path``."""
     sys.path.insert(0, HERE)
     import torch
     from nksr_tpu_torch import PipelineConfig, Reconstructor
@@ -64,11 +78,14 @@ def _capture(path: str) -> None:
     recon = Reconstructor(config=PipelineConfig(conv_dtype="bfloat16"),
                           params=params)
     xyz, nrm = synthetic_scene(1_000_000)
-    _, spec, cells, xs = capture_rows(LK, lambda: recon.reconstruct(
-        xyz, nrm, structure="splat", detail_level=None, voxel_size=0.1,
-        solver_tol=1e-4, solver_max_iters=16))
-    torch.save({"dims": spec.dims, "k": spec.k, "cells": cells.cpu(),
-                "xs": [x.cpu() for x in xs]}, path)
+    (_, spec, cells, xs), (_, adj_cells) = capture_first(
+        LK, "adjoint_rows_tables", lambda: capture_rows(
+            LK, lambda: recon.reconstruct(
+                xyz, nrm, structure="splat", detail_level=None,
+                voxel_size=0.1, solver_tol=1e-4, solver_max_iters=16)))
+    torch.save({"dims": spec.dims, "k": spec.k, "s_pt": spec.s_pt,
+                "cells": cells.cpu(), "xs": [x.cpu() for x in xs],
+                "adj_cells": adj_cells.cpu()}, path)
 
 
 def _turn(root: str, path: str) -> dict:

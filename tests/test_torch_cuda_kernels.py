@@ -296,3 +296,222 @@ def test_probe_kernel_matches_plain(gen, key):
 def test_probe_kernels_reject_bad_input(gen):
     with pytest.raises(ValueError):
         P.PROBES[0](torch.zeros((32, 256), device="cuda"))
+
+
+# ------------------------------------------------ fixed-order segment sum
+def _seg_inputs(gen, r, c, t):
+    """R rows of C values onto T targets on the card: a third of the rows
+    on three hot targets, empty targets, a tenth dropped (-1), values of
+    mixed magnitude."""
+    idx = torch.randint(0, t, (r,), device="cuda", generator=gen)
+    hot = torch.rand(r, device="cuda", generator=gen) < 0.33
+    idx = torch.where(hot, idx % 3, idx)
+    idx = torch.where(idx % 7 == 4, (idx + 1) % t, idx)
+    idx = torch.where(torch.rand(r, device="cuda", generator=gen) < 0.1,
+                      -1, idx)
+    scale = 10.0 ** torch.randint(-3, 4, (r, 1), device="cuda",
+                                  generator=gen)
+    vals = torch.randn((r, c), device="cuda", generator=gen) * scale
+    return idx, vals
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("r,c,t", [(5000, 1, 700), (20000, 3, 3000),
+                                   (8000, 4, 100), (30000, 7, 5000),
+                                   (4096, 128, 900), (10, 6, 4)])
+def test_segment_sum_matches_plain(gen, r, c, t, compact):
+    """The kernel is bit-equal to its plain version, CPU ``index_add_`` in
+    index order, on the same inputs (the order built on the card), and
+    two calls are bit-equal; only launches count."""
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    idx, vals = _seg_inputs(gen, r, c, t)
+    order = SEG.segment_order(idx, t)
+    before = SEG.segment_sum.launches
+    got = SEG.segment_sum(vals, order, compact=compact)
+    again = SEG.segment_sum(vals, order, compact=compact)
+    torch.cuda.synchronize()
+    cpu_order = SEG.segment_order(idx.cpu(), t)
+    ref = SEG.segment_sum_plain(vals.cpu(), cpu_order, compact=compact)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, again)
+    assert SEG.segment_sum.launches == before + 2
+    flat = SEG.segment_sum(vals[:, 0].contiguous(), order, compact=compact)
+    assert torch.equal(flat.cpu(), SEG.segment_sum_plain(
+        vals[:, 0].cpu(), cpu_order, compact=compact))
+    assert torch.equal(SEG.index_sum(vals, idx, t).cpu(),
+                       SEG.index_sum(vals.cpu(), idx.cpu(), t))
+
+
+def test_segment_sum_rejects_bad_input(gen):
+    """Values of another type or row count, an order on the CPU or with
+    int64 positions raise instead of falling back to the plain version."""
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    idx, vals = _seg_inputs(gen, 100, 4, 20)
+    order = SEG.segment_order(idx, 20)
+    with pytest.raises(ValueError):
+        SEG.segment_sum(vals.double(), order)
+    with pytest.raises(ValueError):
+        SEG.segment_sum(vals[:-1], order)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        SEG.segment_sum(vals, SEG.segment_order(idx.cpu(), 20))
+    with pytest.raises(ValueError):
+        SEG.segment_sum(vals, order._replace(perm=order.perm.long()))
+    with pytest.raises(ValueError, match="outside"):
+        SEG.segment_order(idx.clamp(min=0) + 20, 20)
+
+
+# ---------------------------------------------------- slot-row adjoint
+def _slot_cells(spec, gen, r):
+    """R sorted slot cells with heavy repeats (a third on a few cells),
+    the last x, y and z planes and a run of pad repeats of the last
+    cell, as the plan pads its slots."""
+    x0, y0, z0 = spec.dims[0]
+    grid = torch.arange(spec.n_cells(0), device="cuda").view(x0, y0, z0)
+    cells = torch.randint(0, spec.n_cells(0), (r,), device="cuda",
+                          generator=gen)
+    cells = torch.where(torch.rand(r, device="cuda", generator=gen) < 0.33,
+                        cells % 5 + spec.n_cells(0) // 2, cells)
+    cells = torch.cat([cells, grid[-1, :, :3].reshape(-1),
+                       grid[:3, -1].reshape(-1), grid[:, :3, -1].reshape(-1)])
+    cells = torch.sort(cells).values
+    return torch.cat([cells, cells[-1:].expand(37)]).to(torch.int32)
+
+
+def _dense_z0(spec, cells, y):
+    """The dense buffer of the chain the slot-row adjoint replaces, built
+    on the CPU by ``index_add_`` (index-order sums), back on the card."""
+    z0 = torch.zeros((spec.n_cells(0), spec.lanes))
+    z0.index_add_(0, cells.cpu().long(), y.cpu())
+    return z0.cuda()
+
+
+@pytest.mark.parametrize("pads", ["summed", "dropped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_adjoint_rows_equals_dense_kernel(gen, depth, k, dtype, pads):
+    """``av0_adjoint_rows`` equals PR 5's dense adjoint kernel on the
+    buffer CPU ``index_add_`` builds from the same slot rows, bit for bit
+    up to the sign of a zero (compared as a + 0.0), in the solve's form
+    (bf16) and the Jacobi diagonal's (f32), with the pad slots' rows
+    summed or, zero as in the solve, dropped from the tables; it matches
+    the plain version to rtol 1e-5 and atol 1e-5 of the largest output
+    (the plain cascade sums in another order); two calls are bit-equal;
+    the launch counters count it and the segment sum it runs, never the
+    dense adjoint."""
+    spec = _ragged_spec(depth, k)
+    cells = _slot_cells(spec, gen, 600)
+    y = torch.randn((cells.numel(), spec.lanes), device="cuda",
+                    generator=gen)
+    kept = cells
+    if pads == "dropped":
+        kept = cells.clone()
+        kept[-37:] = -1
+        y[-37:] = 0.0
+    tab = LK.adjoint_rows_tables(spec, kept)
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    before = (LK.av0_adjoint_rows.launches, LK.av0_adjoint_cascade.launches,
+              SEG.segment_sum.launches)
+    got = LK.av0_adjoint_rows(spec, tab, y, dtype)
+    again = LK.av0_adjoint_rows(spec, tab, y, dtype)
+    torch.cuda.synchronize()
+    assert (LK.av0_adjoint_rows.launches, LK.av0_adjoint_cascade.launches,
+            SEG.segment_sum.launches) == (before[0] + 2, before[1],
+                                          before[2] + 2)
+    dense = LK.av0_adjoint_cascade(spec, _dense_z0(spec, cells, y), dtype)
+    plain = LK.av0_adjoint_rows_plain(
+        spec, LK.adjoint_rows_tables(spec, kept.cpu()), y.cpu(), dtype)
+    for g, a, dn, p in zip(got, again, dense, plain):
+        assert torch.equal(g, a)
+        assert torch.equal(g + 0.0, dn + 0.0)
+        torch.testing.assert_close(g.cpu(), p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+
+
+def test_adjoint_rows_real_plan_sizes(gen):
+    """At the test spec with every 8^3 brick but one empty and all slots
+    on one cell: still the dense kernel's result (a + 0.0)."""
+    spec = _spec(4)
+    for cells in (torch.full((50,), 700, dtype=torch.int32, device="cuda"),
+                  torch.tensor([0, spec.n_cells(0) - 1], dtype=torch.int32,
+                               device="cuda")):
+        y = torch.randn((cells.numel(), spec.lanes), device="cuda",
+                        generator=gen)
+        tab = LK.adjoint_rows_tables(spec, cells)
+        for dt in (torch.float32, torch.bfloat16):
+            got = LK.av0_adjoint_rows(spec, tab, y, dt)
+            ref = LK.av0_adjoint_cascade(spec, _dense_z0(spec, cells, y), dt)
+            assert all(torch.equal(g + 0.0, r + 0.0)
+                       for g, r in zip(got, ref))
+
+
+def test_adjoint_rows_rejects_bad_input(gen):
+    """Rows of another type or shape, tables on the CPU, and tables of
+    another spec raise instead of falling back to the plain version."""
+    spec = _spec(3)
+    cells = _slot_cells(spec, gen, 64)
+    tab = LK.adjoint_rows_tables(spec, cells)
+    y = torch.zeros((cells.numel(), spec.lanes), device="cuda")
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_rows(spec, tab, y.to(torch.bfloat16), torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_rows(spec, tab, y[:, :-4], torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        LK.av0_adjoint_rows(spec, LK.adjoint_rows_tables(spec, cells.cpu()),
+                            y, torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_rows(_spec(4), tab, y, torch.float32)
+    with pytest.raises(ValueError):
+        LK.av0_adjoint_rows(spec, tab, y, torch.float16)
+
+
+# ------------------------------------- reproducible scatters on the routes
+def test_support_scatter_rows_reproducible(gen):
+    """Route B's matvec scatter: two calls of ``support.scatter_rows`` on
+    the card, with the solve's orders and without, are bit-equal, and the
+    value rows equal the CPU's index-order sums exactly (their per-row
+    products are exact in both places)."""
+    from nksr_tpu_torch.fields import support as S
+    q, c, k = 20000, 3000, 4
+    idx = torch.randint(0, c, (q, 8), device="cuda", generator=gen)
+    idx = torch.where(idx % 11 == 0, -1, idx % 400)     # heavy repeats
+    sup = [S.DepthSupport(S._expand_idx(idx, k),
+                          torch.randn((q, 8 * k), device="cuda",
+                                      generator=gen),
+                          torch.randn((q, 3 * 8 * k), device="cuda",
+                                      generator=gen), k)]
+    shapes = [(c, k)]
+    r1 = torch.randn(q, device="cuda", generator=gen)
+    r3 = torch.randn((q, 3), device="cuda", generator=gen)
+    orders = S.scatter_orders(sup, shapes)
+    for grad, r in ((False, r1), (True, r3)):
+        a = S.scatter_rows(sup, shapes, r, grad=grad, orders=orders)
+        b = S.scatter_rows(sup, shapes, r, grad=grad)
+        assert torch.equal(a[0], b[0])
+    cpu = [S.DepthSupport(*(t.cpu() if torch.is_tensor(t) else t
+                            for t in sup[0]))]
+    assert torch.equal(S.scatter_rows(sup, shapes, r1)[0].cpu(),
+                       S.scatter_rows(cpu, shapes, r1.cpu())[0])
+
+
+def test_sparse_encoder_reproducible(gen):
+    """The gather-conv UNet's point encoder splats through the segment
+    sum: two calls on the card are bit-equal."""
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.models import sparse_unet as SU
+    from nksr_tpu_torch.models.network import NKSRNetwork
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    cfg = P.PipelineConfig(tree_depth=2, f_maps=8)
+    net = NKSRNetwork(cfg).cuda().eval()
+    n, n0 = 20000, 500
+    xyz = torch.rand((n, 3), device="cuda", generator=gen) * 2.0
+    feat = torch.randn((n, 3), device="cuda", generator=gen)
+    idx = torch.randint(0, n0, (n, 8), device="cuda", generator=gen)
+    idx = torch.where(idx % 13 == 0, -1, idx)
+    before = SEG.segment_sum.launches
+    with torch.no_grad():
+        a = SU.encode_points(cfg, net, n0, xyz, feat, idx)
+        b = SU.encode_points(cfg, net, n0, xyz, feat, idx)
+    assert torch.equal(a, b)
+    assert SEG.segment_sum.launches == before + 2

@@ -328,3 +328,134 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         CB.build_kernels()
+
+
+# ------------------------------------------- the slot-row adjoint's tables
+def _plan_slot_cells():
+    """A small plan built by the port's ``plan_lattice`` (the slice test's
+    2500-point terrain at tree depth 3): the spec, the plan and its slot
+    cells, point slots then gradient slots, as the solve concatenates
+    them."""
+    from test_torch_dense_unet import SMALL
+    from test_torch_slice import _solve_inputs
+    from nksr_tpu_torch.models import pipeline as P
+    _, plan, _, _ = _solve_inputs(P.PipelineConfig(**SMALL), 7)
+    cells = np.concatenate([plan.slot_cell0_pt, plan.slot_cell0_gr])
+    return plan.spec, plan, cells
+
+
+def test_adjoint_tables_give_back_dense_z0():
+    """``adjoint_rows_tables`` on a real plan: the stable merge order of
+    the slot cells, the distinct cells with their segment offsets, the
+    cell map (compact row, -1 elsewhere) and the occupied 8^3 bricks.
+    Folding the slot rows along the merge order, each cell from 0.0 in
+    f32, and placing the sums at the distinct cells gives back the dense
+    buffer CPU ``index_add_`` builds, bit for bit; every nonzero row of
+    that buffer lies in an occupied brick."""
+    spec, plan, cells = _plan_slot_cells()
+    n0 = spec.n_cells(0)
+    tab = LK.adjoint_rows_tables(spec, torch.from_numpy(cells))
+    perm = tab.order.perm.numpy()
+    offs = tab.order.offsets.numpy()
+    np.testing.assert_array_equal(perm, np.argsort(cells, kind="stable"))
+    uniq = np.unique(cells)
+    assert len(uniq) < len(cells)          # repeats: pad and shared cells
+    np.testing.assert_array_equal(tab.order.targets.numpy(), uniq)
+    np.testing.assert_array_equal(np.diff(offs),
+                                  np.unique(cells, return_counts=True)[1])
+    cell_row = tab.cell_row.numpy()
+    np.testing.assert_array_equal(cell_row[uniq], np.arange(len(uniq)))
+    assert (np.delete(cell_row, uniq) == -1).all()
+    x0, y0, z0 = spec.dims[0]
+    gx, gy, gz = LK.brick_grid(spec)
+    b = np.stack(np.unravel_index(uniq, (x0, y0, z0)), -1) >> 3
+    bricks = np.unique(np.ravel_multi_index(b.T, (gx, gy, gz)))
+    np.testing.assert_array_equal(tab.bricks.numpy(), bricks)
+    occ = np.zeros(gx * gy * gz, np.uint8)
+    occ[bricks] = 1
+    np.testing.assert_array_equal(tab.brick_occ.numpy(), occ)
+
+    rng = np.random.default_rng(30)
+    y = rng.standard_normal((len(cells), spec.lanes)).astype(np.float32)
+    ref = torch.zeros((n0, spec.lanes)).index_add_(
+        0, torch.from_numpy(cells.astype(np.int64)), torch.from_numpy(y))
+    z = np.zeros((n0, spec.lanes), np.float32)
+    for s, c in enumerate(uniq):
+        acc = np.zeros(spec.lanes, np.float32)
+        for i in perm[offs[s]:offs[s + 1]]:
+            acc = acc + y[i]
+        z[c] = acc
+    np.testing.assert_array_equal(z, ref.numpy())
+    nz = np.flatnonzero(np.abs(z).sum(1))
+    nb = np.ravel_multi_index(
+        (np.stack(np.unravel_index(nz, (x0, y0, z0)), -1) >> 3).T,
+        (gx, gy, gz))
+    assert occ[nb].all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_adjoint_rows_plain_is_the_dense_chain(dtype):
+    """``av0_adjoint_rows_plain`` (and the wrapper on the CPU) equals the
+    chain it replaces, ``av0_adjoint_cascade_plain`` of the two
+    ``index_add_`` of the point and gradient slot rows, bit for bit, with
+    the summed rows read in the compute dtype."""
+    spec, plan, cells = _plan_slot_cells()
+    s_pt = len(plan.slot_cell0_pt)
+    rng = np.random.default_rng(31)
+    y = torch.from_numpy(rng.standard_normal(
+        (len(cells), spec.lanes)).astype(np.float32))
+    pt = torch.from_numpy(plan.slot_cell0_pt.astype(np.int64))
+    gr = torch.from_numpy(plan.slot_cell0_gr.astype(np.int64))
+    z0 = torch.zeros((spec.n_cells(0), spec.lanes))
+    z0.index_add_(0, pt, y[:s_pt]).index_add_(0, gr, y[s_pt:])
+    ref = LK.av0_adjoint_cascade_plain(spec, z0, dtype)
+    tab = LK.adjoint_rows_tables(spec, torch.from_numpy(cells))
+    for got in (LK.av0_adjoint_rows_plain(spec, tab, y, dtype),
+                LK.av0_adjoint_rows(spec, tab, y, dtype)):
+        assert len(got) == spec.depth
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def test_splat_index_add_sites_see_no_repeats():
+    """The ``index_add_`` sites left on the splat path stay in a fixed
+    order on the card only because no index repeats: ``scatter_tables``
+    (one row per active voxel's cell, each depth) and ``assemble_rows``
+    (one row per point's (slot, row) destination)."""
+    spec, plan, _ = _plan_slot_cells()
+    for d in range(spec.depth):
+        cells = plan.vox_cell[d][plan.vox_active[d]]
+        assert len(cells) and len(np.unique(cells)) == len(cells)
+    slot = plan.pt_dest % spec.s_pt
+    dest = slot * spec.p_rows + plan.pt_dest // spec.s_pt
+    assert len(dest) and len(np.unique(dest)) == len(dest)
+
+
+def test_solve_goes_through_adjoint_rows(monkeypatch):
+    """The solve maps its slot rows back with ``av0_adjoint_rows`` only:
+    the rhs, the Jacobi diagonal (f32) and one call a CG iteration, never
+    the dense adjoint, and still matches nksr_tpu after 3 iterations as
+    tests/test_torch_slice.py::test_solve_matches_jax does, at its
+    tolerance (rtol 1e-4, atol 1e-4 of the largest coefficient).  The
+    slots its tables drop (pad point slots, inactive gradient slots)
+    hold zero rows in every call, so dropping them moves at most a
+    zero's sign."""
+    from test_torch_slice import _check_solve_against_jax
+
+    def fail(*a, **k):
+        raise AssertionError("lattice_solve called the dense adjoint")
+
+    calls, real = [], LK.av0_adjoint_rows
+
+    def record(spec, tables, y, dtype):
+        dropped = tables.order.index < 0
+        calls.append((dtype, int(dropped.sum()),
+                      bool((y[dropped] == 0).all())))
+        return real(spec, tables, y, dtype)
+
+    monkeypatch.setattr(LK, "av0_adjoint_cascade", fail)
+    monkeypatch.setattr(LK, "av0_adjoint_rows", record)
+    _check_solve_against_jax(3)
+    assert len(calls) == 3 + 2 and calls[1][0] == torch.float32
+    assert all(n > 0 and zero for _, n, zero in calls)
