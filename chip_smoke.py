@@ -30,7 +30,8 @@ Phases (any failure ends the run with a non-zero exit):
      equal to the dense adjoint kernel on the buffer CPU index_add_
      builds (up to the sign of a zero) and bit-equal from call to call,
      timed in turns against the chain it replaces (zeros, two
-     index_add_ and the dense adjoint);
+     index_add_ and the dense adjoint), with its two kernels' device
+     time under torch.profiler;
   3. the splat path on the dense lattice at the bench's size: the
      scene_big checkpoint, utils.scenes.synthetic_scene(1_000_000),
      reconstruct(structure="splat", voxel_size=0.1, solver_tol=1e-4,
@@ -38,7 +39,8 @@ Phases (any failure ends the run with a non-zero exit):
      warm-up lap and two timed laps, the kernels' launch counts (one
      slot-row launch a matvec, one slot-row adjoint a matvec plus the
      rhs and the Jacobi diagonal, no dense adjoint, the dense forward
-     once, for the evaluator tables), the two laps' coefficients and
+     once, for the evaluator tables, the segment sum at the two splats
+     only), the two laps' coefficients and
      meshes bit-equal (a gate), and the terrain vertex error against the
      analytic height field, of the whole tile and of its four 20 m
      quadrants reconstructed alone (the JAX reference's configuration);
@@ -369,7 +371,7 @@ def random_slot_cells(spec, gen, r: int):
         pads, -1)])
 
 
-def compare_adjoint_rows(LK, spec, cells, kept, s_pt: int, gen,
+def compare_adjoint_rows(LK, TA, spec, cells, kept, s_pt: int, gen,
                          timed: bool):
     """Slot-row adjoint on random f32 slot rows at the slot cells
     ``cells`` (the first ``s_pt`` point slots, then gradient slots), with
@@ -378,10 +380,14 @@ def compare_adjoint_rows(LK, spec, cells, kept, s_pt: int, gen,
     ``index_add_`` builds from all the rows at ``cells``, bit for bit up
     to the sign of a zero (a + 0.0), in the solve's form (bf16) and the
     Jacobi diagonal's (f32); two calls bit-equal; against the plain
-    adjoint on that buffer rtol 1e-5, atol 1e-5 of the largest output.  Timed (bf16): the wrapper (its segment
-    sum included) and the chain it replaces (zeros + the two
+    adjoint on that buffer rtol 1e-5, atol 1e-5 of the largest output.
+    Timed (bf16): the wrapper and the chain it replaces (zeros + the two
     ``index_add_`` + the dense adjoint kernel) in turns, the f32 form,
-    and the plain version."""
+    the plain version, its kernels' device time a call under
+    torch.profiler, and its tables.  The bound counts the rows the tables
+    keep (the pad slots' rows are never read), their int32 order and the
+    coefficients written; each kept value is added once into its cell's
+    sum and each cell's value once into a coefficient."""
     r = cells.numel()
     y = torch.randn((r, spec.lanes), device="cuda", generator=gen) \
         * (kept >= 0)[:, None]
@@ -389,8 +395,10 @@ def compare_adjoint_rows(LK, spec, cells, kept, s_pt: int, gen,
     z0 = torch.zeros((spec.n_cells(0), spec.lanes))
     z0.index_add_(0, cells.cpu().long(), y.cpu())
     z0 = z0.cuda()
-    out = {"err": 0.0, "distinct": tab.order.targets.numel(),
-           "bricks": tab.bricks.numel(), "of_bricks": tab.brick_occ.numel()}
+    out = {"err": 0.0, "distinct": tab.cells.numel(),
+           "bricks": tab.bricks.numel(), "of_bricks": tab.brick_occ.numel(),
+           "live_tiles": int(tab.tile_live.sum()),
+           "tiles": tab.tile_live.numel()}
     for dt in (torch.bfloat16, torch.float32):
         got = LK.av0_adjoint_rows(spec, tab, y, dt)
         again = LK.av0_adjoint_rows(spec, tab, y, dt)
@@ -427,12 +435,16 @@ def compare_adjoint_rows(LK, spec, cells, kept, s_pt: int, gen,
                                                  torch.float32), 20)
         p1 = cuda_ms(lambda: LK.av0_adjoint_rows_plain(spec, tab, y, bf), 2)
         coef = sum(spec.n_cells(d) for d in range(spec.depth)) * spec.k * 4
+        n_kept = tab.perm.numel()
         out.update(ms=min(k1, k2), ms_turns=(k1, k2), chain_ms=min(c1, c2),
                    chain_turns=(c1, c2), f32_ms=f1, plain_ms=p1,
+                   stage_ms=TA.kernel_ms(
+                       torch, lambda: LK.av0_adjoint_rows(spec, tab, y, bf)),
                    tables_ms=cuda_ms(
                        lambda: LK.adjoint_rows_tables(spec, kept), 3),
-                   bound=bound_ms(r * spec.lanes * 4 + r * 4 + coef,
-                                  (r + out["distinct"]) * spec.lanes))
+                   bound=bound_ms(n_kept * spec.lanes * 4 + n_kept * 4
+                                  + coef,
+                                  (n_kept + out["distinct"]) * spec.lanes))
     return out
 
 
@@ -672,16 +684,16 @@ def check_lattice_launches(tag, launches, field):
     """A lattice lap: the slot-row kernel once a matvec (one matvec a CG
     iteration), the slot-row adjoint once a matvec and for the rhs and
     the Jacobi diagonal, the dense adjoint never, the dense forward once
-    (the evaluator tables), and the segment sum at least once a
-    slot-row adjoint (its first stage) and for the splats."""
+    (the evaluator tables), and the segment sum twice, at the two splats
+    (the slot-row adjoint sums its rows itself)."""
     iters = field.solver_stats.iters
-    want = {"fwd": 1, "rows": iters, "adj_rows": iters + 2, "adj": 0}
+    want = {"fwd": 1, "rows": iters, "adj_rows": iters + 2, "adj": 0,
+            "segsum": 2}
     got = {k: launches[k] for k in want}
-    if not (iters > 0 and got == want
-            and launches["segsum"] > launches["adj_rows"]):
+    if not (iters > 0 and got == want):
         raise AssertionError(
             f"[{tag}] launches {launches}: expected {want} ({iters} CG "
-            "iterations) and segsum > adj_rows")
+            "iterations)")
 
 
 def lap_diff(a, b) -> str:
@@ -728,6 +740,7 @@ def main() -> int:
     from nksr_tpu_torch.recon import reconstructor as RC
     from nksr_tpu_torch.scripts import microbench_scatter as MB
     from nksr_tpu_torch.scripts import probe_kernels as PK
+    from nksr_tpu_torch.scripts import time_adjoint as TA
     from nksr_tpu_torch.scripts import time_rows as TR
     from nksr_tpu_torch.utils.checkpoint import load_tree
     from nksr_tpu_torch.utils.scenes import synthetic_scene
@@ -795,7 +808,7 @@ def main() -> int:
         cells_small = row_cells(small, gen)
         compare_rows(LK, small, xs_small, cells_small, timed=False)
         adj_cells, adj_kept = random_slot_cells(small, gen, 3000)
-        adj_small = compare_adjoint_rows(LK, small, adj_cells, adj_kept,
+        adj_small = compare_adjoint_rows(LK, TA, small, adj_cells, adj_kept,
                                          adj_cells.numel() // 2, gen,
                                          timed=False)
         print(f"[phase 2] spec {dims}: forward exact (f32, bf16), adjoint "
@@ -847,18 +860,22 @@ def main() -> int:
           f"{rows_res['chain_turns'][1]:.4f})", flush=True)
     del xs_mv
     torch.cuda.empty_cache()
-    adj_res = compare_adjoint_rows(LK, spec, slot_cells, adj_kept,
+    adj_res = compare_adjoint_rows(LK, TA, spec, slot_cells, adj_kept,
                                    spec.s_pt, gen, timed=True)
     ajb, ajby = adj_res["bound"]
+    stages = "; ".join(f"{name} {ms:.4f}" for name, ms in
+                       adj_res["stage_ms"].items()) or "not measured"
     print(f"[phase 2] slot-row adjoint at the main path: {len(slot_cells)} "
           f"slot rows on {adj_res['distinct']} cells in "
-          f"{adj_res['bricks']} of {adj_res['of_bricks']} bricks: the dense "
-          "kernel's result on the CPU-built buffer (bf16, f32; a + 0.0), "
-          f"two calls bit-equal, max err against plain {adj_res['err']:.3e}"
-          f"; bf16 {adj_res['ms']:.4f} ms (turns "
+          f"{adj_res['bricks']} of {adj_res['of_bricks']} bricks, "
+          f"{adj_res['live_tiles']} of {adj_res['tiles']} coefficient tiles "
+          "live: the dense kernel's result on the CPU-built buffer (bf16, "
+          f"f32; a + 0.0), two calls bit-equal, max err against plain "
+          f"{adj_res['err']:.3e}; bf16 {adj_res['ms']:.4f} ms (turns "
           f"{adj_res['ms_turns'][0]:.4f}, {adj_res['ms_turns'][1]:.4f}; "
           f"f32 {adj_res['f32_ms']:.4f}; plain {adj_res['plain_ms']:.3f}; "
-          f"bound {ajb:.4f} by {ajby}); the chain it replaces (zeros + 2 "
+          f"bound {ajb:.4f} by {ajby}); its kernels (profiler, device ms a "
+          f"call): {stages}; the chain it replaces (zeros + 2 "
           f"index_add_ + dense adjoint) {adj_res['chain_ms']:.4f} ms (turns "
           f"{adj_res['chain_turns'][0]:.4f}, "
           f"{adj_res['chain_turns'][1]:.4f}); its tables, once a solve, "

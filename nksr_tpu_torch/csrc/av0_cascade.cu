@@ -10,8 +10,8 @@
 //   the matvec's ordered scatter-add of its slot rows into the dense
 //     buffer (nksr_tpu/fields/lattice.py apply_AT, z0.at[...].add)
 //     followed by av0_adjoint_cascade_pallas
-//                               -> csrc/segment_sum.cu, then the MAPPED
-//                                  av0_adj_bricks and av0_adj_corners
+//                               -> av0_adj_rows_bricks, then
+//                                  av0_adj_rows_tiles
 //
 // Per depth d and cell corner (i, j, l) in {0,1}^3, with lane group
 // g = 8d + 4i + 2j + l:
@@ -86,24 +86,47 @@
 //   in bf16 is rounded in registers (__float2bfloat16_rn), bit for bit
 //   the cast the solve would otherwise make first.
 //
-// Slot-row adjoint (av0_cascade_adj_rows, the MAPPED instances of the two
-// kernels above): the lattice solve's buffer is zero except at its slot
-// cells (420,028 of 8,629,248 depth-0 cells, 4.9%, in 3,996 of 16,854
-// bricks at the bench plan), so the solve no longer builds it.  The
-// wrapper (fields/lattice_kernels.py, av0_adjoint_rows) first sums the
-// slot rows of each cell in a fixed order into one compact f32 row
-// (csrc/segment_sum.cu), with the map from cell to compact row, the
-// occupied bricks and their occupancy built once per solve.  Then
-// av0_adj_bricks runs one CTA per occupied brick, reading its cells'
-// rows through the map (a cell with no row adds nothing), and
-// av0_adj_corners takes depth 0's 8 neighbours through the map and skips
-// the partials of unoccupied bricks, which were never written.  Each
-// cell's row is the sum the dense buffer would hold, rounded to bf16 as
-// it is read (ROUND), never row by row; the folds keep the dense form's
-// order, and a skipped cell or brick only omits a +0.0, so the result
-// equals the dense form's on that buffer bit for bit up to the sign of a
-// zero.  The function's bound at the bench plan: 0.54 GB of f32 slot
-// rows read and 0.17 GB of coefficients written, 0.21 ms at 3.35 TB/s.
+// Slot-row adjoint (av0_cascade_adj_rows): the lattice solve's buffer is
+// zero except at its slot cells (420,027 of 8,629,248 depth-0 cells,
+// 4.9%, in 3,995 of 16,854 bricks at the bench plan once the pad slots
+// are dropped), so the solve never builds it.  The tables
+// (fields/lattice_kernels.py, adjoint_rows_tables, once per solve) order
+// the kept slots brick-major: by brick, by depth-1 group in the brick, by
+// child place in the group, by slot.  Two kernels, no atomics:
+//   * av0_adj_rows_bricks: one CTA per occupied brick.  It loads the
+//     brick's group starts, segment offsets and slot order into shared
+//     memory once, then deals the groups that hold a slot cell to its
+//     warps in turn.  A warp walks a group's slots, 4 rows of 512 B in
+//     flight at a time, sums each cell's rows in slot order from 0.0 in
+//     f32 and rounds the sum once (ROUND); it writes the cell's depth-0
+//     lanes (bf16 in the bf16 form) to a compact row for stage 2 and adds
+//     its other lanes, child after child, into the group's row in shared
+//     memory.  The folds of depths 2 and 3 and the partial stores are the
+//     dense stage 1's (fold_brick).  Segments are short at the bench plan
+//     (1 to 6 rows), so no cell holds a warp up for long.
+//   * av0_adj_rows_tiles: one CTA per 8^3 tile of each depth's
+//     coefficients.  A tile whose corners read no ancestor with an
+//     occupied brick under it (``tile_live`` 0: 11,497 of 20,260 tiles at
+//     the bench plan) writes +0.0 and reads nothing.  A live depth-0 tile
+//     loads the cell map of its 9^3 cells (the tile and the one-cell halo
+//     below it) into shared memory and sums each coefficient's 8 corners
+//     from the compact depth-0 rows, which L1 serves to neighbouring
+//     coefficients; a live tile of a coarser depth sums its corner
+//     partials as the dense stage 2 does, skipping the groups of empty
+//     bricks, whose partials were never written.
+// The sums keep the dense form's order and only omit +0.0 terms (absent
+// cells, groups of empty bricks, dead tiles), so the result equals the
+// dense form's on the buffer the slot rows sum into, bit for bit up to
+// the sign of a zero.  What bounds it at the bench plan: 748,076 kept
+// slot rows of 512 B read (0.383 GB), their 3 MB of order and 0.172 GB
+// of coefficients written, 0.165 ms at 3.35 TB/s; the compact depth-0
+// rows (27 MB in bf16) and the occupied bricks' partials (37 MB) cross
+// the L2 between the two kernels.  Measured on an H100 80GB HBM3 at
+// 700 W (scripts/time_adjoint.py, in turns with the segment-sum form it
+// replaced, 0.66 ms): 0.35 ms in bf16, stage 1 0.21 ms (its rows come in
+// the solve's slot order, so brick-major reads are scattered 512 B
+// rows), stage 2 0.14 ms (its 0.17 GB coefficient write alone needs
+// 0.05 ms).
 //
 // Lessons kept:
 //   * per-depth pointers, dims and partial offsets are read from the
@@ -118,16 +141,33 @@
 //     16 x 16 (y, z) tile, each plane's depth-0 lanes loaded once) was 3%
 //     slower on an H100 than the gather above, whose neighbour rows L1
 //     and L2 already serve.
+//   * slot-row adjoint, each tried on an H100 against the design above:
+//     a fixed group per warp (group mod 8) left most warps idle where a
+//     surface crosses a brick in one or two z-groups (stage 1 0.38 ms);
+//     8 rows in flight a warp instead of 4 (more registers, fewer CTAs)
+//     0.28 ms against 0.23; stage 1 without the register cap for 6 CTAs
+//     an SM 0.23 against 0.20 ms; stage 2 staging the 9^3 rows in 61 KB
+//     of dynamic shared memory capped every CTA, dead tiles included, at
+//     3 an SM (0.22 ms); a persistent grid-stride stage 2 0.25 ms; both
+//     of a thread's cells' loads issued before their stores (80
+//     registers) 0.19 ms against 0.14; tile liveness from the slot cells
+//     themselves instead of their bricks cut stage 2 by 0.01 ms, but its
+//     tables took 1 ms more a solve.
 // Nothing assumes lanes == 128: lanes = depth * 8 * k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define AV0_MAX_DEPTH 8
 #define ADJ_LEVELS 3        // a stage-1 brick is 2^3 depth-0 cells a side
 #define ADJ_CHUNK 96        // lanes one pass of a brick folds (shared memory)
 #define ADJ_THREADS 256
+#define ADJ_UNROLL 4       // slot rows a warp loads before it adds them
+#define ADJ_PERM_SMEM 1024  // slots of a brick stage 1 keeps in shared memory
+#define ADJ_ROWS_CTAS 6     // stage-1 CTAs an SM holds (caps registers)
 #define ROWS_THREADS 128    // slot-row kernel: threads a block
 #define ROWS_ITEMS 2        // and items a thread
 
@@ -359,22 +399,14 @@ __global__ void __launch_bounds__(ROWS_THREADS)
   }
 }
 
-// The row of depth-0 cell ``cell`` in the adjoint's input: the cell
-// itself in the dense buffer; through the solve's cell map (-1: no slot
-// row) for compact rows (MAPPED).
-template <bool MAPPED>
-__device__ __forceinline__ int64_t in_row(const int32_t* __restrict__ map,
-                                          int64_t cell) {
-  return MAPPED ? (int64_t)__ldg(map + cell) : cell;
-}
-
-// Store level-L groups (n = 8 >> L a side, rows of ADJ_CHUNK floats in
+// Store level-L groups (n = 8 >> L a side, rows of ``qs`` floats in
 // shared memory from lane lo) of brick (bx, by, bz) as depth d's partial
 // rows; groups past the grid (no depth-0 cell below) are not stored.
 template <int K>
-__device__ __forceinline__ void store_groups(const float* q, int n, int lo,
-                                             float* dst, int gx, int gy,
-                                             int gz, int bx, int by, int bz) {
+__device__ __forceinline__ void store_groups(const float* q, int qs, int n,
+                                             int lo, float* dst, int gx,
+                                             int gy, int gz, int bx, int by,
+                                             int bz) {
   constexpr int DW4 = 2 * K;  // float4s in one depth's 8k lanes
   for (int o = threadIdx.x; o < n * n * n * DW4; o += ADJ_THREADS) {
     const int f = o % DW4, a = o / DW4;
@@ -383,17 +415,73 @@ __device__ __forceinline__ void store_groups(const float* q, int n, int lo,
     if (x < gx && y < gy && z < gz)
       *reinterpret_cast<float4*>(dst + (((int64_t)x * gy + y) * gz + z) *
                                            (8 * K) + 4 * f) =
-          *reinterpret_cast<const float4*>(q + a * ADJ_CHUNK + lo + 4 * f);
+          *reinterpret_cast<const float4*>(q + a * qs + lo + 4 * f);
   }
 }
 
-// Stage 1.  grid: one CTA per 8^3 brick of depth-0 cells (z fastest).
-// Each pass folds the lanes of up to ADJ_CHUNK / 8k depths.
-template <typename T, bool ROUND, int K, bool MAPPED>
+// The folds of stage 1 above depth 1, shared by the dense and the
+// slot-row form.  q1 holds the brick's 4^3 depth-1 groups (rows of qs
+// floats, lanes [0, cw) of depths dlo .. dhi-1, the caller synced after
+// filling it); q2 takes its 2^3 depth-2 groups.  Stores depth 1's groups
+// (dlo = 1), depth 2's, and the brick's row of each depth >= 3, every
+// f32 sum in one fixed order (children in x, y, z bit order).
+template <int K>
+__device__ __forceinline__ void fold_brick(const Av0AdjLayout& lay,
+                                           const float* q1, float* q2, int qs,
+                                           int cw, int dlo, int dhi,
+                                           float* part, int bx, int by,
+                                           int bz) {
+  constexpr int DW = 8 * K;
+  if (dlo == 1)
+    store_groups<K>(q1, qs, 4, 0, part + lay.offset[1], lay.grid[1][0],
+                    lay.grid[1][1], lay.grid[1][2], bx, by, bz);
+  // level 2: lanes of depths >= 2, 8 depth-1 groups each
+  const int l2 = (max(dlo, 2) - dlo) * DW;
+  const int w2 = (cw - l2) >> 2;
+  for (int o = threadIdx.x; o < 8 * w2; o += ADJ_THREADS) {
+    const int lane = l2 + 4 * (o % w2), g = o / w2;
+    const int ax = 2 * (g >> 2), ay = 2 * ((g >> 1) & 1), az = 2 * (g & 1);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) {
+      const int a = ((ax + (ch >> 2)) * 4 + ay + ((ch >> 1) & 1)) * 4 + az +
+                    (ch & 1);
+      const float4 v = *reinterpret_cast<const float4*>(q1 + a * qs + lane);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    *reinterpret_cast<float4*>(q2 + g * qs + lane) = acc;
+  }
+  __syncthreads();
+  if (dlo <= 2 && 2 < dhi)
+    store_groups<K>(q2, qs, 2, (2 - dlo) * DW, part + lay.offset[2],
+                    lay.grid[2][0], lay.grid[2][1], lay.grid[2][2], bx, by,
+                    bz);
+  // level 3: lanes of depths >= 3, the brick's 8 depth-2 groups, stored
+  // as depth d's row of this brick
+  const int l3 = (max(dlo, 3) - dlo) * DW;
+  for (int o = threadIdx.x; o < (cw - l3) >> 2; o += ADJ_THREADS) {
+    const int lane = l3 + 4 * o;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(q2 + g * qs + lane);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    float* dst;
+    int gx, gy, gz;
+    select_part(lay, part, dlo + lane / DW, dst, gx, gy, gz);
+    *reinterpret_cast<float4*>(dst + (((int64_t)bx * gy + by) * gz + bz) *
+                                         DW + lane % DW) = acc;
+  }
+  __syncthreads();  // q1 and q2 may be refilled
+}
+
+// Stage 1 of the dense adjoint.  grid: one CTA per 8^3 brick of depth-0
+// cells (z fastest).  Each pass folds the lanes of up to ADJ_CHUNK / 8k
+// depths.
+template <typename T, bool ROUND, int K>
 __global__ void __launch_bounds__(ADJ_THREADS)
     av0_adj_bricks(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
-                   const int32_t* __restrict__ cell_row,
-                   const int32_t* __restrict__ bricks,
                    float* __restrict__ part) {
   constexpr int VW = 16 / sizeof(T);  // values in one 16 B load
   constexpr int DW = 8 * K;           // lanes of one depth
@@ -402,7 +490,7 @@ __global__ void __launch_bounds__(ADJ_THREADS)
   __shared__ __align__(16) float q2[8 * ADJ_CHUNK];   // 2^3 depth-2 groups
   const int x0 = s.dims[0][0], y0 = s.dims[0][1], z0 = s.dims[0][2];
   const int nby = (y0 + 7) >> 3, nbz = (z0 + 7) >> 3;
-  const int b = MAPPED ? __ldg(bricks + blockIdx.x) : (int)blockIdx.x;
+  const int b = (int)blockIdx.x;
   const int bz = b % nbz, bxy = b / nbz;
   const int by = bxy % nby, bx = bxy / nby;
   const int lanes = s.depth * DW;
@@ -422,13 +510,10 @@ __global__ void __launch_bounds__(ADJ_THREADS)
       for (int ch = 0; ch < 8; ++ch) {
         const int cx = x + (ch >> 2), cy = y + ((ch >> 1) & 1),
                   cz = zc + (ch & 1);
-        const int64_t row =
-            cx < x0 && cy < y0 && cz < z0
-                ? in_row<MAPPED>(cell_row, ((int64_t)cx * y0 + cy) * z0 + cz)
-                : -1;
-        if (row >= 0) {
+        if (cx < x0 && cy < y0 && cz < z0) {
           const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(
-              z + row * lanes + dlo * DW + u * VW);
+              z + (((int64_t)cx * y0 + cy) * z0 + cz) * lanes + dlo * DW +
+              u * VW);
 #pragma unroll
           for (int e = 0; e < VW; ++e) acc[e] += read_as<ROUND>(v.v[e]);
         }
@@ -440,70 +525,19 @@ __global__ void __launch_bounds__(ADJ_THREADS)
             make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
     }
     __syncthreads();
-    if (dlo == 1)
-      store_groups<K>(q1, 4, 0, part + lay.offset[1], lay.grid[1][0],
-                      lay.grid[1][1], lay.grid[1][2], bx, by, bz);
-    // level 2: lanes of depths >= 2, 8 depth-1 groups each
-    const int l2 = (max(dlo, 2) - dlo) * DW;
-    const int w2 = (cw - l2) >> 2;
-    for (int o = threadIdx.x; o < 8 * w2; o += ADJ_THREADS) {
-      const int lane = l2 + 4 * (o % w2), g = o / w2;
-      const int ax = 2 * (g >> 2), ay = 2 * ((g >> 1) & 1), az = 2 * (g & 1);
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int ch = 0; ch < 8; ++ch) {
-        const int a = ((ax + (ch >> 2)) * 4 + ay + ((ch >> 1) & 1)) * 4 + az +
-                      (ch & 1);
-        const float4 v =
-            *reinterpret_cast<const float4*>(q1 + a * ADJ_CHUNK + lane);
-        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-      }
-      *reinterpret_cast<float4*>(q2 + g * ADJ_CHUNK + lane) = acc;
-    }
-    __syncthreads();
-    if (dlo <= 2 && 2 < dhi)
-      store_groups<K>(q2, 2, (2 - dlo) * DW, part + lay.offset[2],
-                      lay.grid[2][0], lay.grid[2][1], lay.grid[2][2], bx, by,
-                      bz);
-    // level 3: lanes of depths >= 3, the brick's 8 depth-2 groups, stored
-    // as depth d's row of this brick
-    const int l3 = (max(dlo, 3) - dlo) * DW;
-    for (int o = threadIdx.x; o < (cw - l3) >> 2; o += ADJ_THREADS) {
-      const int lane = l3 + 4 * o;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(q2 + g * ADJ_CHUNK + lane);
-        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-      }
-      float* dst;
-      int gx, gy, gz;
-      select_part(lay, part, dlo + lane / DW, dst, gx, gy, gz);
-      *reinterpret_cast<float4*>(dst + (((int64_t)bx * gy + by) * gz + bz) *
-                                           DW + lane % DW) = acc;
-    }
-    __syncthreads();  // q1 and q2 are refilled by the next pass
+    fold_brick<K>(lay, q1, q2, ADJ_CHUNK, cw, dlo, dhi, part, bx, by, bz);
   }
 }
 
-// Where the adjoint finds a row of its input: the row of a cell of the
-// dense buffer is the cell itself (DenseRow); a compact-row input maps
-// depth-0 cells through the solve's cell map, -1 where no slot lies
-// (MappedRow); the stage-1 partials of a brick that holds no slot were
-// never written and read as zero (OccupiedGroup: group (ax, ay, az) of
-// 2^(3 - sh) depth-0 cells a side lies in brick (ax, ay, az) >> sh).
+// Where stage 2 finds a row of its input: the row of a cell of the dense
+// buffer is the cell itself (DenseRow); the stage-1 partials of a brick
+// that holds no slot were never written and read as zero (OccupiedGroup:
+// group (ax, ay, az) of 2^(3 - sh) depth-0 cells a side lies in brick
+// (ax, ay, az) >> sh).
 struct DenseRow {
   __device__ __forceinline__ int64_t operator()(int64_t flat, int, int,
                                                 int) const {
     return flat;
-  }
-};
-struct MappedRow {
-  const int32_t* map;
-  __device__ __forceinline__ int64_t operator()(int64_t flat, int, int,
-                                                int) const {
-    return __ldg(map + flat);
   }
 };
 struct OccupiedGroup {
@@ -543,9 +577,9 @@ __device__ __forceinline__ void corner_sum(const TS* __restrict__ src,
 }
 
 // Depth d > 3: each ancestor covers 2^sh brick partials a side (sh = d - 3),
-// summed in x, y, z order under each corner.
-// Bricks that hold no slot (brick_occ 0, MAPPED) were never written.
-template <int K, bool MAPPED>
+// summed in x, y, z order under each corner.  OCC: bricks that hold no
+// slot (brick_occ 0) were never written and are skipped.
+template <int K, bool OCC>
 __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
                                 int gz, int sh, int cx, int cy, int cz,
                                 const uint8_t* __restrict__ brick_occ,
@@ -562,7 +596,7 @@ __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
       for (int qy = ay << sh; qy < min((ay + 1) << sh, gy); ++qy)
         for (int qz = az << sh; qz < min((az + 1) << sh, gz); ++qz) {
           const int64_t q = ((int64_t)qx * gy + qy) * gz + qz;
-          if (MAPPED && !__ldg(brick_occ + q)) continue;
+          if (OCC && !__ldg(brick_occ + q)) continue;
           const float* row = src + q * (8 * K) + c * K;
 #pragma unroll
           for (int kk = 0; kk < K; ++kk) acc[kk] += row[kk];
@@ -570,13 +604,12 @@ __device__ void corner_sum_wide(const float* __restrict__ src, int gx, int gy,
   }
 }
 
-// Stage 2.  grid: ceil(n_d / ADJ_THREADS) blocks for each depth, depth 0
-// first; thread = one coefficient cell of its block's depth.
-template <typename T, bool ROUND, int K, bool MAPPED>
+// Stage 2 of the dense adjoint.  grid: ceil(n_d / ADJ_THREADS) blocks for
+// each depth, depth 0 first; thread = one coefficient cell of its block's
+// depth.
+template <typename T, bool ROUND, int K>
 __global__ void __launch_bounds__(ADJ_THREADS)
     av0_adj_corners(Av0Spec s, Av0AdjLayout lay, const T* __restrict__ z,
-                    const int32_t* __restrict__ cell_row,
-                    const uint8_t* __restrict__ brick_occ,
                     const float* __restrict__ part, MutPtrs out) {
   int d = 0, first = 0, start = 0;
 #pragma unroll
@@ -598,26 +631,15 @@ __global__ void __launch_bounds__(ADJ_THREADS)
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) acc[kk] = 0.0f;
   if (d == 0) {
-    if constexpr (MAPPED)
-      corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
-                              s.dims[0][2], cx, cy, cz, MappedRow{cell_row},
-                              acc);
-    else
-      corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
-                              s.dims[0][2], cx, cy, cz, DenseRow{}, acc);
+    corner_sum<T, ROUND, K>(z, s.depth * 8 * K, s.dims[0][0], s.dims[0][1],
+                            s.dims[0][2], cx, cy, cz, DenseRow{}, acc);
   } else {
     const float* src;
     int gx, gy, gz;
     select_part(lay, part, d, src, gx, gy, gz);
     if (d > ADJ_LEVELS)
-      corner_sum_wide<K, MAPPED>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz,
-                                 brick_occ, acc);
-    else if constexpr (MAPPED)
-      corner_sum<float, false, K>(
-          src, 8 * K, gx, gy, gz, cx, cy, cz,
-          OccupiedGroup{brick_occ, ADJ_LEVELS - d, (s.dims[0][1] + 7) >> 3,
-                        (s.dims[0][2] + 7) >> 3},
-          acc);
+      corner_sum_wide<K, false>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz,
+                                nullptr, acc);
     else
       corner_sum<float, false, K>(src, 8 * K, gx, gy, gz, cx, cy, cz,
                                   DenseRow{}, acc);
@@ -626,6 +648,242 @@ __global__ void __launch_bounds__(ADJ_THREADS)
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) o.v[kk] = acc[kk];
   *reinterpret_cast<Vec<float, K>*>(dst + (int64_t)cell * K) = o;
+}
+
+// ------------------------------------------------------ slot-row adjoint
+// The depth-0 lanes of a cell's summed row, as stage 1 hands them to
+// stage 2: bf16 when the compute type is bf16 (the values are rounded to
+// it, so nothing is lost), else f32.
+template <bool ROUND>
+using D0Row = typename std::conditional<ROUND, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+__device__ __forceinline__ void add4(float4& a, const float4& v) {
+  a.x += v.x, a.y += v.y, a.z += v.z, a.w += v.w;
+}
+template <bool ROUND>
+__device__ __forceinline__ float4 round4(const float4& v) {
+  return make_float4(read_as<ROUND>(v.x), read_as<ROUND>(v.y),
+                     read_as<ROUND>(v.z), read_as<ROUND>(v.w));
+}
+template <typename D>
+__device__ __forceinline__ void store4(D* p, const float4& v) {
+  Vec<D, 4> o;
+  o.v[0] = from_f32<D>(v.x), o.v[1] = from_f32<D>(v.y);
+  o.v[2] = from_f32<D>(v.z), o.v[3] = from_f32<D>(v.w);
+  *reinterpret_cast<Vec<D, 4>*>(p) = o;
+}
+
+// Stage 1 of the slot-row adjoint.  grid: one CTA per occupied brick
+// (``bricks``, ascending); dynamic shared memory (adj_rows_smem): the
+// brick's 4^3 depth-1 and 2^3 depth-2 groups, qw = (depth - 1) * 8K
+// floats each, its 65 group starts, its <= 513 segment offsets, the
+// list of its groups that hold a slot cell and the first ADJ_PERM_SMEM
+// of its slots, each loaded once, coalesced.  A warp then takes one of
+// those groups at a time, in turn, and walks its slots (brick-major,
+// so the group's children follow each other in child order and each
+// child's slots in slot order) ADJ_UNROLL rows at a time, a 16 B unit of
+// the row a thread: each child's rows are summed from 0.0 in f32,
+// rounded once (ROUND), then its depth-0 lanes go to d0 (one row a
+// segment) and its other lanes are added, child after child, into the
+// group's row of q1.  fold_brick then folds depths 2 and 3 as the dense
+// stage 1 does.
+template <bool ROUND, int K>
+__global__ void __launch_bounds__(ADJ_THREADS, ADJ_ROWS_CTAS)
+    av0_adj_rows_bricks(Av0Spec s, Av0AdjLayout lay,
+                        const float* __restrict__ y,
+                        const int32_t* __restrict__ perm,
+                        const int32_t* __restrict__ seg_off,
+                        const int32_t* __restrict__ bricks,
+                        const int32_t* __restrict__ group_seg,
+                        D0Row<ROUND>* __restrict__ d0,
+                        float* __restrict__ part) {
+  constexpr int DW = 8 * K;
+  extern __shared__ __align__(16) float q1[];
+  const int lanes = s.depth * DW, qw = lanes - DW;
+  float* q2 = q1 + 64 * qw;
+  int* gs = reinterpret_cast<int*>(q2 + 8 * qw);  // 65
+  int* soff = gs + 65;                            // up to 513
+  int* glist = soff + 513;                        // 64 + a count
+  int* sperm = glist + 65;                        // ADJ_PERM_SMEM
+  const int nu = lanes >> 2, nu0 = DW >> 2;  // 16 B units: row, depth 0
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = __ldg(bricks + blockIdx.x);
+  for (int a = threadIdx.x; a <= 64; a += ADJ_THREADS)
+    gs[a] = __ldg(group_seg + (int64_t)b * 64 + a);
+  __syncthreads();
+  const int s0 = gs[0], ns = gs[64] - s0;
+  for (int i = threadIdx.x; i <= ns; i += ADJ_THREADS)
+    soff[i] = __ldg(seg_off + s0 + i);
+  __syncthreads();
+  const int p0 = soff[0], np = min(soff[ns] - p0, ADJ_PERM_SMEM);
+  for (int i = threadIdx.x; i < np; i += ADJ_THREADS)
+    sperm[i] = __ldg(perm + p0 + i);
+  // the groups that hold a slot cell, in group order: dealt to the warps
+  // in turn (a fixed group per warp would leave most warps idle where a
+  // surface crosses the brick in one or two z-groups); the others' rows
+  // of q1 are zero
+  for (int i = threadIdx.x; i < 64 * qw; i += ADJ_THREADS) q1[i] = 0.0f;
+  if (warp == 0) {
+    int n = 0;
+    for (int h = 0; h < 64; h += 32) {
+      const bool full = gs[h + lane + 1] > gs[h + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, full);
+      if (full) glist[n + __popc(m & ((1u << lane) - 1))] = h + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) glist[64] = n;
+  }
+  __syncthreads();
+  for (int w = warp; w < glist[64]; w += ADJ_THREADS / 32) {
+    const int a = glist[w];
+    const int sl = gs[a] - s0, nch = gs[a + 1] - gs[a];
+    const int p_lo = soff[sl], p_hi = soff[sl + nch];
+    for (int u0 = 0; u0 < nu; u0 += 32) {
+      const int u = u0 + lane;
+      const bool on = u < nu;
+      float4 g = zero4(), acc = zero4();
+      int c = 0, end = nch ? soff[sl + 1] : 0;
+      for (int p = p_lo; p < p_hi; p += ADJ_UNROLL) {
+        float4 v[ADJ_UNROLL];
+#pragma unroll
+        for (int q = 0; q < ADJ_UNROLL; ++q) {
+          const int i = p + q;
+          v[q] = zero4();
+          if (on && i < p_hi) {
+            const int row = i - p0 < np ? sperm[i - p0] : __ldg(perm + i);
+            v[q] = __ldcs(reinterpret_cast<const float4*>(
+                              y + (int64_t)row * lanes) + u);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < ADJ_UNROLL; ++q) {
+          if (p + q < p_hi) {
+            add4(acc, v[q]);
+            if (p + q + 1 == end) {  // child c is summed
+              const float4 r = round4<ROUND>(acc);
+              if (on && u < nu0)
+                store4(d0 + (int64_t)(s0 + sl + c) * DW + 4 * u, r);
+              else if (on)
+                add4(g, r);
+              acc = zero4();
+              ++c;
+              end = c < nch ? soff[sl + c + 1] : 0;
+            }
+          }
+        }
+      }
+      if (on && u >= nu0)
+        *reinterpret_cast<float4*>(q1 + a * qw + 4 * (u - nu0)) = g;
+    }
+  }
+  if (s.depth == 1) return;
+  __syncthreads();
+  const int nby = (s.dims[0][1] + 7) >> 3, nbz = (s.dims[0][2] + 7) >> 3;
+  const int bz = b % nbz, bxy = b / nbz;
+  fold_brick<K>(lay, q1, q2, qw, qw, 1, s.depth, part, bxy / nby, bxy % nby,
+                bz);
+}
+
+// Bytes of stage 1's dynamic shared memory.
+static size_t adj_rows_smem(int depth, int k) {
+  return (size_t)72 * (depth - 1) * 8 * k * sizeof(float) +
+         (65 + 513 + 65 + ADJ_PERM_SMEM) * sizeof(int);
+}
+
+// Stage 2 of the slot-row adjoint.  grid: one CTA per 8^3 tile of each
+// depth's coefficients (``tile_live``'s order: depth 0 first, z
+// fastest); thread = coefficient cells of the tile.  A tile whose
+// corners read no ancestor with an occupied brick under it is written
+// +0.0 and reads nothing.  A live depth-0 tile
+// loads the cell map of its cells and of the one-cell halo below them
+// (9^3 cells) into shared memory once; each coefficient then sums its 8
+// corners in corner order from the compact depth-0 rows of the cells
+// that have one (gathered through L1: neighbouring coefficients read the
+// same rows).  A live tile of depth 1 .. 3 sums the stage-1 partials of
+// its 8 corner groups (skipping groups of empty bricks), a depth above 3
+// the brick partials under each ancestor.
+#define TILE_CELLS 729
+template <bool ROUND, int K>
+__global__ void __launch_bounds__(ADJ_THREADS)
+    av0_adj_rows_tiles(Av0Spec s, Av0AdjLayout lay,
+                       const D0Row<ROUND>* __restrict__ d0,
+                       const int32_t* __restrict__ cell_row,
+                       const uint8_t* __restrict__ brick_occ,
+                       const uint8_t* __restrict__ tile_live,
+                       const float* __restrict__ part, MutPtrs out) {
+  using D = D0Row<ROUND>;
+  constexpr int DW = 8 * K;
+  __shared__ int map[TILE_CELLS];
+  int d = 0, first = 0, start = 0;
+#pragma unroll
+  for (int q = 0; q < AV0_MAX_DEPTH; ++q) {
+    if (q < s.depth) {
+      if ((int)blockIdx.x >= start) d = q, first = start;
+      start += ((s.dims[q][0] + 7) >> 3) * ((s.dims[q][1] + 7) >> 3) *
+               ((s.dims[q][2] + 7) >> 3);
+    }
+  }
+  float* dst;
+  int xd, yd, zd;
+  select_depth(s, out, d, dst, xd, yd, zd);
+  const int t = (int)blockIdx.x - first;
+  const int tgy = (yd + 7) >> 3, tgz = (zd + 7) >> 3;
+  const int tz = t % tgz, txy = t / tgz;
+  const int ox = (txy / tgy) * 8, oy = (txy % tgy) * 8, oz = tz * 8;
+  const bool live = __ldg(tile_live + blockIdx.x);
+  if (live && d == 0) {
+    for (int i = threadIdx.x; i < TILE_CELLS; i += ADJ_THREADS) {
+      const int x = ox - 1 + i / 81, y = oy - 1 + (i / 9) % 9,
+                z = oz - 1 + i % 9;
+      map[i] = x >= 0 && y >= 0 && z >= 0 && x < xd && y < yd && z < zd
+                   ? __ldg(cell_row + ((int64_t)x * yd + y) * zd + z)
+                   : -1;
+    }
+    __syncthreads();
+  }
+  for (int o = threadIdx.x; o < 512; o += ADJ_THREADS) {
+    const int cx = ox + (o >> 6), cy = oy + ((o >> 3) & 7), cz = oz + (o & 7);
+    if (cx >= xd || cy >= yd || cz >= zd) continue;
+    float acc[K];
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) acc[kk] = 0.0f;
+    if (live && d == 0) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int ax = cx - ((c >> 2) & 1), ay = cy - ((c >> 1) & 1),
+                  az = cz - (c & 1);
+        if (ax < 0 || ay < 0 || az < 0) continue;
+        const int r =
+            map[((ax - ox + 1) * 9 + ay - oy + 1) * 9 + az - oz + 1];
+        if (r < 0) continue;
+        const Vec<D, K> v = *reinterpret_cast<const Vec<D, K>*>(
+            d0 + (int64_t)r * DW + c * K);
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) acc[kk] += read_as<false>(v.v[kk]);
+      }
+    } else if (live) {
+      const float* src;
+      int gx, gy, gz;
+      select_part(lay, part, d, src, gx, gy, gz);
+      if (d > ADJ_LEVELS)
+        corner_sum_wide<K, true>(src, gx, gy, gz, d - ADJ_LEVELS, cx, cy, cz,
+                                 brick_occ, acc);
+      else
+        corner_sum<float, false, K>(
+            src, 8 * K, gx, gy, gz, cx, cy, cz,
+            OccupiedGroup{brick_occ, ADJ_LEVELS - d, (s.dims[0][1] + 7) >> 3,
+                          (s.dims[0][2] + 7) >> 3},
+            acc);
+    }
+    Vec<float, K> v;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) v.v[kk] = acc[kk];
+    *reinterpret_cast<Vec<float, K>*>(dst + ((int64_t)cx * yd + cy) * zd * K +
+                                      (int64_t)cz * K) = v;
+  }
 }
 
 template <typename T, int K>
@@ -658,27 +916,16 @@ static void launch_rows(const Av0Spec& s, const ConstPtrs& c,
       cells, out, n_items);
 }
 
-// The compact-row input of the slot-row adjoint (MAPPED): the cell map,
-// the occupied bricks and their occupancy over the brick grid.
-struct RowMap {
-  const int32_t* cell_row;
-  const int32_t* bricks;
-  int n_bricks;
-  const uint8_t* brick_occ;
-};
-
-template <typename T, bool ROUND, int K, bool MAPPED>
+template <typename T, bool ROUND, int K>
 static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
-                      const void* z, const RowMap& m, float* part,
-                      const MutPtrs& o, cudaStream_t st) {
+                      const void* z, float* part, const MutPtrs& o,
+                      cudaStream_t st) {
   const T* zt = static_cast<const T*>(z);
-  const int bricks = MAPPED ? m.n_bricks
-                            : ((s.dims[0][0] + 7) >> 3) *
-                                  ((s.dims[0][1] + 7) >> 3) *
-                                  ((s.dims[0][2] + 7) >> 3);
-  if (s.depth > 1 && bricks > 0) {
-    av0_adj_bricks<T, ROUND, K, MAPPED><<<bricks, ADJ_THREADS, 0, st>>>(
-        s, lay, zt, m.cell_row, m.bricks, part);
+  const int bricks = ((s.dims[0][0] + 7) >> 3) * ((s.dims[0][1] + 7) >> 3) *
+                     ((s.dims[0][2] + 7) >> 3);
+  if (s.depth > 1) {
+    av0_adj_bricks<T, ROUND, K><<<bricks, ADJ_THREADS, 0, st>>>(s, lay, zt,
+                                                                part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -686,20 +933,80 @@ static int launch_adj(const Av0Spec& s, const Av0AdjLayout& lay,
   for (int d = 0; d < s.depth; ++d)
     blocks += (s.dims[d][0] * s.dims[d][1] * s.dims[d][2] + ADJ_THREADS - 1) /
               ADJ_THREADS;
-  av0_adj_corners<T, ROUND, K, MAPPED><<<blocks, ADJ_THREADS, 0, st>>>(
-      s, lay, zt, m.cell_row, m.brick_occ, part, o);
+  av0_adj_corners<T, ROUND, K><<<blocks, ADJ_THREADS, 0, st>>>(s, lay, zt,
+                                                               part, o);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool ROUND, bool MAPPED>
+template <typename T, bool ROUND>
 static int adj_k(const Av0Spec& s, const Av0AdjLayout& lay, const void* z,
-                 const RowMap& m, float* part, const MutPtrs& o,
-                 cudaStream_t st) {
+                 float* part, const MutPtrs& o, cudaStream_t st) {
   switch (s.k) {
-    case 1: return launch_adj<T, ROUND, 1, MAPPED>(s, lay, z, m, part, o, st);
-    case 2: return launch_adj<T, ROUND, 2, MAPPED>(s, lay, z, m, part, o, st);
-    case 4: return launch_adj<T, ROUND, 4, MAPPED>(s, lay, z, m, part, o, st);
-    case 8: return launch_adj<T, ROUND, 8, MAPPED>(s, lay, z, m, part, o, st);
+    case 1: return launch_adj<T, ROUND, 1>(s, lay, z, part, o, st);
+    case 2: return launch_adj<T, ROUND, 2>(s, lay, z, part, o, st);
+    case 4: return launch_adj<T, ROUND, 4>(s, lay, z, part, o, st);
+    case 8: return launch_adj<T, ROUND, 8>(s, lay, z, part, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The slot-row adjoint's tables (fields/lattice_kernels.py,
+// AdjointRowsTables), on the card.
+struct RowTables {
+  const int32_t* perm;
+  const int32_t* seg_off;
+  const int32_t* cell_row;
+  const int32_t* bricks;
+  int n_bricks;
+  const int32_t* group_seg;
+  const uint8_t* brick_occ;
+  const uint8_t* tile_live;
+};
+
+// Raise a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KB.
+template <typename F>
+static cudaError_t allow_smem(F* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <bool ROUND, int K>
+static int launch_adj_rows(const Av0Spec& s, const Av0AdjLayout& lay,
+                           const float* y, const RowTables& t, void* d0,
+                           float* part, const MutPtrs& o, cudaStream_t st) {
+  using D = D0Row<ROUND>;
+  if (t.n_bricks > 0) {
+    const size_t smem = adj_rows_smem(s.depth, K);
+    cudaError_t e = allow_smem(av0_adj_rows_bricks<ROUND, K>, smem);
+    if (e != cudaSuccess) return (int)e;
+    av0_adj_rows_bricks<ROUND, K><<<t.n_bricks, ADJ_THREADS, smem, st>>>(
+        s, lay, y, t.perm, t.seg_off, t.bricks, t.group_seg,
+        static_cast<D*>(d0), part);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  int tiles = 0;
+  for (int d = 0; d < s.depth; ++d)
+    tiles += ((s.dims[d][0] + 7) >> 3) * ((s.dims[d][1] + 7) >> 3) *
+             ((s.dims[d][2] + 7) >> 3);
+  av0_adj_rows_tiles<ROUND, K><<<tiles, ADJ_THREADS, 0, st>>>(
+      s, lay, static_cast<const D*>(d0), t.cell_row, t.brick_occ,
+      t.tile_live, part, o);
+  return (int)cudaGetLastError();
+}
+
+template <bool ROUND>
+static int adj_rows_k(const Av0Spec& s, const Av0AdjLayout& lay,
+                      const float* y, const RowTables& t, void* d0,
+                      float* part, const MutPtrs& o, cudaStream_t st) {
+  switch (s.k) {
+    case 1: return launch_adj_rows<ROUND, 1>(s, lay, y, t, d0, part, o, st);
+    case 2: return launch_adj_rows<ROUND, 2>(s, lay, y, t, d0, part, o, st);
+    case 4: return launch_adj_rows<ROUND, 4>(s, lay, y, t, d0, part, o, st);
+    case 8: return launch_adj_rows<ROUND, 8>(s, lay, y, t, d0, part, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -800,27 +1107,33 @@ int av0_cascade_adj(const Av0Spec* spec, const Av0AdjLayout* lay,
   for (int d = 0; d < spec->depth; ++d) o.p[d] = static_cast<float*>(out[d]);
   float* part = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowMap dense{nullptr, nullptr, 0, nullptr};
   if (in_bf16)
-    return adj_k<__nv_bfloat16, false, false>(*spec, *lay, z, dense, part, o,
-                                              st);
-  if (round_bf16)
-    return adj_k<float, true, false>(*spec, *lay, z, dense, part, o, st);
-  return adj_k<float, false, false>(*spec, *lay, z, dense, part, o, st);
+    return adj_k<__nv_bfloat16, false>(*spec, *lay, z, part, o, st);
+  if (round_bf16) return adj_k<float, true>(*spec, *lay, z, part, o, st);
+  return adj_k<float, false>(*spec, *lay, z, part, o, st);
 }
 
 // The slot-row adjoint: the adjoint of the dense buffer whose row of cell
-// c is rows[cell_row[c]] (zero where cell_row[c] == -1).  rows: (n_rows,
-// depth*8*k) f32, read in bf16 when round_bf16=1; cell_row: (cells_0,)
-// int32; bricks: the n_bricks 8^3 bricks (flat over the brick grid,
-// ceil(dims_0 / 8)) that hold a mapped cell; brick_occ: (bricks in the
-// grid,) uint8, 1 exactly at those.  scratch and out as above; stage 1
-// writes the partials of the listed bricks only, and stage 2 reads no
-// other.  Returns the first launch error, else 0.
+// c is the sum, in slot order from 0.0, of the rows y[i] of the kept
+// slots i at c, read in bf16 when round_bf16=1.  y: (slots, depth*8*k)
+// f32; the tables as fields/lattice_kernels.py, adjoint_rows_tables,
+// builds them (perm: kept slots brick-major; seg_off: each cell's slots
+// in perm; cell_row: (cells_0,) segment of a cell, -1 elsewhere; bricks:
+// the n_bricks occupied 8^3 bricks ascending, flat over the brick grid
+// ceil(dims_0 / 8); group_seg: (64 bricks in the grid + 1,) first
+// segment of each (brick, depth-1 group); brick_occ: uint8 over the brick
+// grid;
+// tile_live: uint8 per 8^3 coefficient tile, depth after depth).  d0:
+// (segments, 8k) scratch, bf16 when round_bf16=1 else f32; scratch: the
+// stage-1 partials at ``lay`` (only occupied bricks' are written and
+// read); out[d]: (n_d, k) f32, every element written.  Returns the first
+// launch error, else 0.
 int av0_cascade_adj_rows(const Av0Spec* spec, const Av0AdjLayout* lay,
-                         const float* rows, const int32_t* cell_row,
+                         const float* y, const int32_t* perm,
+                         const int32_t* seg_off, const int32_t* cell_row,
                          const int32_t* bricks, int n_bricks,
-                         const uint8_t* brick_occ, void* scratch,
+                         const int32_t* group_seg, const uint8_t* brick_occ,
+                         const uint8_t* tile_live, void* d0, void* scratch,
                          void* const* out, int round_bf16, void* stream) {
   if (!dims_ok(spec) || !layout_ok(spec, lay) || n_bricks < 0)
     return (int)cudaErrorInvalidValue;
@@ -828,10 +1141,11 @@ int av0_cascade_adj_rows(const Av0Spec* spec, const Av0AdjLayout* lay,
   for (int d = 0; d < spec->depth; ++d) o.p[d] = static_cast<float*>(out[d]);
   float* part = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowMap m{cell_row, bricks, n_bricks, brick_occ};
+  const RowTables t{perm,      seg_off,   cell_row, bricks, n_bricks,
+                    group_seg, brick_occ, tile_live};
   if (round_bf16)
-    return adj_k<float, true, true>(*spec, *lay, rows, m, part, o, st);
-  return adj_k<float, false, true>(*spec, *lay, rows, m, part, o, st);
+    return adj_rows_k<true>(*spec, *lay, y, t, d0, part, o, st);
+  return adj_rows_k<false>(*spec, *lay, y, t, d0, part, o, st);
 }
 
 }  // extern "C"

@@ -7,10 +7,10 @@ beside its plain PyTorch version.
 ``_kernel_adj`` plus its halo fold).  ``av0_adjoint_rows`` replaces the
 matvec's pair of the ordered scatter-add into the dense buffer
 (nksr_tpu/fields/lattice.py ``apply_AT``, ``z0.at[...].add``) and
-``av0_adjoint_cascade_pallas``: it reads the solve's slot rows and the
-order tables ``adjoint_rows_tables`` builds once per solve, sums each
-cell's rows in a fixed order (``ops/segment_sum.py``) and runs the
-adjoint's two stages over the occupied cells and bricks only.
+``av0_adjoint_cascade_pallas``: it reads the solve's slot rows in the
+brick-major order that ``adjoint_rows_tables`` builds once per solve,
+sums each cell's rows in slot order and folds them into the adjoint in
+two stages over the occupied bricks and the coefficient tiles they feed.
 ``av0_rows`` replaces the matvec's pair of ``av0_cascade_pallas`` and the
 sorted row gather (nksr_tpu/fields/lattice.py ``_take_rows_sorted``): it
 computes AV0's rows at given depth-0 cells only, straight from the
@@ -20,11 +20,12 @@ answers that.  In short: all of them only move data, so the forward is
 one coalesced write of AV0 with L2-served coefficient reads, the row
 kernel one coalesced write of the rows, and the adjoint reads its input
 once, coalesced, in two stages (8^3 bricks fold the ancestors of depths
->= 1 into partials, then one thread per coefficient sums its 8 corners),
-with no atomics and a fixed order of every f32 sum; the slot-row form
-runs the same stages over the occupied bricks, through a cell map.  It
-reads f32 in bf16 by rounding in registers, so the solve hands it f32
-sums with no cast.
+>= 1 into partials, then each coefficient sums its 8 corners), with no
+atomics and a fixed order of every f32 sum.  The slot-row form folds
+each cell's slot rows straight into its brick's partials and writes
++0.0 without reading anything where no occupied brick feeds a
+coefficient tile.  It reads f32 in bf16 by rounding in registers, so the
+solve hands it f32 sums with no cast.
 
 Semantics (per depth d, corner (i, j, l), lane group g = 8d + 4i + 2j + l):
 ``AV0[x, y, z, g*k + kk] = coeff_d[(x>>d)+i, (y>>d)+j, (z>>d)+l, kk]``
@@ -49,11 +50,11 @@ import ctypes
 import functools
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import cuda_build as CB
-from ..ops import segment_sum as SEG
 
 SOURCE = CB.CSRC / "av0_cascade.cu"
 _MAX_DEPTH = 8
@@ -91,8 +92,8 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.av0_cascade_adj_rows.restype = ctypes.c_int
     lib.av0_cascade_adj_rows.argtypes = [
-        ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout), p, p, p,
-        ctypes.c_int, p, p, p, ctypes.c_int, p]
+        ctypes.POINTER(_Av0Spec), ctypes.POINTER(_Av0AdjLayout), p, p, p, p,
+        p, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int, p]
     return lib
 
 
@@ -132,12 +133,22 @@ def adjoint_partials(spec) -> Tuple[Tuple[Tuple[Tuple[int, int, int], int],
 
 class AdjointRowsTables(NamedTuple):
     """Once-per-solve tables of ``av0_adjoint_rows`` for the solve's slot
-    cells (``order.index``, point slots then gradient slots)."""
-    order: SEG.SegmentOrder   # merge order of the slot rows by depth-0
-    #                           cell; order.targets: the distinct cells
-    cell_row: torch.Tensor    # (cells_0,) int32 compact row, -1 elsewhere
+    cells (``index``, point slots then gradient slots).  The kept slots
+    are ordered brick-major: by 8^3 brick, then by the cell's depth-1
+    group in its brick (4^3, row-major), then by the cell's child place
+    in that group (x, y, z bits), then by slot.  One segment a distinct
+    cell."""
+    index: torch.Tensor       # (R,) int64 slot cells, -1 where dropped
+    perm: torch.Tensor        # (R_kept,) int32 kept slots, brick-major
+    seg_off: torch.Tensor     # (S + 1,) int32: cell s is perm[o[s]:o[s+1]]
+    cells: torch.Tensor       # (S,) int64 the segments' depth-0 cells
+    cell_row: torch.Tensor    # (cells_0,) int32 segment of a cell, else -1
     bricks: torch.Tensor      # (B,) int32 8^3 bricks holding a slot cell
+    group_seg: torch.Tensor   # (64 bricks in the grid + 1,) int32 first
+    #                           segment of each (brick, depth-1 group)
     brick_occ: torch.Tensor   # (bricks in the grid,) uint8, 1 at ``bricks``
+    tile_live: torch.Tensor   # (tiles,) uint8 per depth, 8^3 coefficient
+    #                           tiles whose corners read an occupied brick
 
 
 def brick_grid(spec) -> Tuple[int, int, int]:
@@ -146,31 +157,114 @@ def brick_grid(spec) -> Tuple[int, int, int]:
                  for n in spec.dims[0])
 
 
+def tile_grids(spec) -> Tuple[Tuple[int, int, int], ...]:
+    """The 8^3 tiles of each depth's coefficient lattice a side: ceil(dims_d
+    / 8).  ``AdjointRowsTables.tile_live`` lists them depth after depth."""
+    return tuple(tuple((n + 7) >> 3 for n in spec.dims[d])
+                 for d in range(spec.depth))
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_boxes(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bricks under each 8^3 tile of each depth's coefficients
+    (``tile_live``'s order) as a box over the brick grid: the flat indices
+    of its 8 corners in the brick occupancy's prefix sums, padded by a
+    leading zero plane on each side, and their signs; on ``device``, built
+    once per spec and device.  Along a side, tile t's cells read the
+    depth-d ancestors [8t - 1, min(8t + 8, dims_d)), over the depth-0
+    cells [(8t - 1) 2^d, min(8t + 8, dims_d) 2^d) within the lattice, so
+    the bricks [lo, hi) that hold those cells."""
+    g = brick_grid(spec)
+    lo = [[] for _ in range(3)]
+    hi = [[] for _ in range(3)]
+    for d, tg in enumerate(tile_grids(spec)):
+        for a in range(3):
+            t = np.arange(tg[a])
+            first = (8 * t - 1) << d
+            end = np.minimum(np.minimum(8 * t + 8, spec.dims[d][a]) << d,
+                             spec.dims[0][a])
+            b_lo = np.clip(first // 8, 0, g[a])
+            b_hi = np.where(end > first, (end + 7) // 8, b_lo)
+            shape = [1, 1, 1]
+            shape[a] = -1
+            for out, v in ((lo[a], b_lo), (hi[a], b_hi)):
+                out.append(np.broadcast_to(v.reshape(shape), tg).ravel())
+    lo = [np.concatenate(v) for v in lo]
+    hi = [np.concatenate(v) for v in hi]
+    idx, sign = [], []
+    for corner in range(8):
+        ix = [(hi if corner >> (2 - a) & 1 else lo)[a] for a in range(3)]
+        idx.append(np.ravel_multi_index(ix, [n + 1 for n in g]))
+        sign.append((-1) ** (3 - bin(corner).count("1")))
+    return (torch.from_numpy(np.stack(idx)).to(device),
+            torch.tensor(sign, device=device)[:, None])
+
+
+def _tile_live(spec, occ: torch.Tensor) -> torch.Tensor:
+    """uint8 per 8^3 tile of each depth's coefficients (depth after depth,
+    z fastest): 1 where an occupied brick holds a depth-0 cell under an
+    ancestor that a corner of the tile's cells reads (a box sum over the
+    prefix sums of the brick occupancy ``occ``, (bricks a side) bool)."""
+    idx, sign = _tile_boxes(spec, occ.device)
+    c = F.pad(occ.int().cumsum(0).cumsum(1).cumsum(2), (1, 0, 1, 0, 1, 0))
+    return ((c.reshape(-1)[idx] * sign).sum(0) > 0).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _order_keys(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The brick-major sort key of a depth-0 cell (x, y, z), ((brick * 64
+    + depth-1 group in the brick) * 8 + child place in the group), as the
+    sum of a part of (x, y) and a part of z: (x0 * y0,) and (z0,) int32
+    on ``device`` (built once per spec and device)."""
+    x, y, z = (np.arange(n) for n in spec.dims[0])
+    _, gy, gz = brick_grid(spec)
+    kx = (x >> 3) * (gy * gz * 512) + (x & 7) // 2 * 128 + (x & 1) * 4
+    ky = (y >> 3) * (gz * 512) + (y & 7) // 2 * 32 + (y & 1) * 2
+    kz = (z >> 3) * 512 + (z & 7) // 2 * 8 + (z & 1)
+    kxy = (kx[:, None] + ky[None, :]).reshape(-1)
+    return (torch.from_numpy(kxy.astype(np.int32)).to(device),
+            torch.from_numpy(kz.astype(np.int32)).to(device))
+
+
 def adjoint_rows_tables(spec, slot_cells0: torch.Tensor
                         ) -> AdjointRowsTables:
-    """The order tables of ``av0_adjoint_rows`` for slot cells
-    ``slot_cells0`` (R,) in ``[0, cells_0)``, -1 for a slot whose row is
-    dropped: the stable merge order by cell, the distinct cells and
-    segment offsets (``segment_order``), the dense map from cell to
-    compact row and the occupied bricks.  Pure PyTorch on the cells'
-    device; built once per solve."""
+    """The tables of ``av0_adjoint_rows`` for slot cells ``slot_cells0``
+    (R,) in ``[0, cells_0)``, -1 for a slot whose row is dropped: the kept
+    slots in brick-major order (a stable sort, so each cell keeps its slot
+    order), the segment of each distinct cell, the map from cell to
+    segment, the occupied bricks, the first segment of each brick's 64
+    depth-1 groups, the brick occupancy and the live coefficient tiles.
+    Pure PyTorch on the cells' device; built once per solve."""
+    idx = slot_cells0.reshape(-1).long()
     n0 = spec.n_cells(0)
-    order = SEG.segment_order(slot_cells0, n0)
-    cells = order.targets
-    dev = cells.device
-    cell_row = torch.full((n0,), -1, dtype=torch.int32, device=dev)
-    cell_row[cells] = torch.arange(cells.numel(), dtype=torch.int32,
-                                   device=dev)
-    _, y0, z0 = spec.dims[0]
     gx, gy, gz = brick_grid(spec)
-    cz, cxy = cells % z0, cells // z0
-    cy, cx = cxy % y0, cxy // y0
-    sh = _BRICK_LEVELS
-    brick = ((cx >> sh) * gy + (cy >> sh)) * gz + (cz >> sh)
+    if max(idx.numel(), 512 * gx * gy * gz) >= 1 << 31:
+        raise ValueError(f"adjoint_rows_tables: {idx.numel()} slots or "
+                         f"{gx * gy * gz} bricks exceed int32 keys")
+    if idx.numel() and int(idx.max()) >= n0:
+        raise ValueError(f"adjoint_rows_tables: cell {int(idx.max())} "
+                         f"outside [0, {n0})")
+    dev = idx.device
+    kept = torch.nonzero(idx >= 0)[:, 0]
+    cells = idx[kept]
+    z0 = spec.dims[0][2]
+    kxy, kz = _order_keys(spec, dev)
+    key, order = torch.sort(kxy[cells // z0] + kz[cells % z0], stable=True)
+    seg_key, counts = torch.unique_consecutive(key, return_counts=True)
+    seg_off = F.pad(counts.cumsum(0), (1, 0))
+    seg_cells = cells[order[seg_off[:-1]]]
+    cell_row = torch.full((n0,), -1, dtype=torch.int32, device=dev)
+    cell_row[seg_cells] = torch.arange(seg_cells.numel(), dtype=torch.int32,
+                                       device=dev)
     brick_occ = torch.zeros(gx * gy * gz, dtype=torch.uint8, device=dev)
-    brick_occ[brick] = 1
-    bricks = torch.nonzero(brick_occ)[:, 0].to(torch.int32)
-    return AdjointRowsTables(order, cell_row, bricks, brick_occ)
+    brick_occ[seg_key >> 9] = 1
+    group_seg = torch.searchsorted(
+        seg_key >> 3, torch.arange(64 * gx * gy * gz + 1, dtype=torch.int32,
+                                   device=dev), out_int32=True)
+    return AdjointRowsTables(
+        idx, kept[order].to(torch.int32), seg_off.to(torch.int32), seg_cells,
+        cell_row, torch.nonzero(brick_occ)[:, 0].to(torch.int32), group_seg,
+        brick_occ, _tile_live(spec, brick_occ.view(gx, gy, gz).bool()))
 
 
 # ------------------------------------------------------------ plain versions
@@ -266,7 +360,9 @@ def av0_adjoint_rows_plain(spec, tables: AdjointRowsTables,
     lanes)).index_add_(0, cells, y)`` over the kept slots (each cell's
     rows summed in slot order from 0.0 on the CPU), then
     ``av0_adjoint_cascade_plain``."""
-    z0 = SEG.segment_sum_plain(y, tables.order)
+    keep = tables.index >= 0
+    z0 = y.new_zeros((spec.n_cells(0), spec.lanes)).index_add_(
+        0, tables.index[keep], y[keep])
     return av0_adjoint_cascade_plain(spec, z0, compute_dtype)
 
 
@@ -389,29 +485,39 @@ def av0_adjoint_rows(spec, tables: AdjointRowsTables, y: torch.Tensor,
     if y.device.type == "cpu":
         return av0_adjoint_rows_plain(spec, tables, y, compute_dtype)
     cs = _c_spec(spec)
-    r = tables.order.perm.shape[0]
+    r = tables.index.shape[0]
     CB.check_cuda(y, (r, spec.lanes), torch.float32, "av0_adjoint_rows y")
-    n0 = spec.n_cells(0)
-    CB.check_cuda(tables.cell_row, (n0,), torch.int32,
-                  "av0_adjoint_rows cell_row", align=4)
+    n_seg = tables.cells.shape[0]
+    n_bricks = tables.bricks.shape[0]
     gx, gy, gz = brick_grid(spec)
-    CB.check_cuda(tables.brick_occ, (gx * gy * gz,), torch.uint8,
-                  "av0_adjoint_rows brick_occ", align=1)
-    n_bricks = tables.bricks.shape[0] if tables.bricks.dim() else -1
-    CB.check_cuda(tables.bricks, (n_bricks,), torch.int32,
-                  "av0_adjoint_rows bricks", align=4)
-    rows = SEG.segment_sum(y, tables.order, compact=True)
+    n_grid = gx * gy * gz
+    n_tiles = sum(a * b * c for a, b, c in tile_grids(spec))
+    for name, t, shape, dt in (
+            ("perm", tables.perm, (tables.perm.shape[0],), torch.int32),
+            ("seg_off", tables.seg_off, (n_seg + 1,), torch.int32),
+            ("cell_row", tables.cell_row, (spec.n_cells(0),), torch.int32),
+            ("bricks", tables.bricks, (n_bricks,), torch.int32),
+            ("group_seg", tables.group_seg, (64 * n_grid + 1,),
+             torch.int32),
+            ("brick_occ", tables.brick_occ, (n_grid,), torch.uint8),
+            ("tile_live", tables.tile_live, (n_tiles,), torch.uint8)):
+        CB.check_cuda(t, shape, dt, f"av0_adjoint_rows {name}",
+                      align=dt.itemsize)
     lay, n_part = _adj_layout(spec)
     dev = y.device
     scratch = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
+    d0 = torch.empty((max(n_seg, 1), 8 * spec.k), dtype=compute_dtype,
+                     device=dev)
     outs = tuple(torch.empty((spec.n_cells(d), spec.k), dtype=torch.float32,
                              device=dev)
                  for d in range(spec.depth))
     ptrs = (ctypes.c_void_p * spec.depth)(*[o.data_ptr() for o in outs])
     rc = _lib().av0_cascade_adj_rows(
-        ctypes.byref(cs), ctypes.byref(lay), rows.data_ptr(),
+        ctypes.byref(cs), ctypes.byref(lay), y.data_ptr(),
+        tables.perm.data_ptr(), tables.seg_off.data_ptr(),
         tables.cell_row.data_ptr(), tables.bricks.data_ptr(), n_bricks,
-        tables.brick_occ.data_ptr(), scratch.data_ptr(), ptrs,
+        tables.group_seg.data_ptr(), tables.brick_occ.data_ptr(),
+        tables.tile_live.data_ptr(), d0.data_ptr(), scratch.data_ptr(), ptrs,
         int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     CB.raise_on(rc, "av0_cascade_adj_rows launch")

@@ -20,16 +20,22 @@ warm-up call)
              rows ``index_add_``-ed into it, the dense adjoint kernel
              reading it in bf16 (every tree);
   rows_bf16  ``av0_adjoint_rows`` in the solve's form, over the
-             solve's tables (pad slots dropped): the fixed-order segment
-             sum and the adjoint's stages over the occupied cells and
-             bricks (trees that have it);
+             solve's tables (pad slots dropped), all its kernels (trees
+             that have it);
   rows_f32   the same in the Jacobi diagonal's form (f32, no rounding);
   tables     ``adjoint_rows_tables``, built once a solve;
 
+and, under torch.profiler, the device milliseconds a call of each kernel
+that ``av0_adjoint_rows`` runs in the solve's form (``kernels_bf16``),
+
 and checks the slot-row adjoint, in both forms, equal to the dense
 kernel on the buffer CPU ``index_add_`` builds (bit for bit up to the
-sign of a zero).  It prints one JSON line.  Exits 2 without a CUDA
-device.
+sign of a zero).  It prints one JSON line a turn.  Exits 2 without a
+CUDA device.
+
+To time a parent commit against this tree, unpack it into a directory
+that .gitignore lists (``git archive <commit> | tar -x -C _archive/p``)
+and pass ``_archive/p . . _archive/p``.
 """
 
 from __future__ import annotations
@@ -57,6 +63,23 @@ def _ms(torch, fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end) / reps)
     return min(runs)
+
+
+def kernel_ms(torch, fn, reps: int = 10) -> dict:
+    """Device milliseconds a call of ``fn`` by kernel name, from
+    torch.profiler over ``reps`` calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:60]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0}
 
 
 def _turn(root: str, path: str) -> dict:
@@ -106,7 +129,12 @@ def _turn(root: str, path: str) -> dict:
                 spec, tab, y, torch.float32), 20),
             tables=_ms(torch, lambda: LK.adjoint_rows_tables(spec, kept),
                        3))
-        out["distinct_cells"] = tab.order.targets.numel()
+        out["kernels_bf16"] = kernel_ms(
+            torch, lambda: LK.av0_adjoint_rows(spec, tab, y, bf))
+        # the tables' distinct cells: ``cells`` since the brick-major
+        # tables, ``order.targets`` in the segment-sum form before them
+        out["distinct_cells"] = (tab.cells if hasattr(tab, "cells")
+                                 else tab.order.targets).numel()
         out["bricks"] = [tab.bricks.numel(), tab.brick_occ.numel()]
     return out
 

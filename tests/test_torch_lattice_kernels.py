@@ -20,6 +20,7 @@ from nksr_tpu.fields import lattice_pallas as JLP
 from nksr_tpu_torch import cuda_build as CB
 from nksr_tpu_torch.fields import lattice as LAT
 from nksr_tpu_torch.fields import lattice_kernels as LK
+from test_torch_cuda_kernels import ADJ_CASES, adjoint_case
 
 torch.set_num_threads(1)
 
@@ -344,53 +345,160 @@ def _plan_slot_cells():
     return plan.spec, plan, cells
 
 
+def _reckon_tables(spec, cells):
+    """The slot-row adjoint's tables reckoned in numpy from their
+    definition: the kept slots sorted by (8^3 brick, depth-1 group of 4^3
+    row-major in the brick, child place x, y, z bits, slot), one segment
+    per cell, the map from cell to segment, the occupied bricks, the
+    first segment of each (brick, group) of the brick grid counted from
+    the segments before it, and each depth's live 8^3 coefficient tiles:
+    those with an occupied brick under the ancestors their cells' corners
+    read, side by side."""
+    x0, y0, z0 = spec.dims[0]
+    g = [(n + 7) // 8 for n in spec.dims[0]]
+    kept = np.flatnonzero(cells >= 0)
+    x, y, z = np.unravel_index(cells[kept], (x0, y0, z0))
+    brick = np.ravel_multi_index((x // 8, y // 8, z // 8), g)
+    group = (x // 2 % 4 * 4 + y // 2 % 4) * 4 + z // 2 % 4
+    child = x % 2 * 4 + y % 2 * 2 + z % 2
+    order = np.lexsort((kept, child, group, brick))
+    perm = kept[order]
+    pc = cells[perm]
+    starts = np.flatnonzero(np.r_[True, pc[1:] != pc[:-1]][:len(pc)])
+    seg_cells = pc[starts]
+    cell_row = np.full(spec.n_cells(0), -1)
+    cell_row[seg_cells] = np.arange(len(starts))
+    sb, sg = brick[order][starts], group[order][starts]
+    bricks = np.unique(brick)
+    group_seg = [int(((sb < bk) | ((sb == bk) & (sg < a))).sum())
+                 for bk in range(np.prod(g)) for a in range(64)] \
+        + [len(starts)]
+    occ = np.zeros(g, bool)
+    occ.reshape(-1)[bricks] = True
+    live = []
+    for d in range(spec.depth):
+        tg = [(n + 7) // 8 for n in spec.dims[d]]
+        for t in np.ndindex(*tg):
+            side = []
+            for a in range(3):
+                anc = {v - i for v in range(8 * t[a], min(8 * t[a] + 8,
+                                                          spec.dims[d][a]))
+                       for i in (0, 1) if v - i >= 0}
+                side.append(sorted({p // 8 for v in anc for p in range(
+                    v << d, min((v + 1) << d, spec.dims[0][a]))}))
+            live.append(bool(occ[np.ix_(*side)].any()))
+    return dict(perm=perm, seg_off=np.r_[starts, len(perm)],
+                cells=seg_cells, cell_row=cell_row, bricks=bricks,
+                group_seg=np.array(group_seg),
+                brick_occ=occ.reshape(-1).astype(np.uint8),
+                tile_live=np.array(live, np.uint8))
+
+
+@pytest.mark.parametrize("case", ADJ_CASES)
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_adjoint_tables_match_numpy(depth, k, case):
+    """``adjoint_rows_tables`` on ragged specs (dims no multiple of 8,
+    each coarser lattice a cell past its last ancestor) and the cases
+    the card's tests run (heavy repeats, edge planes, dropped slots, one
+    occupied brick, no kept slot) equals the numpy reckoning of every
+    table."""
+    spec = _ragged_spec(depth, k)
+    cells = adjoint_case(spec, case)
+    tab = LK.adjoint_rows_tables(spec, torch.from_numpy(cells))
+    want = _reckon_tables(spec, cells)
+    np.testing.assert_array_equal(tab.index.numpy(), cells)
+    for name, ref in want.items():
+        np.testing.assert_array_equal(getattr(tab, name).numpy(), ref,
+                                      err_msg=name)
+    assert len(tab.tile_live) == sum(
+        a * b * c for a, b, c in LK.tile_grids(spec))
+
+
 def test_adjoint_tables_give_back_dense_z0():
-    """``adjoint_rows_tables`` on a real plan: the stable merge order of
-    the slot cells, the distinct cells with their segment offsets, the
-    cell map (compact row, -1 elsewhere) and the occupied 8^3 bricks.
-    Folding the slot rows along the merge order, each cell from 0.0 in
-    f32, and placing the sums at the distinct cells gives back the dense
-    buffer CPU ``index_add_`` builds, bit for bit; every nonzero row of
-    that buffer lies in an occupied brick."""
+    """``adjoint_rows_tables`` on a real plan, walked as the kernel's first
+    stage walks it: per occupied brick and depth-1 group, the group's
+    segments hold exactly its slot cells in child order, and folding each
+    segment's slot rows in order from 0.0 in f32 gives back the rows of
+    the dense buffer CPU ``index_add_`` builds, bit for bit; every
+    nonzero row of that buffer lies in an occupied brick; the tables
+    equal the numpy reckoning."""
     spec, plan, cells = _plan_slot_cells()
     n0 = spec.n_cells(0)
     tab = LK.adjoint_rows_tables(spec, torch.from_numpy(cells))
-    perm = tab.order.perm.numpy()
-    offs = tab.order.offsets.numpy()
-    np.testing.assert_array_equal(perm, np.argsort(cells, kind="stable"))
-    uniq = np.unique(cells)
-    assert len(uniq) < len(cells)          # repeats: pad and shared cells
-    np.testing.assert_array_equal(tab.order.targets.numpy(), uniq)
-    np.testing.assert_array_equal(np.diff(offs),
-                                  np.unique(cells, return_counts=True)[1])
-    cell_row = tab.cell_row.numpy()
-    np.testing.assert_array_equal(cell_row[uniq], np.arange(len(uniq)))
-    assert (np.delete(cell_row, uniq) == -1).all()
+    for name, ref in _reckon_tables(spec, cells).items():
+        np.testing.assert_array_equal(getattr(tab, name).numpy(), ref,
+                                      err_msg=name)
+    assert len(np.unique(cells)) < len(cells)  # repeats: pad, shared cells
+    perm, offs = tab.perm.numpy(), tab.seg_off.numpy()
+    gseg, seg_cells = tab.group_seg.numpy(), tab.cells.numpy()
     x0, y0, z0 = spec.dims[0]
     gx, gy, gz = LK.brick_grid(spec)
-    b = np.stack(np.unravel_index(uniq, (x0, y0, z0)), -1) >> 3
-    bricks = np.unique(np.ravel_multi_index(b.T, (gx, gy, gz)))
-    np.testing.assert_array_equal(tab.bricks.numpy(), bricks)
-    occ = np.zeros(gx * gy * gz, np.uint8)
-    occ[bricks] = 1
-    np.testing.assert_array_equal(tab.brick_occ.numpy(), occ)
+    slot_cells = set(cells)
 
     rng = np.random.default_rng(30)
     y = rng.standard_normal((len(cells), spec.lanes)).astype(np.float32)
     ref = torch.zeros((n0, spec.lanes)).index_add_(
         0, torch.from_numpy(cells.astype(np.int64)), torch.from_numpy(y))
     z = np.zeros((n0, spec.lanes), np.float32)
-    for s, c in enumerate(uniq):
-        acc = np.zeros(spec.lanes, np.float32)
-        for i in perm[offs[s]:offs[s + 1]]:
-            acc = acc + y[i]
-        z[c] = acc
+    for brick in tab.bricks.numpy():
+        bx, by, bz = np.unravel_index(brick, (gx, gy, gz))
+        for a in range(64):
+            ox, oy, oz = 8 * bx + 2 * (a >> 4), 8 * by + 2 * (a >> 2 & 3), \
+                8 * bz + 2 * (a & 3)
+            children = [(ox + (ch >> 2)) * y0 * z0 + (oy + (ch >> 1 & 1)) * z0
+                        + oz + (ch & 1) for ch in range(8)
+                        if ox + (ch >> 2) < x0 and oy + (ch >> 1 & 1) < y0
+                        and oz + (ch & 1) < z0]
+            segs = range(gseg[64 * brick + a], gseg[64 * brick + a + 1])
+            assert list(seg_cells[segs]) == [c for c in children
+                                             if c in slot_cells]
+            for s in segs:
+                acc = np.zeros(spec.lanes, np.float32)
+                for i in perm[offs[s]:offs[s + 1]]:
+                    acc = acc + y[i]
+                z[seg_cells[s]] = acc
     np.testing.assert_array_equal(z, ref.numpy())
     nz = np.flatnonzero(np.abs(z).sum(1))
     nb = np.ravel_multi_index(
         (np.stack(np.unravel_index(nz, (x0, y0, z0)), -1) >> 3).T,
         (gx, gy, gz))
-    assert occ[nb].all()
+    assert tab.brick_occ.numpy()[nb].all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ADJ_CASES)
+@pytest.mark.parametrize("depth,k", [(1, 8), (2, 1), (3, 2), (4, 4)])
+def test_adjoint_rows_plain_cases_are_the_dense_chain(depth, k, case, dtype):
+    """On the ragged cases, the plain slot-row adjoint driven by the tables
+    equals the dense chain (``index_add_`` of the kept rows into a zeroed
+    buffer, then ``av0_adjoint_cascade_plain``) bit for bit, and that
+    chain is +0.0 on every coefficient tile ``tile_live`` marks dead,
+    which the kernel writes without reading anything."""
+    spec = _ragged_spec(depth, k)
+    cells = adjoint_case(spec, case, seed=1)
+    rng = np.random.default_rng(32)
+    y = torch.from_numpy(rng.standard_normal(
+        (len(cells), spec.lanes)).astype(np.float32))
+    keep = torch.from_numpy(cells >= 0)
+    z0 = torch.zeros((spec.n_cells(0), spec.lanes)).index_add_(
+        0, torch.from_numpy(cells)[keep], y[keep])
+    ref = LK.av0_adjoint_cascade_plain(spec, z0, dtype)
+    tab = LK.adjoint_rows_tables(spec, torch.from_numpy(cells))
+    got = LK.av0_adjoint_rows_plain(spec, tab, y, dtype)
+    live = tab.tile_live.numpy().astype(bool)
+    for d, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r)
+        tg = LK.tile_grids(spec)[d]
+        n = int(np.prod(tg))
+        dims = spec.dims[d]
+        t = np.stack(np.unravel_index(np.arange(np.prod(dims)), dims), -1)
+        tile = np.ravel_multi_index((t >> 3).T, tg)
+        dead = ~live[:n][tile]
+        live = live[n:]
+        assert (r.numpy()[dead] == 0).all() and not torch.signbit(
+            r[torch.from_numpy(dead)]).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -449,7 +557,7 @@ def test_solve_goes_through_adjoint_rows(monkeypatch):
     calls, real = [], LK.av0_adjoint_rows
 
     def record(spec, tables, y, dtype):
-        dropped = tables.order.index < 0
+        dropped = tables.index < 0
         calls.append((dtype, int(dropped.sum()),
                       bool((y[dropped] == 0).all())))
         return real(spec, tables, y, dtype)
