@@ -14,7 +14,10 @@ Phases (any failure ends the run with a non-zero exit):
   2. hold each cascade, slot-row and window kernel against its plain
      PyTorch version on the card, at small sizes (the bisect's depth-2
      spec and the test's depth-3 spec) and at the size its route gives
-     it, and time both; the adjoint in its three input forms (an f32
+     it, and time both; the dense forward also equal to the slot rows of
+     every cell, and timed beside the write ceiling (a plain
+     ``empty_like(out).zero_()`` of its bytes, a yardstick the port never
+     calls); the adjoint in its three input forms (an f32
      buffer read in bf16, as the solve calls it and as it is timed; a
      bf16 buffer; an f32 buffer read in f32), each also bit-equal from
      call to call; the slot rows bit-equal to their plain version in f32
@@ -147,23 +150,33 @@ def av0_bounds(spec):
 
 def compare_kernels(LK, spec, gen, timed: bool):
     """Kernel vs plain version on the same random inputs.  Forward: exact
-    in f32 and bf16 (pure selection).  Adjoint: rtol 1e-5, atol 1e-5 of
-    the largest output (f32 sums in another order), in each of
+    in f32 and bf16 (pure selection), and equal to the slot-row kernel
+    over every depth-0 cell widened back to f32.  Adjoint: rtol 1e-5, atol
+    1e-5 of the largest output (f32 sums in another order), in each of
     ``ADJ_FORMS``, and two calls bit-equal.  Pair <fwd(x), z> = <x,
-    adj(z)> to 1e-5 relative.  Timed: the bf16 forward, the adjoint in
+    adj(z)> to 1e-5 relative.  Timed: the bf16 forward in turns with its
+    plain version and with the write ceiling (``empty_like(out).zero_()``
+    of the same bytes, a yardstick the port never calls), the adjoint in
     the solve's form (f32 buffer read in bf16) and on a bf16 buffer."""
     dev = "cuda"
     xs = [torch.randn((spec.n_cells(d), spec.k), device=dev, generator=gen)
           for d in range(spec.depth)]
     z = torch.randn((spec.n_cells(0), spec.lanes), device=dev, generator=gen)
     out = {"fwd_err": 0.0, "adj_err": 0.0}
+    every_cell = torch.arange(spec.n_cells(0), dtype=torch.int32, device=dev)
     for dt in (torch.float32, torch.bfloat16):
         got = LK.av0_cascade(spec, xs, dt)
         ref = LK.av0_cascade_plain(spec, xs, dt)
         if not torch.equal(got, ref):
             raise AssertionError(f"av0_cascade {dt} differs from plain: max "
                                  f"{(got.float() - ref.float()).abs().max()}")
-        del got, ref
+        del ref
+        if not torch.equal(got.float(), LK.av0_rows(spec, xs, every_cell,
+                                                    dt)):
+            raise AssertionError(f"av0_cascade {dt} differs from av0_rows "
+                                 "over every cell")
+        del got
+        torch.cuda.empty_cache()
     for zdt, cdt in ADJ_FORMS:
         zt = z.to(zdt)
         got = LK.av0_adjoint_cascade(spec, zt, cdt)
@@ -189,12 +202,18 @@ def compare_kernels(LK, spec, gen, timed: bool):
     out["pair_rel"] = abs(lhs - rhs) / abs(lhs)
     if timed:
         bf = torch.bfloat16
-        # plain, kernel, kernel, plain: each version timed in two turns
+        table = LK.av0_cascade(spec, xs, bf)
+        # plain, ceiling, kernel, kernel, ceiling, plain: each timed in
+        # two turns
         p1 = cuda_ms(lambda: LK.av0_cascade_plain(spec, xs, bf), 2)
+        w1 = cuda_ms(lambda: torch.empty_like(table).zero_(), 10)
         k1 = cuda_ms(lambda: LK.av0_cascade(spec, xs, bf), 10)
         k2 = cuda_ms(lambda: LK.av0_cascade(spec, xs, bf), 10)
+        w2 = cuda_ms(lambda: torch.empty_like(table).zero_(), 10)
         p2 = cuda_ms(lambda: LK.av0_cascade_plain(spec, xs, bf), 2)
+        del table
         out["fwd_ms"], out["fwd_plain_ms"] = min(k1, k2), min(p1, p2)
+        out["fwd_turns"], out["fwd_ceiling_ms"] = (k1, k2), min(w1, w2)
         p1 = cuda_ms(lambda: LK.av0_adjoint_cascade_plain(spec, z, bf), 2)
         k1 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, z, bf), 10)
         k2 = cuda_ms(lambda: LK.av0_adjoint_cascade(spec, z, bf), 10)
@@ -902,10 +921,14 @@ def main() -> int:
           f"{res['pair_rel']:.2e}", flush=True)
     print(f"[phase 2] adjoint on a bf16 buffer {res['adj_bf16_ms']:.3f} ms "
           f"(bound {ab16:.3f} ms)", flush=True)
-    print(f"[phase 2] bf16 forward {res['fwd_ms']:.3f} ms (plain "
-          f"{res['fwd_plain_ms']:.3f}, bound {fb:.3f}); adjoint on the "
-          f"solve's f32 buffer read in bf16 {res['adj_ms']:.3f} ms (plain "
-          f"{res['adj_plain_ms']:.3f}, bound {ab:.3f} by {aby})", flush=True)
+    print(f"[phase 2] bf16 forward {res['fwd_ms']:.4f} ms (turns "
+          f"{res['fwd_turns'][0]:.4f}, {res['fwd_turns'][1]:.4f}; bound "
+          f"{fb:.4f} by {fby}, {fb / res['fwd_ms']:.0%} of it; plain "
+          f"{res['fwd_plain_ms']:.3f}; write ceiling, empty_like(out)"
+          f".zero_() of the same bytes, {res['fwd_ceiling_ms']:.4f}); "
+          f"adjoint on the solve's f32 buffer read in bf16 "
+          f"{res['adj_ms']:.3f} ms (plain {res['adj_plain_ms']:.3f}, bound "
+          f"{ab:.3f} by {aby})", flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at the bench's size, two timed laps
@@ -1023,7 +1046,8 @@ def main() -> int:
          "replaces": "nksr_tpu/fields/lattice_pallas.py:189",
          "launches": splat_launches["fwd"], "max_abs_err": res["fwd_err"],
          "ms": res["fwd_ms"], "plain_ms": res["fwd_plain_ms"],
-         "bound_ms": fb, "bound_by": fby, "library_ms": None},
+         "bound_ms": fb, "bound_by": fby, "library_ms": None,
+         "write_ceiling_ms": res["fwd_ceiling_ms"]},
         {"name": "av0_rows", "route": "cuda",
          "source": "nksr_tpu_torch/csrc/av0_cascade.cu",
          "replaces": "nksr_tpu/fields/lattice_pallas.py:189 + "

@@ -1,7 +1,7 @@
 // AV0 cascade and its adjoint for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels in nksr_tpu/fields/lattice_pallas.py:
-//   av0_cascade_pallas          (_kernel_fwd)  -> av0_fwd_kernel
+//   av0_cascade_pallas          (_kernel_fwd)  -> av0_fwd_lines
 //   av0_cascade_pallas followed by the matvec's sorted row gather
 //     (nksr_tpu/fields/lattice.py _take_rows_sorted; the same function
 //     as its _row_blocks)                      -> av0_rows_kernel
@@ -30,11 +30,36 @@
 // f32 (4.42 GB at that plan; with the 0.17 GB coefficient write its
 // bound is 1.368 ms at 3.35 TB/s), read in bf16 by the matvec.
 //
-// Forward: one thread per (depth-0 cell, depth, corner), the depth from
-// blockIdx.y.  It reads one k-wide f32 coefficient row (one 16 B load at
-// k=4) and writes k values in the output type (one 8 B store in bf16);
-// the 8 corner threads of a cell write one contiguous 8k-lane block.
-// The evaluator's tables are its only caller.
+// Forward (av0_fwd_lines), the evaluator's table, its only caller.  It
+// is bound by its write: at the bench plan 2.209 GB of bf16 table and
+// 0.166 GB of coefficients read once, 0.709 ms at 3.35 TB/s; a plain
+// write of the table's bytes (empty_like(out).zero_()) takes 0.673 ms on
+// an H100.  The coefficient rows are read again and again (up to 8 * 8^d
+// cells read one), from L1 and L2.  Design: a CTA writes a run of one
+// z-line (x, y) of depth-0 cells, whose rows lie one after another in the
+// output, so x and y come from the block index and only z moves; a
+// thread writes one 16 B chunk of the row (two corners at k = 4 in bf16,
+// one in f32) for a quad of 4 cells one after another in z, so a warp
+// writes whole 128 B lines and a row is done by one warp, all its depths
+// at once.  A quad starts at a multiple of 4, so cell i's depth-d
+// ancestor along z is row (i >> d) past the quad's first: a thread loads
+// each coefficient row its quad reads once (at k = 4 in bf16 5, 3, 2, 2
+// rows of 16 B for depths 0 .. 3, against 8 corner reads), picks them
+// with constant register indices, and issues every load before its four
+// streaming stores.  Depth pointers and dims come from a shared copy of
+// the parameters; cells and coefficients are indexed in 64 bits.
+// Measured on an H100 80GB HBM3 at 700 W at the bench plan
+// (scripts/time_forward.py, trees that differ only here, in turns): bf16
+// 0.822 ms (86% of the bound, 82% of the plain write), f32 1.600 ms
+// (bound 1.368, plain write 1.346); at route A's plan (18.7M cells) bf16
+// 1.775 ms against a bound of 1.536 ms.  The first forward (a thread a
+// (cell, depth, corner), the depth in blockIdx.y, so each row's four
+// depth pieces came from four passes over the whole table) took 2.631
+// ms.  Tried: a 16 B chunk a thread for 4 cells a run-length apart,
+// each reading its corners' rows anew (1.029 ms: scattered 16 B loads,
+// twice the load instructions a chunk in bf16); a persistent grid-stride
+// loop over the lines (0.989 ms, 56 registers); plain stores in place of
+// the streaming ones (0.826 ms).
 //
 // Slot rows (av0_rows_kernel): the lattice matvec reads AV0 only at its
 // slot cells (2^20 rows at the bench plan, on 420k distinct cells: 4.9%
@@ -135,8 +160,8 @@
 //     first (av0_rows_kernel): a dynamic index spills the parameter struct
 //     to local memory in every thread, which cost 10x the write bound in
 //     the first forward.
-//   * cell indices are 32-bit (dims_ok checks every n_d * 8 < 2^31);
-//     element offsets are 64-bit.
+//   * cell indices are 32-bit outside the forward (dims_ok checks every
+//     n_d * 8 < 2^31); element offsets are 64-bit.
 //   * depth 0 staged in shared memory instead (a CTA walking x-planes of a
 //     16 x 16 (y, z) tile, each plane's depth-0 lanes loaded once) was 3%
 //     slower on an H100 than the gather above, whose neighbour rows L1
@@ -159,6 +184,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #define AV0_MAX_DEPTH 8
@@ -170,6 +196,9 @@
 #define ADJ_ROWS_CTAS 6     // stage-1 CTAs an SM holds (caps registers)
 #define ROWS_THREADS 128    // slot-row kernel: threads a block
 #define ROWS_ITEMS 2        // and items a thread
+#define FWD_THREADS 256     // dense forward: most threads a block
+#define FWD_QUAD 4          // and cells a thread, one after another in z
+#define FWD_MAX_LINES 65535 // and most depth-0 x or y (grid.z, grid.y)
 
 extern "C" {
 struct Av0Spec {
@@ -257,38 +286,6 @@ __device__ __forceinline__ void select_part(const Av0AdjLayout& lay, F* part,
   }
 }
 
-// grid (ceil(cells_0 * 8 / blockDim.x), depth): thread = (cell, corner)
-template <typename T, int K>
-__global__ void av0_fwd_kernel(Av0Spec s, ConstPtrs coeff, T* __restrict__ out,
-                               int cells0) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cell = t >> 3;
-  if (cell >= cells0) return;
-  const int c = t & 7;
-  const int d = blockIdx.y;
-  const float* src;
-  int xd, yd, zd;
-  select_depth(s, coeff, d, src, xd, yd, zd);
-  const int y0 = s.dims[0][1], z0 = s.dims[0][2];
-  const int z = cell % z0, xy = cell / z0;
-  const int y = xy % y0, x = xy / y0;
-  const int cx = (x >> d) + ((c >> 2) & 1), cy = (y >> d) + ((c >> 1) & 1),
-            cz = (z >> d) + (c & 1);
-  Vec<T, K> o;
-  if (cx < xd && cy < yd && cz < zd) {
-    const Vec<float, K> v = *reinterpret_cast<const Vec<float, K>*>(
-        src + (((int64_t)cx * yd + cy) * zd + cz) * K);
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) o.v[kk] = from_f32<T>(v.v[kk]);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) o.v[kk] = from_f32<T>(0.0f);
-  }
-  const int lanes = s.depth * 8 * K;
-  *reinterpret_cast<Vec<T, K>*>(out + (int64_t)cell * lanes + (d * 8 + c) * K) =
-      o;
-}
-
 // n / d for 0 <= n < 2^31 and 1 <= d < 2^31 with one multiply-high: the
 // magic number m and shift s are made on the host (fast_div).
 struct FastDiv {
@@ -334,6 +331,90 @@ __device__ __forceinline__ void store_row(float* p, const float (&v)[K]) {
     __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
   } else {
     __stcs(p, v[0]);
+  }
+}
+
+// grid (runs, y0, x0), block (chunks of a row, rows of the CTA): the CTA
+// writes the rows of the depth-0 cells z in [run * 4 * rows, min((run +
+// 1) * 4 * rows, z0)) of the line (x, y), which lie one after another in
+// the output; thread (r, t) writes 16 B chunk r of the rows of the
+// quad of cells z = run * 4 * rows + 4t + i, i < 4.  Chunk r lies in
+// depth d = r / CPD and holds NC neighbouring corners (W of the k values
+// of one corner where a chunk holds less than a corner: f32, k = 8), so
+// a thread's depth, corners and (x, y) ancestors are fixed.  A quad
+// starts at a multiple of 4, so cell i's depth-d ancestor along z is
+// row (i >> d) past the quad's first.
+template <typename T, int K>
+__global__ void __launch_bounds__(FWD_THREADS)
+    av0_fwd_lines(Av0Spec s, ConstPtrs coeff, T* __restrict__ out) {
+  constexpr int V = 16 / sizeof(T);       // values in a 16 B chunk
+  constexpr int CPD = 8 * K / V;          // chunks of one depth's 8k lanes
+  constexpr int NC = V >= K ? V / K : 1;  // corners a chunk holds
+  constexpr int W = V >= K ? K : V;       // values of each
+  constexpr int NL = NC >= 2 ? NC / 2 : 1;  // (x, y) ancestors they read
+  constexpr int HI = NC >= 2 ? 1 : 0;       // corners l = 0, 1 or one l
+  constexpr int NR = FWD_QUAD + HI;         // z rows a quad reads, at most
+  static_assert(FWD_QUAD == 4, "rows are picked for quads aligned to 4");
+  __shared__ DepthLattice lat[AV0_MAX_DEPTH];
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+#pragma unroll
+    for (int q = 0; q < AV0_MAX_DEPTH; ++q)
+      if (q < s.depth)
+        lat[q] = DepthLattice{coeff.p[q], s.dims[q][0], s.dims[q][1],
+                              s.dims[q][2]};
+  }
+  __syncthreads();
+  const int r = threadIdx.x, d = r / CPD, q = r % CPD;
+  const int x = blockIdx.z, y = blockIdx.y;
+  const int y0 = s.dims[0][1], z0 = s.dims[0][2];
+  const int z_first =
+      ((int)blockIdx.x * (int)blockDim.y + (int)threadIdx.y) * FWD_QUAD;
+  if (z_first >= z0) return;
+  const DepthLattice L = lat[d];
+  int c0, koff;
+  if constexpr (V >= K) {
+    c0 = q * NC, koff = 0;
+  } else {
+    c0 = q / (K / V), koff = q % (K / V) * V;
+  }
+  // rows j = 0 .. HI + (3 >> d) from row a0: cell i's corner l reads row
+  // (i >> d) + l; a chunk of one corner starts at its own l
+  const int a0 = (z_first >> d) + (NC >= 2 ? 0 : (c0 & 1));
+  float v[NL][NR][W];
+#pragma unroll
+  for (int p = 0; p < NL; ++p) {
+    const int c = c0 + 2 * p;
+    const int ax = (x >> d) + ((c >> 2) & 1), ay = (y >> d) + ((c >> 1) & 1);
+    const float* src = L.p + ((int64_t)ax * L.y + ay) * L.z * K + koff;
+    const bool in_xy = ax < L.x && ay < L.y;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) v[p][j][w] = 0.0f;
+      if (in_xy && j <= HI + (3 >> d) && a0 + j < L.z)
+        load_row<W>(src + (int64_t)(a0 + j) * K, v[p][j]);
+    }
+  }
+  const int64_t lanes = (int64_t)s.depth * 8 * K;
+  T* dst = out + (((int64_t)x * y0 + y) * z0 + z_first) * lanes + r * V;
+#pragma unroll
+  for (int i = 0; i < FWD_QUAD; ++i) {
+    if (z_first + i >= z0) break;
+    Vec<T, V> o;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int p = n / 2, l = n & HI;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        // row (i >> d) + l, with constant indices for d = 0, 1 and >= 2
+        const float e = d == 0   ? v[p][i + l][w]
+                        : d == 1 ? v[p][(i >> 1) + l][w]
+                                 : v[p][l][w];
+        o.v[n * W + w] = from_f32<T>(e);
+      }
+    }
+    __stcs(reinterpret_cast<float4*>(dst + i * lanes),
+           *reinterpret_cast<const float4*>(&o));
   }
 }
 
@@ -886,14 +967,21 @@ __global__ void __launch_bounds__(ADJ_THREADS)
   }
 }
 
+// The forward's CTA: a row's 16 B chunks by up to FWD_THREADS / chunks
+// quads of cells; each z-line's ceil(z0 / 4) quads split into the
+// fewest runs of that many, all of one length but the last.
 template <typename T, int K>
 static void launch_fwd(const Av0Spec& s, const ConstPtrs& c, void* out,
-                       int cells0, cudaStream_t st) {
-  const int threads = 256;
-  const dim3 grid((unsigned)(((int64_t)cells0 * 8 + threads - 1) / threads),
-                  (unsigned)s.depth);
-  av0_fwd_kernel<T, K><<<grid, threads, 0, st>>>(s, c, static_cast<T*>(out),
-                                                  cells0);
+                       cudaStream_t st) {
+  const int chunks = s.depth * 8 * K * (int)sizeof(T) / 16;
+  const int quads = (int)(((int64_t)s.dims[0][2] + FWD_QUAD - 1) / FWD_QUAD);
+  int rows = std::min(FWD_THREADS / chunks, quads);
+  const int runs = (quads + rows - 1) / rows;
+  rows = (quads + runs - 1) / runs;
+  const dim3 grid((unsigned)runs, (unsigned)s.dims[0][1],
+                  (unsigned)s.dims[0][0]);
+  av0_fwd_lines<T, K><<<grid, dim3(chunks, rows), 0, st>>>(
+      s, c, static_cast<T*>(out));
 }
 
 static FastDiv fast_div(uint32_t d) {
@@ -1031,6 +1119,17 @@ static bool dims_ok(const Av0Spec* spec) {
   return true;
 }
 
+// The forward indexes cells and coefficients in 64 bits; its grid takes
+// the depth-0 lines (x, y) as blockIdx.z and .y.
+static bool fwd_dims_ok(const Av0Spec* spec) {
+  if (spec->depth < 1 || spec->depth > AV0_MAX_DEPTH) return false;
+  for (int d = 0; d < spec->depth; ++d)
+    for (int a = 0; a < 3; ++a)
+      if (spec->dims[d][a] < 1) return false;
+  return spec->dims[0][0] <= FWD_MAX_LINES &&
+         spec->dims[0][1] <= FWD_MAX_LINES;
+}
+
 // The partial layout the kernels index by: the grids as stage 1 groups
 // the depth-0 cells, rows that do not overlap.
 static bool layout_ok(const Av0Spec* spec, const Av0AdjLayout* lay) {
@@ -1055,16 +1154,15 @@ extern "C" {
 // or bf16 (out_bf16=1).  Returns cudaGetLastError() after the launch.
 int av0_cascade_fwd(const Av0Spec* spec, const void* const* coeff, void* out,
                     int out_bf16, void* stream) {
-  if (!dims_ok(spec)) return (int)cudaErrorInvalidValue;
+  if (!fwd_dims_ok(spec)) return (int)cudaErrorInvalidValue;
   ConstPtrs c;
   for (int d = 0; d < spec->depth; ++d)
     c.p[d] = static_cast<const float*>(coeff[d]);
-  const int cells0 = spec->dims[0][0] * spec->dims[0][1] * spec->dims[0][2];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
-    AV0_DISPATCH_K(launch_fwd, __nv_bfloat16, *spec, c, out, cells0, st)
+    AV0_DISPATCH_K(launch_fwd, __nv_bfloat16, *spec, c, out, st)
   } else {
-    AV0_DISPATCH_K(launch_fwd, float, *spec, c, out, cells0, st)
+    AV0_DISPATCH_K(launch_fwd, float, *spec, c, out, st)
   }
   return (int)cudaGetLastError();
 }

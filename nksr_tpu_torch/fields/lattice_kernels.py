@@ -16,12 +16,13 @@ sorted row gather (nksr_tpu/fields/lattice.py ``_take_rows_sorted``): it
 computes AV0's rows at given depth-0 cells only, straight from the
 coefficient lattices.  The CUDA source is ``csrc/av0_cascade.cu``; its
 header says what bounds the kernels on the H100 and how their design
-answers that.  In short: all of them only move data, so the forward is
-one coalesced write of AV0 with L2-served coefficient reads, the row
-kernel one coalesced write of the rows, and the adjoint reads its input
-once, coalesced, in two stages (8^3 bricks fold the ancestors of depths
->= 1 into partials, then each coefficient sums its 8 corners), with no
-atomics and a fixed order of every f32 sum.  The slot-row form folds
+answers that.  In short: all of them only move data, so the forward
+writes AV0 in output order, a z-line of depth-0 cells a CTA and whole
+128 B lines a warp, with each coefficient row a thread's four cells read
+loaded once; the row kernel is one coalesced write of the rows; and the
+adjoint reads its input once, coalesced, in two stages (8^3 bricks fold
+the ancestors of depths >= 1 into partials, then each coefficient sums
+its 8 corners), with no atomics and a fixed order of every f32 sum.  The slot-row form folds
 each cell's slot rows straight into its brick's partials and writes
 +0.0 without reading anything where no occupied brick feeds a
 coefficient tile.  It reads f32 in bf16 by rounding in registers, so the
@@ -61,6 +62,9 @@ _MAX_DEPTH = 8
 # the adjoint's stage-1 brick is 2^3 depth-0 cells a side (ADJ_LEVELS)
 _BRICK_LEVELS = 3
 _CORNERS = tuple((i, j, l) for i in (0, 1) for j in (0, 1) for l in (0, 1))
+# the dense forward's grid takes the depth-0 x and y as its z and y
+# extents (FWD_MAX_LINES)
+_FWD_MAX_LINES = 65535
 
 
 class _Av0Spec(ctypes.Structure):
@@ -374,9 +378,13 @@ def av0_cascade(spec, xs: Sequence[torch.Tensor], dtype) -> torch.Tensor:
     if xs[0].device.type == "cpu":
         return av0_cascade_plain(spec, xs, dtype)
     cs = _c_spec(spec)
+    x0, y0, _ = spec.dims[0]
+    if max(x0, y0) > _FWD_MAX_LINES:
+        raise ValueError(f"av0_cascade: depth-0 dims {spec.dims[0]} exceed "
+                         f"the kernel's {_FWD_MAX_LINES} lines along x or y")
     for d in range(spec.depth):
         CB.check_cuda(xs[d], (spec.n_cells(d), spec.k), torch.float32,
-                    f"av0_cascade xs[{d}]")
+                      f"av0_cascade xs[{d}]")
     out = torch.empty((spec.n_cells(0), spec.lanes), dtype=dtype,
                       device=xs[0].device)
     ptrs = (ctypes.c_void_p * spec.depth)(*[x.data_ptr() for x in xs])

@@ -166,6 +166,61 @@ def test_adjoint_rejects_bad_input(gen):
         LK.av0_adjoint_cascade(spec, z[:, :-4], torch.bfloat16)
 
 
+def _forward_spec(depth, k, z0):
+    """Depth-0 dims (13, 7, z0), no multiple of 2^d, each coarser lattice
+    one cell past its last ancestor.  z0 = 5 is shorter than the rows of
+    one CTA (one run of a z-line); z0 = 67 splits a line into runs of
+    unequal length wherever a row is wider than 16 B (at depth 4 and
+    k = 4: 34 and 33 cells in bf16, 23, 23 and 21 in f32)."""
+    dims = tuple(tuple(((n + (1 << d) - 1) >> d) + (d > 0) for n in
+                       (13, 7, z0)) for d in range(depth))
+    return LAT.LatticeSpec(dims=dims, k=k, depth=depth, adaptive_depth=1,
+                           s_pt=8, p_rows=4, s_gr=8, n_pts_cap=8)
+
+
+@pytest.mark.parametrize("z0", [5, 67], ids=["short-line", "split-line"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_forward_ragged_specs(gen, depth, k, dtype, z0):
+    """The dense forward is bit-equal to its plain version (pure selection
+    and one rounding) and to the slot-row kernel over every depth-0 cell
+    widened back to f32; two calls are bit-equal and each counts one
+    launch."""
+    spec = _forward_spec(depth, k, z0)
+    xs = [torch.randn((spec.n_cells(d), spec.k), device="cuda",
+                      generator=gen) for d in range(depth)]
+    before = LK.av0_cascade.launches
+    got = LK.av0_cascade(spec, xs, dtype)
+    again = LK.av0_cascade(spec, xs, dtype)
+    torch.cuda.synchronize()
+    assert LK.av0_cascade.launches == before + 2
+    assert got.dtype == dtype and got.shape == (spec.n_cells(0), spec.lanes)
+    assert torch.equal(got, LK.av0_cascade_plain(spec, xs, dtype))
+    assert torch.equal(got, again)
+    cells = torch.arange(spec.n_cells(0), dtype=torch.int32, device="cuda")
+    assert torch.equal(got.float(), LK.av0_rows(spec, xs, cells, dtype))
+
+
+def test_forward_rejects_bad_input(gen):
+    """A coefficient lattice of the wrong shape, type or device and an
+    unsupported output dtype raise instead of falling back to the plain
+    version (lines past the kernel's grid: the CPU tests)."""
+    spec = _spec(3)
+    xs = [torch.zeros((spec.n_cells(d), spec.k), device="cuda")
+          for d in range(spec.depth)]
+    with pytest.raises(ValueError):
+        LK.av0_cascade(spec, xs[:-1] + [xs[-1][:-1]], torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_cascade(spec, xs[:-1] + [xs[-1].double()], torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        LK.av0_cascade(spec, [xs[0]] + [x.cpu() for x in xs[1:]],
+                       torch.bfloat16)
+    with pytest.raises(ValueError):
+        LK.av0_cascade(spec, xs, torch.float16)
+
+
 def _row_cells(spec, gen):
     """Random depth-0 cells, every cell on the last x, y and z planes and
     repeats of them, in a random (unsorted) order, as int32 on the card."""

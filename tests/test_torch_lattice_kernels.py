@@ -322,6 +322,18 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         LK.av0_adjoint_cascade(spec, z, torch.float32)
 
 
+def test_forward_rejects_lines_past_its_grid():
+    """Depth-0 lines past the dense forward's grid (more than 65535 along x
+    or y) raise with the limit in the message before a launch; a meta
+    tensor stands in for a CUDA tensor on this CUDA-less machine."""
+    for dims in (((70000, 2, 2),), ((2, 65536, 2),)):
+        spec = LAT.LatticeSpec(dims=dims, k=4, depth=1, adaptive_depth=1,
+                               s_pt=8, p_rows=4, s_gr=8, n_pts_cap=8)
+        xs = [torch.empty((spec.n_cells(0), spec.k), device="meta")]
+        with pytest.raises(ValueError, match="65535"):
+            LK.av0_cascade(spec, xs, torch.bfloat16)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """The kernels' build (nksr_tpu_torch/cuda_build.py) raises where
     there is no nvcc."""
