@@ -11,6 +11,9 @@ Phases (any failure ends the run with a non-zero exit):
      kernels and the cascade kernels at the TPU bisect's specs, each on
      its script's input and a random one) and hold each probe kernel
      against its plain version, both timed as device time in a CUDA graph;
+     and the launch floor, an empty kernel timed in a CUDA graph and by
+     CUDA events over back-to-back launches (``floor_ms`` of each record
+     in the kernels line, by the way that kernel is timed);
   2. hold each cascade, slot-row and window kernel against its plain
      PyTorch version on the card, at small sizes (the bisect's depth-2
      spec and the test's depth-3 spec) and at the size its route gives
@@ -61,8 +64,13 @@ Phases (any failure ends the run with a non-zero exit):
   6. the row-stage scatter microbenchmark at its study's shapes
      (``python -m nksr_tpu_torch.scripts.microbench_scatter``: S = 2^19
      rows into C0 = 5,326,848 cells at 32 and 128 lanes), which holds the
-     three sorted-scatter kernels against their plain versions and times
-     them beside PyTorch's index_add_, index_copy_ and index_select.
+     three sorted-scatter kernels against their plain versions (the rate
+     write bit for bit against CPU index_add_, both rate kernels
+     bit-equal from call to call) and times them beside PyTorch's
+     index_add_, index_copy_, index_select and embedding_bag; the rate
+     kernels at the study's shape (16,384 rows into 8,192 cells) and at
+     the row stage's (2^19 rows into 2^18 cells), as device time in one
+     CUDA graph and by CUDA events.
 Each path (the probe run, the three reconstructions, the microbenchmark)
 is driven with every launch count set to 0 just before it and read just
 after.
@@ -78,12 +86,13 @@ import os
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from nksr_tpu_torch.utils.profiling import bound_ms, graph_ms  # noqa: E402
 N_POINTS = 1_000_000
 KW = dict(detail_level=None, voxel_size=0.1, solver_tol=1e-4,
           solver_max_iters=16)
@@ -106,9 +115,6 @@ BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 ADJ_FORMS = ((torch.float32, torch.bfloat16),
              (torch.bfloat16, torch.bfloat16),
              (torch.float32, torch.float32))
-# H100 SXM data-sheet peaks: HBM bytes and f32 operations per millisecond
-HBM_B_PER_MS = 3.35e12 / 1e3
-F32_OP_PER_MS = 67e12 / 1e3
 
 
 def _height(x, y):
@@ -127,13 +133,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    """Least time for the work: bytes over HBM rate or f32 operations
-    over the f32 peak, whichever is larger; and which one bounds it."""
-    tb, to = n_bytes / HBM_B_PER_MS, n_ops / F32_OP_PER_MS
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def av0_bounds(spec):
@@ -582,31 +581,6 @@ def profile_solve(RC, recon, xyz, nrm):
     return [r[1:] for r in out]
 
 
-def graph_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``, the host's dispatch taken
-    out: ``reps`` calls captured in one CUDA graph, one replay timed with
-    CUDA events after a warm-up replay.  For kernels of a few microseconds,
-    where ``cuda_ms`` would read the host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with warnings.catch_warnings():
-        # the plain version of a reshape or a slice is a view: no device
-        # work, so its graph is empty
-        warnings.filterwarnings("ignore", message=".*CUDA Graph is empty")
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare_probes(P, seed: int):
     """Each probe kernel against its plain version on a random input:
     exact, except the two f32 sums (rtol 1e-5, atol 1e-5 of the largest
@@ -746,7 +720,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from nksr_tpu_torch import PipelineConfig, Reconstructor
     from nksr_tpu_torch import cuda_build as CB
     from nksr_tpu_torch.fields import lattice as LAT
@@ -807,6 +780,15 @@ def main() -> int:
                              f"{probe_launches}")
     probe_cmp = compare_probes(P, seed=1)
     probe_err = {r["name"]: r["max_abs_err"] for r in probe_res}
+    # the launch floor: an empty kernel timed as the kernels beside it are
+    # (the probes and the rate kernels in one CUDA graph, the rest by
+    # CUDA events over back-to-back launches)
+    floor_graph = graph_ms(lambda: P.launch_floor("cuda"), 100)
+    floor_events = cuda_ms(lambda: P.launch_floor("cuda"), 20)
+    print(f"[phase 1] launch floor (an empty kernel): "
+          f"{floor_graph * 1e3:.2f} us a launch in one CUDA graph of 100, "
+          f"{floor_events * 1e3:.2f} us by CUDA events over 20 "
+          "back-to-back launches", flush=True)
     print(f"[phase 1] {len(P.PROBES)} probe kernels against their plain "
           "versions: " + ", ".join(f"{k} {v['ms'] * 1e3:.1f} us"
                                    for k, v in probe_cmp.items())
@@ -1090,8 +1072,13 @@ def main() -> int:
          "bound_ms": win["bound"][0], "bound_by": win["bound"][1],
          "library_ms": None},
     ]
-    # the scatter kernels at w = 32 and unique indices (the study's width;
-    # phase 6 prints w = 128 too); max_abs_err over every check of the run
+    for rec in kernels:     # each timed by CUDA events
+        rec["floor_ms"] = floor_events
+    # the scatter kernels at w = 32 (the study's width; phase 6 prints
+    # w = 128 too): the blocked one on unique indices, by CUDA events; the
+    # rate kernels at the study's shape, as device time in one CUDA graph
+    # (their events figures and their row stage's records beside it);
+    # max_abs_err over every check of the run
     for fn, body in zip(scatter_counters, (":69", ":78", ":129")):
         rec = bench_res[fn.__name__]
         kb, kby = bound_ms(rec["bytes"], rec["ops"])
@@ -1101,7 +1088,11 @@ def main() -> int:
              "replaces": "scripts/microbench_scatter.py" + body,
              "launches": fn.launches, "max_abs_err": rec["max_abs_err"],
              "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": kb,
-             "bound_by": kby, "library_ms": rec["library_ms"]})
+             "bound_by": kby, "library_ms": rec["library_ms"],
+             "floor_ms": rec["floor_ms"],
+             **{k: rec[k] for k in ("events_ms", "plain_events_ms",
+                                    "library_events_ms", "row_stage")
+                if k in rec}})
     for p in P.PROBES:
         rec = probe_cmp[p.key]
         kernels.append(
@@ -1111,7 +1102,7 @@ def main() -> int:
              "max_abs_err": max(rec["err"], probe_err[p.name]),
              "ms": rec["ms"], "plain_ms": rec["plain_ms"],
              "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
-             "library_ms": None})
+             "library_ms": None, "floor_ms": floor_graph})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

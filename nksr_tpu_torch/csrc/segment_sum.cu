@@ -42,24 +42,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_ops.cuh"
+
 #define SEG_THREADS 256
 #define SEG_UNROLL 4
-
-// One column group of a row: a float, or a float4 (16 B).
-__device__ __forceinline__ void add_to(float& a, float v) { a += v; }
-__device__ __forceinline__ void add_to(float4& a, float4 v) {
-  a.x += v.x, a.y += v.y, a.z += v.z, a.w += v.w;
-}
-template <typename V>
-__device__ __forceinline__ V zero_of();
-template <>
-__device__ __forceinline__ float zero_of<float>() {
-  return 0.0f;
-}
-template <>
-__device__ __forceinline__ float4 zero_of<float4>() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
 
 // grid ceil(n_seg * nv / SEG_THREADS): item t = (segment t / nv, column
 // group t % nv), a group being one V of columns.

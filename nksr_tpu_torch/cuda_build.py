@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into
 its own plain-C shared library ``_build/lib<name>.so``, loaded with
 ctypes.  ``build_kernels`` starts one ``nvcc`` per source, all at once.
 ``library(name)`` builds at first use, and rebuilds every library when
-any of them is missing or older than its source; nothing is compiled
+any of them is missing or older than its source or a shared
+``csrc/*.cuh`` header; nothing is compiled
 when a module is imported.  Each library is written under a temporary
 name and renamed into place, so concurrent builders never load a
 half-written file.
@@ -82,9 +83,12 @@ def build_kernels() -> Dict[str, Tuple[Path, float, str]]:
 
 
 def _stale() -> bool:
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                  default=0.0)
     for src in sources():
         lib = library_path(src)
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        if not lib.exists() or lib.stat().st_mtime < max(
+                src.stat().st_mtime, headers):
             return True
     return False
 

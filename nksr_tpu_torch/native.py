@@ -115,10 +115,11 @@ def sort_unique(keys: np.ndarray) -> np.ndarray:
 
 
 def _searchsorted_join(keys: np.ndarray, q: np.ndarray) -> np.ndarray:
+    if len(keys) == 0:      # nothing to find (and no keys[pos] to read)
+        return np.full(q.shape[0], -1, np.int32)
     pos = np.searchsorted(keys, q)
-    pos_c = np.minimum(pos, max(len(keys) - 1, 0))
-    found = (len(keys) > 0) & (keys[pos_c] == q)
-    return np.where(found, pos_c, -1).astype(np.int32)
+    pos_c = np.minimum(pos, len(keys) - 1)
+    return np.where(keys[pos_c] == q, pos_c, -1).astype(np.int32)
 
 
 def sorted_join(sorted_keys: np.ndarray,

@@ -13,8 +13,9 @@ call the cascade kernels themselves; their counterparts are
 
 Each ``Probe`` is called like a function.  Dispatch: CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise.  Each probe counts
-its kernel launches in ``.launches``.  The kernels are built at first use
-(``cuda_build.py``); nothing is compiled at import.
+its kernel launches in ``.launches``.  ``launch_floor`` launches an empty
+kernel, the yardstick of what one launch costs.  The kernels are built
+at first use (``cuda_build.py``); nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -37,7 +38,20 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"probe_{p.key}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4
+    lib.launch_floor.restype = ctypes.c_int
+    lib.launch_floor.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch ``csrc/probes.cu``'s empty kernel on ``device``'s current
+    stream: the launch floor, timed beside every kernel as that kernel is
+    timed.  It computes nothing, so on the CPU there is nothing to do."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return
+    rc = _lib().launch_floor(torch.cuda.current_stream(device).cuda_stream)
+    CB.raise_on(rc, "launch_floor launch")
 
 
 @dataclass(eq=False)

@@ -6,25 +6,38 @@ JAX package's study of the lattice CG adjoint's row stage (rows of ``w``
 f32 lanes added into a dense per-cell table at sorted cell indices, as
 ``fields/lattice.py``'s ``apply_AT`` does into ``z0``):
 
-- ``scatter_rate_write`` <- ``pallas_rate("write")``: one CTA's per-row
-  update rate into a (bc, w) table;
-- ``scatter_rate_read`` <- ``pallas_rate("read")``: one CTA's row-gather
-  sum rate;
+- ``scatter_rate_write`` <- ``pallas_rate("write")``: the sorted row
+  update into a (bc, w) table, ``zeros.index_add_(0, idx, y)``;
+- ``scatter_rate_read`` <- ``pallas_rate("read")``: the row-gather sum
+  ``y[idx].sum(0)``;
 - ``blocked_sorted_scatter`` <- ``pallas_blocked``: the full scatter, one
   CTA per block of ``bc`` cells, with the host-built slot CSR of
   ``block_starts``.
 
-The CUDA source is ``csrc/sorted_scatter.cu``; its header says what bounds
-each kernel and how the design answers that.  Dispatch: a CPU tensor goes
-to the plain version; a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its kernel launches in ``.launches``.  The kernels are built
-at first use (``cuda_build.py``); nothing is compiled at import.
+The TPU study ran both rate kernels on ``grid=(1,)`` on one TPU v5e chip,
+whose single TensorCore that grid filled: the whole chip, timed per row.
+Their kernels here use the whole card in the same way.
+``scatter_rate_write`` is a grid over tiles of cells
+(``rate_write_tiles``), each CTA finding its rows in the sorted indices
+and summing each cell's rows in row order, so it equals CPU
+``index_add_`` bit for bit.  ``scatter_rate_read`` takes fixed slices of
+the indices (``rate_read_slices``), a partial row each, folded in a
+fixed order by a second launch, so two calls are bit-equal.
+Bytes bound both, and at the study's shape one launch costs more than
+its bound.  The CUDA source is ``csrc/sorted_scatter.cu``; its header
+says what bounds each kernel and how the design answers that.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
+the kernel or raises.  Each wrapper counts its calls that launch in
+``.launches``.  The kernels are built at first use (``cuda_build.py``);
+nothing is compiled at import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -36,6 +49,45 @@ MAX_TILE_BYTES = 232448
 # the tile of blocked_sorted_scatter on the card: 64 KiB, so three CTAs
 # share an SM and one's zeroing overlaps another's adds and stores
 CARD_TILE_BYTES = 65536
+
+
+# threads a CTA of the rate kernels and cells a CTA of the write at most
+# (RATE_THREADS, RATE_MAX_CELLS in csrc/sorted_scatter.cu)
+RATE_THREADS = 256
+RATE_MAX_CELLS = 2048
+# the write's grid: one (cell, column group) a thread up to this many CTAs,
+# then more a thread
+WRITE_CTAS = 1024
+# scatter_rate_read's slices: at least this many indices a CTA, and at
+# most this many CTAs (the partial rows its second launch folds)
+READ_MIN_ROWS = 128
+READ_MAX_CTAS = 512
+
+
+def column_groups(w: int, vec4: bool) -> int:
+    """Column groups of a row of ``w`` f32 lanes: float4s, or floats."""
+    return w // 4 if vec4 else w
+
+
+def rate_write_tiles(bc: int, nv: int) -> Tuple[int, int]:
+    """(cells a CTA, CTAs) of ``scatter_rate_write`` on a (bc, w) table
+    whose rows are ``nv`` column groups: as many cells as give each of
+    RATE_THREADS threads one (cell, column group), at least one cell, or
+    a multiple of that where the grid would pass WRITE_CTAS, up to
+    RATE_MAX_CELLS; CTA k owns cells [k * cells, min((k + 1) * cells,
+    bc))."""
+    base = max(1, RATE_THREADS // nv)
+    k = max(1, -(-bc // (base * WRITE_CTAS)))
+    cells = min(base * k, max(base, RATE_MAX_CELLS // base * base))
+    return cells, -(-bc // cells)
+
+
+def rate_read_slices(n: int) -> Tuple[int, int]:
+    """(indices a CTA, CTAs) of ``scatter_rate_read`` over ``n`` indices:
+    CTA s sums indices [s * rows, min((s + 1) * rows, n)); one CTA when
+    n = 0."""
+    rows = max(READ_MIN_ROWS, -(-n // READ_MAX_CTAS))
+    return rows, max(1, -(-n // rows))
 
 
 def card_block_cells(w: int) -> int:
@@ -79,8 +131,10 @@ def blocked_sorted_scatter_plain(y: torch.Tensor, idx: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = CB.library("sorted_scatter")
     i32, i64, p = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
-    lib.scatter_rate_write.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.scatter_rate_read.argtypes = [p, p, p, i64, i64, i32, p]
+    lib.scatter_rate_write.argtypes = [p, p, p, i64, i32, i32, i32,
+                                       ctypes.c_int, p]
+    lib.scatter_rate_read.argtypes = [p, p, p, p, i64, i64, i32, i64, i64,
+                                      ctypes.c_int, p]
     lib.blocked_sorted_scatter.argtypes = [p, p, p, p, i64, i32, i32, p]
     for fn in (lib.scatter_rate_write, lib.scatter_rate_read,
                lib.blocked_sorted_scatter):
@@ -104,19 +158,28 @@ def _check_rows(idx: torch.Tensor, y: torch.Tensor, name: str,
     CB.check_cuda(y, y.shape, torch.float32, f"{name} y", align=4)
 
 
+def _vec4(y: torch.Tensor) -> bool:
+    """float4 column groups: rows a multiple of 4 lanes, 16 B aligned."""
+    return y.shape[1] % 4 == 0 and y.data_ptr() % 16 == 0
+
+
 def scatter_rate_write(idx: torch.Tensor, y: torch.Tensor,
                        bc: int) -> torch.Tensor:
     """(bc, w) f32 = zeros((bc, w)).index_add_(0, idx, y) for ``idx``
-    (n,) int32 sorted in [0, bc) and ``y`` (n, w) f32; one CTA, rows in
-    order."""
+    (n,) int32 sorted in [0, bc) and ``y`` (n, w) f32; on the card bit for
+    bit CPU ``index_add_``, rows with an index outside [0, bc) dropped."""
     if y.device.type == "cpu":
         return scatter_rate_write_plain(idx, y, bc)
     _check_rows(idx, y, "scatter_rate_write", same_rows=True)
-    out = torch.empty((bc, y.shape[1]), dtype=torch.float32,
-                      device=y.device)
+    w = y.shape[1]
+    out = torch.empty((bc, w), dtype=torch.float32, device=y.device)
+    if bc == 0 or w == 0:
+        return out
+    vec4 = _vec4(y)
+    cells, _ = rate_write_tiles(bc, column_groups(w, vec4))
     rc = _lib().scatter_rate_write(idx.data_ptr(), y.data_ptr(),
-                                   out.data_ptr(), y.shape[0], bc,
-                                   y.shape[1], _stream(y))
+                                   out.data_ptr(), y.shape[0], bc, w, cells,
+                                   int(vec4), _stream(y))
     CB.raise_on(rc, "scatter_rate_write launch")
     scatter_rate_write.launches += 1
     return out
@@ -126,15 +189,22 @@ scatter_rate_write.launches = 0
 
 
 def scatter_rate_read(idx: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(1, w) f32 = y[idx].sum(0): the one row the TPU kernel writes; one
-    CTA, summed in row order."""
+    """(1, w) f32 = y[idx].sum(0): the one row the TPU kernel writes; on
+    the card an index outside [0, len(y)) is dropped, and the sum's order
+    is fixed by len(idx) and w."""
     if y.device.type == "cpu":
         return scatter_rate_read_plain(idx, y)
     _check_rows(idx, y, "scatter_rate_read", same_rows=False)
-    out = torch.empty((1, y.shape[1]), dtype=torch.float32, device=y.device)
+    w = y.shape[1]
+    out = torch.empty((1, w), dtype=torch.float32, device=y.device)
+    if w == 0:
+        return out
+    rows, ctas = rate_read_slices(idx.shape[0])
+    partials = torch.empty((ctas, w), dtype=torch.float32, device=y.device)
     rc = _lib().scatter_rate_read(idx.data_ptr(), y.data_ptr(),
-                                  out.data_ptr(), idx.shape[0], y.shape[0],
-                                  y.shape[1], _stream(y))
+                                  partials.data_ptr(), out.data_ptr(),
+                                  idx.shape[0], y.shape[0], w, rows, ctas,
+                                  int(_vec4(y)), _stream(y))
     CB.raise_on(rc, "scatter_rate_read launch")
     scatter_rate_read.launches += 1
     return out

@@ -365,6 +365,108 @@ def test_scatter_kernels_reject_bad_input(gen):
                                   idx, starts, 16, 1024)
 
 
+RATE_CASES = ["empty", "one-cell", "empty-ends", "ragged-bc", "study",
+              "many-cells", "unaligned"]
+
+
+def _rate_case(case: str, w: int):
+    """(idx sorted int32, y (n, w) f32, bc) on the CPU: no rows; every row
+    in one cell; empty first and last cells; bc not a multiple of any
+    CTA's tile of cells; the study's cap 16384 rows into 8192 cells; a
+    table large enough that a thread of the write owns several cells;
+    and (with ``_on_card``) rows that are not 16 B aligned."""
+    rng = np.random.default_rng(len(case) * 1000 + w)
+    bc, n = {"empty": (100, 0), "one-cell": (100, 5000),
+             "empty-ends": (1000, 3000), "ragged-bc": (8192 + 13, 16384),
+             "study": (8192, 16384), "many-cells": (300_001, 100_000),
+             "unaligned": (2053, 4000)}[case]
+    lo, hi = (10, bc - 10) if case == "empty-ends" else (0, bc)
+    idx = np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+    if case == "one-cell":
+        idx[:] = 37
+    return (torch.from_numpy(idx),
+            torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32)),
+            bc)
+
+
+def _on_card(y: torch.Tensor, case: str) -> torch.Tensor:
+    """y on the card; for the "unaligned" case 4 B past a 16 B boundary."""
+    if case != "unaligned":
+        return y.cuda()
+    buf = torch.empty(y.numel() + 1, device="cuda")
+    out = buf[1:].view(y.shape)
+    out.copy_(y)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("w", [4, 32, 128, 6])
+@pytest.mark.parametrize("case", RATE_CASES)
+def test_rate_write_equals_cpu_index_add(gen, case, w):
+    """Bit for bit CPU ``index_add_`` (rows added in row order from 0.0);
+    two calls bit-equal; one launch counted a call."""
+    idx, y, bc = _rate_case(case, w)
+    ref = torch.zeros((bc, w)).index_add_(0, idx.long(), y)
+    ji, yc = idx.cuda(), _on_card(y, case)
+    before = SS.scatter_rate_write.launches
+    got = SS.scatter_rate_write(ji, yc, bc)
+    again = SS.scatter_rate_write(ji, yc, bc)
+    torch.cuda.synchronize()
+    assert SS.scatter_rate_write.launches == before + 2
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("w", [4, 32, 128, 6])
+@pytest.mark.parametrize("case", RATE_CASES)
+def test_rate_read_matches_plain(gen, case, w):
+    """Against y[idx].sum(0) on the CPU: rtol 1e-5 and atol 1e-5 of the
+    largest output (f32 sums in another order); two calls bit-equal; one
+    launch counted a call."""
+    idx, y, bc = _rate_case(case, w)
+    if bc > len(y):     # a row of y for every cell an index can name
+        y = torch.cat([y, torch.from_numpy(np.random.default_rng(w)
+                                           .standard_normal((bc - len(y), w))
+                                           .astype(np.float32))])
+    ref = SS.scatter_rate_read_plain(idx, y)
+    ji, yc = idx.cuda(), _on_card(y, case)
+    before = SS.scatter_rate_read.launches
+    got = SS.scatter_rate_read(ji, yc)
+    again = SS.scatter_rate_read(ji, yc)
+    torch.cuda.synchronize()
+    assert SS.scatter_rate_read.launches == before + 2
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("w", [32, 6])
+def test_rate_kernels_drop_indices_outside_the_table(gen, w):
+    """Sorted indices with a few below 0 and past the table (CPU
+    ``index_add_`` and ``index_select`` raise on them): the kernels give
+    the CPU results of the in-range rows alone, the write bit for bit."""
+    rng = np.random.default_rng(w)
+    bc = 3000
+    idx = np.sort(np.concatenate([[-7, -1, -1], rng.integers(0, bc, 5000),
+                                  [bc, bc, bc + 9]])).astype(np.int32)
+    y = torch.from_numpy(rng.standard_normal((len(idx), w)).astype(
+        np.float32))
+    keep = torch.from_numpy((idx >= 0) & (idx < bc))
+    ti = torch.from_numpy(idx)
+    ref = torch.zeros((bc, w)).index_add_(0, ti[keep].long(), y[keep])
+    out = SS.scatter_rate_write(ti.cuda(), y.cuda(), bc)
+    assert torch.equal(out.cpu(), ref)
+    m = 4000                                   # rows of y for the read
+    ri = np.sort(np.concatenate([[-3, -1], rng.integers(0, m, 6000),
+                                 [m, m + 5]])).astype(np.int32)
+    ry = torch.from_numpy(rng.standard_normal((m, w)).astype(np.float32))
+    rk = torch.from_numpy((ri >= 0) & (ri < m))
+    rref = SS.scatter_rate_read_plain(torch.from_numpy(ri)[rk], ry)
+    got = SS.scatter_rate_read(torch.from_numpy(ri).cuda(), ry.cuda())
+    torch.testing.assert_close(got.cpu(), rref, rtol=1e-5,
+                               atol=1e-5 * float(rref.abs().max()))
+
+
 @pytest.mark.parametrize("key", [p.key for p in P.PROBES])
 def test_probe_kernel_matches_plain(gen, key):
     """Each probe kernel on its script's input and a random one, against

@@ -86,3 +86,34 @@ def test_port_imports_with_the_jax_package_blocked():
         "import chip_smoke\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    timeout=300)
+
+
+# (keys, queries) with empty keys; the second is the JAX package's
+# test_stencil_join_empty
+EMPTY_KEY_CASES = [(np.empty(0, np.int64), np.empty(0, np.int64)),
+                   (np.empty(0, np.int64), np.array([5], np.int64)),
+                   (np.empty(0, np.int64), np.array([-3, 0, 7, 7, 1 << 40],
+                                                    np.int64))]
+
+
+@pytest.mark.parametrize("keys,q", EMPTY_KEY_CASES,
+                         ids=["no-queries", "one-query", "five-queries"])
+def test_numpy_joins_on_empty_keys_match_the_cpp_path(monkeypatch, keys, q):
+    """The numpy fallback of sorted_join, keysearch and stencil_join (with
+    and without cap) gives the C++ path's arrays on empty keys: all -1."""
+    assert native._load() is not None, "the C++ host library did not build"
+    deltas = np.array([0, 1], np.int64)
+
+    def joins():
+        return [native.sorted_join(keys, q), native.keysearch(keys, q),
+                native.stencil_join(keys, q, deltas),
+                native.stencil_join(keys, q, deltas, cap=4)]
+
+    cpp = joins()
+    monkeypatch.setattr(native, "_load", lambda: None)
+    fallback = joins()
+    for c, f in zip(cpp, fallback):
+        assert f.dtype == c.dtype == np.int32 and f.shape == c.shape
+        np.testing.assert_array_equal(f, c)
+        assert (f == -1).all()
+    assert fallback[2].shape == (len(q), 2)

@@ -234,3 +234,69 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         SS.scatter_rate_read(idx, y)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         SS.blocked_sorted_scatter(y, idx, starts, 1024, 128)
+
+
+def _assert_tiles(starts, ends, n):
+    """Slices [starts[k], ends[k]) cover [0, n) once each, in order, none
+    empty."""
+    if n == 0:
+        assert (ends == starts).all()
+        return
+    assert starts[0] == 0 and ends[-1] == n
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    assert (ends > starts).all()
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 16384, 131071, 1 << 19,
+                               3_000_001])
+def test_rate_read_slices_cover_every_index_once(n):
+    rows, ctas = SS.rate_read_slices(n)
+    assert ctas >= 1 and rows >= SS.READ_MIN_ROWS
+    assert ctas <= max(1, SS.READ_MAX_CTAS)
+    starts = np.arange(ctas, dtype=np.int64) * rows
+    _assert_tiles(starts, np.minimum(starts + rows, n), n)
+
+
+@pytest.mark.parametrize("w,vec4", [(4, True), (32, True), (128, True),
+                                    (32, False), (6, False), (4096, True)])
+@pytest.mark.parametrize("bc", [0, 1, 33, 8192, 8205, 1 << 18, 1 << 23])
+def test_rate_write_tiles_cover_every_cell_once(bc, w, vec4):
+    """A CTA's cells give each thread the same number of (cell, column
+    group) items, one where the grid stays within WRITE_CTAS, and fit the
+    kernel's RATE_MAX_CELLS; the tiles cover the table once."""
+    nv = SS.column_groups(w, vec4)
+    assert nv * (4 if vec4 else 1) == w
+    cells, ctas = SS.rate_write_tiles(bc, nv)
+    base = max(1, SS.RATE_THREADS // nv)
+    assert 1 <= cells <= SS.RATE_MAX_CELLS and cells % base == 0
+    # the fewest items a thread that keep the grid within WRITE_CTAS, or
+    # as many as RATE_MAX_CELLS allows
+    assert cells == base or -(-bc // (cells - base)) > SS.WRITE_CTAS
+    assert ctas <= SS.WRITE_CTAS or cells + base > SS.RATE_MAX_CELLS
+    starts = np.arange(ctas, dtype=np.int64) * cells
+    _assert_tiles(starts, np.minimum(starts + cells, bc), bc)
+
+
+def test_rate_grids_fill_the_card():
+    """Not one CTA: at cap 16384 rows into 8192 cells, w = 32, 256 CTAs of
+    32 cells for the write and 128 slices of 128 indices for the read; at
+    the row stage's 2^19 rows into 2^18 cells, 1024 CTAs for the write
+    and 512 slices of 1024 indices for the read."""
+    nv = SS.column_groups(32, True)
+    assert SS.rate_write_tiles(MB.RATE_BC, nv) == (32, 256)
+    assert SS.rate_read_slices(MB.RATE_CAP) == (128, 128)
+    assert SS.rate_write_tiles(MB.S // 2, nv) == (256, 1024)
+    assert SS.rate_write_tiles(MB.S // 2, SS.column_groups(128, True)) == \
+        (256, 1024)
+    assert SS.rate_read_slices(MB.S) == (1024, 512)
+
+
+def test_rate_stage_cuts_match_the_kernel_source():
+    """The stage-timing script's cuts each find their text once in the
+    rate kernels' source, so its staged copy tracks the kernels."""
+    from nksr_tpu_torch.scripts import time_rate_stages as TS
+    src = TS.staged_source()
+    # the write kernel and the two entry points take it; the write's two
+    # cuts and the read's entry point read it
+    assert src.count("int stop") == 3 and src.count("stop == ") == 3
+    assert "blocked_scatter_kernel" not in src
