@@ -71,8 +71,22 @@ Phases (any failure ends the run with a non-zero exit):
      kernels at the study's shape (16,384 rows into 8,192 cells) and at
      the row stage's (2^19 rows into 2^18 cells), as device time in one
      CUDA graph and by CUDA events.
-Each path (the probe run, the three reconstructions, the microbenchmark)
-is driven with every launch count set to 0 just before it and read just
+  7. (run after phase 5) the predicted structure, the default route, on
+     the same scene and weights: reconstruct(xyz, nrm) with no structure
+     argument and extract_dual_mesh(mise_iter=1), a warm-up lap and two
+     timed laps on the per-level engine (the JAX package's engine at
+     this size), the lattice solve and the dense mesher; the two laps
+     bit-equal, their launches those of a lattice lap, the terrain error
+     under 1.5x the JAX package's predicted error on the quadrants
+     (scripts/terrain_reference_predicted.py); the four 20 m quadrants
+     alone on the one-pass dense engine under the same gate; then one
+     adaptive lap (adaptive depth 2) on the dense lattice route, its
+     decoder smaller than the splat hierarchy at depth 0, under the
+     splat gate, and its quadrants alone under 1.5x the JAX package's
+     adaptive error there.  The kernels line gains each lattice kernel's
+     launches on the predicted lap (``launches_predicted``).
+Each path (the probe run, the reconstructions, the microbenchmark) is
+driven with every launch count set to 0 just before it and read just
 after.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -108,6 +122,17 @@ ERR_LIMIT = 1.5 * JAX_QUADRANT_ERR
 # 1.5x the JAX package's sparse-route error mean at the 100 m tile's
 # density (0.00562, 160k points on 40 m x 40 m, measured on the CPU)
 ROUTE_ERR_LIMIT = 0.0085
+# The JAX package's interior terrain vertex error mean with the predicted
+# structure (the default route), under the same configuration, on the
+# same four 20 m quadrants (scripts/terrain_reference_predicted.py, on the
+# CPU).  The predicted gate is 1.5x that, for the tile and the quadrants.
+JAX_PRED_QUADRANT_ERR = 0.003712
+PRED_ERR_LIMIT = 1.5 * JAX_PRED_QUADRANT_ERR
+# The same with the adaptive structure at adaptive depth 2 (the script's
+# --structure adaptive --adaptive-depth 2); the adaptive quadrants' gate
+# is 1.5x that, the adaptive tile's the splat gate.
+JAX_ADAPTIVE_QUADRANT_ERR = 0.005881
+ADAPTIVE_QUADRANT_LIMIT = 1.5 * JAX_ADAPTIVE_QUADRANT_ERR
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
 BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 # the adjoint's input forms: (buffer dtype, compute dtype) of the solve's
@@ -466,15 +491,20 @@ def compare_adjoint_rows(LK, TA, spec, cells, kept, s_pt: int, gen,
     return out
 
 
-def quadrant_error(recon, xyz, nrm):
+def quadrant_error(recon, xyz, nrm, structure="splat", on_lap=None):
     """The scene's four 20 m quadrants, each reconstructed and meshed
     alone (the configuration of JAX_QUADRANT_ERR): the vertex errors over
-    used vertices 1 m inside each quadrant, pooled."""
+    used vertices 1 m inside each quadrant, pooled.  ``on_lap(field,
+    t_recon, t_mesh)`` sees each quadrant's lap."""
     errs = []
     for sx in (-1, 1):
         for sy in (-1, 1):
             m = (np.sign(xyz[:, 0]) == sx) & (np.sign(xyz[:, 1]) == sy)
-            _, _, _, mesh = main_path_lap(recon, xyz[m], nrm[m])
+            tr, tm, field, mesh = main_path_lap(recon, xyz[m], nrm[m],
+                                                structure)
+            if on_lap is not None:
+                on_lap(field, tr, tm)
+            del field
             v = mesh.v[np.unique(mesh.f)]
             ax, ay = np.abs(v[:, 0]), np.abs(v[:, 1])
             v = v[(ax > 1) & (ax < 19) & (ay > 1) & (ay < 19)
@@ -545,13 +575,13 @@ def profile_matvec(LAT, recon, xyz, nrm):
     return rows, sum(r[0] for r in rows), rec["ms"]
 
 
-def profile_solve(RC, recon, xyz, nrm):
+def profile_solve(ST, recon, xyz, nrm):
     """One more splat reconstruct whose whole lattice solve runs under
     torch.profiler (CPU and CUDA activity).  Returns, for the solve and
     each of its ``lattice_solve: ...`` ranges in order, (name, host ms,
     device ms): the range's host span, and the device time of the kernels
     launched inside it."""
-    real_solve = RC.lattice_solve
+    real_solve = ST.lattice_solve
     rec = {}
 
     def solve_probe(*a, **kw):
@@ -565,11 +595,11 @@ def profile_solve(RC, recon, xyz, nrm):
         rec["prof"] = prof
         return out
 
-    RC.lattice_solve = solve_probe
+    ST.lattice_solve = solve_probe
     try:
         recon.reconstruct(xyz, nrm, structure="splat", **KW)
     finally:
-        RC.lattice_solve = real_solve
+        ST.lattice_solve = real_solve
     out = []
     for e in rec["prof"].events():
         if e.device_type != torch.autograd.DeviceType.CPU or not \
@@ -605,10 +635,10 @@ def compare_probes(P, seed: int):
     return out
 
 
-def main_path_lap(recon, xyz, nrm):
+def main_path_lap(recon, xyz, nrm, structure="splat"):
     """One reconstruct + extract_dual_mesh; (t_recon, t_mesh, field, mesh)."""
     t0 = time.perf_counter()
-    field = recon.reconstruct(xyz, nrm, structure="splat", **KW)
+    field = recon.reconstruct(xyz, nrm, structure=structure, **KW)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     mesh = field.extract_dual_mesh(mise_iter=1)
@@ -673,15 +703,16 @@ def print_route(tag, recon, field, launches, lap):
                              f"{lap['err_mean']} > {ROUTE_ERR_LIMIT}")
 
 
-def check_lattice_launches(tag, launches, field):
+def check_lattice_launches(tag, launches, field, segsum=2):
     """A lattice lap: the slot-row kernel once a matvec (one matvec a CG
     iteration), the slot-row adjoint once a matvec and for the rhs and
     the Jacobi diagonal, the dense adjoint never, the dense forward once
-    (the evaluator tables), and the segment sum twice, at the two splats
-    (the slot-row adjoint sums its rows itself)."""
+    (the evaluator tables), and the segment sum ``segsum`` times: at the
+    encoder's splat and the normal prior's, one a gradient depth (the
+    slot-row adjoint sums its rows itself)."""
     iters = field.solver_stats.iters
     want = {"fwd": 1, "rows": iters, "adj_rows": iters + 2, "adj": 0,
-            "segsum": 2}
+            "segsum": segsum}
     got = {k: launches[k] for k in want}
     if not (iters > 0 and got == want):
         raise AssertionError(
@@ -716,6 +747,146 @@ def lap_diff(a, b) -> str:
     return "; ".join(parts)
 
 
+def print_lap(tag, field, tr, tm, launches, mesh, err, n_inner, limit):
+    """One lap's phases, solve, launches, memory, mesh and error."""
+    print(f"[{tag}] reconstruct_s {tr:.3f} extract_mesh_s {tm:.3f} phases "
+          + json.dumps({k: round(v, 4) for k, v in field.phase_times.items()}),
+          flush=True)
+    print(f"[{tag}] decoder voxels {[len(g.keys) for g in field.host_grids]}"
+          f"  {field.solver_stats}  launches {launches}  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  mesh "
+          f"verts {len(mesh.v)} faces {len(mesh.f)}", flush=True)
+    print(f"[{tag}] terrain vertex error on {n_inner} interior vertices: "
+          f"mean {err.mean():.5f} q90 {np.quantile(err, 0.9):.5f} max "
+          f"{err.max():.5f} (limit {limit:.5f})", flush=True)
+
+
+def check_dense_lattice(tag, field, mesh, err, limit):
+    """A lap on the lattice solve and the dense mesher, a finite mesh,
+    and the terrain error mean under ``limit``."""
+    if field.lattice_ctx is None or "dual mc" not in field.phase_times \
+            or "host dual mc" in field.phase_times:
+        raise AssertionError(f"[{tag}] not the lattice solve and the dense "
+                             f"mesher: {sorted(field.phase_times)}")
+    if not len(mesh.f) or not np.isfinite(mesh.v).all():
+        raise AssertionError(f"[{tag}] empty or non-finite mesh")
+    if not err.mean() <= limit:
+        raise AssertionError(f"[{tag}] terrain error mean {err.mean()} > "
+                             f"{limit}")
+
+
+def structure_laps(recon, xyz, nrm, counters, splat_n0, adaptive_recon):
+    """Phase 7.  The predicted structure (the default) on the 40 m tile:
+    a warm-up lap and two timed laps, on the per-level engine (the JAX
+    package's route there), the lattice solve and the dense mesher, bit-
+    equal, with the lattice launches and the predicted gate; the four
+    20 m quadrants alone on the one-pass dense engine, under the same
+    gate; one adaptive lap (adaptive depth 2) on the dense lattice route
+    with a decoder smaller than the splat hierarchy at depth 0, under the
+    splat gate, and its four quadrants alone under 1.5x the JAX package's
+    adaptive error there.  Returns the predicted lap's launches."""
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted")
+    print(f"[phase 7] predicted warm-up lap: reconstruct_s {tr:.3f} "
+          f"extract_mesh_s {tm:.3f}", flush=True)
+    del field, mesh
+    laps, lap_out = [], []
+    for _ in range(2):
+        field = mesh = None         # the lap's peak memory is its own
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted")
+        launches = read_counts(counters)
+        laps.append((tr, tm))
+        lap_out.append(([a.clone() for a in field.alpha], mesh.v, mesh.f))
+        err, n_inner = terrain_error(mesh)
+        print_lap("phase 7", field, tr, tm, launches, mesh, err, n_inner,
+                  PRED_ERR_LIMIT)
+    tr, tm = min(t[0] for t in laps), min(t[1] for t in laps)
+    print(f"[phase 7] predicted, {N_POINTS} points: engine "
+          f"{recon._last_pred_engine}, reconstruct_s {tr:.3f} extract_mesh_s "
+          f"{tm:.3f} pts/s {N_POINTS / (tr + tm):.1f}", flush=True)
+    same = lap_diff(*lap_out)
+    print("[phase 7] the two predicted laps on one input: " + same,
+          flush=True)
+    del lap_out
+    if "coefficients bit-equal" not in same or "mesh bit-equal" not in same:
+        raise AssertionError("[phase 7] two predicted laps on one input are "
+                             "not bit-equal: " + same)
+    if recon._last_pred_engine != "host-per-level":
+        raise AssertionError("[phase 7] the 40 m tile took the "
+                             f"{recon._last_pred_engine!r} engine, not the "
+                             "per-level one")
+    check_dense_lattice("phase 7", field, mesh, err, PRED_ERR_LIMIT)
+    check_lattice_launches("phase 7", launches, field)
+    pred_launches = launches
+    del field, mesh
+    torch.cuda.empty_cache()
+
+    engines = []
+
+    def quadrant_lap(field, tr, tm):
+        engines.append(recon._last_pred_engine)
+        print(f"[phase 7] quadrant on the {engines[-1]} engine: reconstruct_s "
+              f"{tr:.3f} extract_mesh_s {tm:.3f} phases "
+              + json.dumps({k: round(v, 4)
+                            for k, v in field.phase_times.items()}),
+              flush=True)
+        if field.lattice_ctx is None:
+            raise AssertionError("[phase 7] a quadrant left the lattice "
+                                 "solve")
+
+    q_err = quadrant_error(recon, xyz, nrm, "predicted", quadrant_lap)
+    print(f"[phase 7] predicted, the four 20 m quadrants alone (engines "
+          f"{engines}): terrain vertex error on {len(q_err)} interior "
+          f"vertices: mean {q_err.mean():.5f} q90 "
+          f"{np.quantile(q_err, 0.9):.5f} max {q_err.max():.5f} (the JAX "
+          f"package, CPU: mean {JAX_PRED_QUADRANT_ERR}; limit "
+          f"{PRED_ERR_LIMIT:.5f})", flush=True)
+    if engines != ["dense"] * 4:
+        raise AssertionError(f"[phase 7] quadrant engines {engines}, not "
+                             "the one-pass dense engine")
+    if not q_err.mean() <= PRED_ERR_LIMIT:
+        raise AssertionError(f"[phase 7] predicted quadrant terrain error "
+                             f"mean {q_err.mean()} > {PRED_ERR_LIMIT}")
+    torch.cuda.empty_cache()
+
+    ad = adaptive_recon.config.adaptive_depth
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    tr, tm, field, mesh = main_path_lap(adaptive_recon, xyz, nrm, "adaptive")
+    launches = read_counts(counters)
+    err, n_inner = terrain_error(mesh)
+    print_lap("phase 7 adaptive", field, tr, tm, launches, mesh, err,
+              n_inner, ERR_LIMIT)
+    n0 = len(field.host_grids[0].keys)
+    print(f"[phase 7 adaptive] adaptive depth {ad}: unet "
+          f"{adaptive_recon._last_unet_engine}, {n0} decoder voxels at "
+          f"depth 0 against the splat hierarchy's {splat_n0}", flush=True)
+    if adaptive_recon._last_unet_engine != "dense" or not n0 < splat_n0:
+        raise AssertionError("[phase 7 adaptive] not the dense UNet, or the "
+                             "decoder is not smaller than the splat "
+                             "hierarchy at depth 0")
+    check_dense_lattice("phase 7 adaptive", field, mesh, err, ERR_LIMIT)
+    # the segment sum at the encoder splat and at each gradient depth's
+    # normal prior
+    check_lattice_launches("phase 7 adaptive", launches, field, 1 + ad)
+    del field, mesh
+    torch.cuda.empty_cache()
+    q_err = quadrant_error(adaptive_recon, xyz, nrm, "adaptive")
+    print(f"[phase 7 adaptive] the four 20 m quadrants alone: terrain "
+          f"vertex error on {len(q_err)} interior vertices: mean "
+          f"{q_err.mean():.5f} q90 {np.quantile(q_err, 0.9):.5f} max "
+          f"{q_err.max():.5f} (the JAX package, CPU: mean "
+          f"{JAX_ADAPTIVE_QUADRANT_ERR}; limit "
+          f"{ADAPTIVE_QUADRANT_LIMIT:.5f})", flush=True)
+    if not q_err.mean() <= ADAPTIVE_QUADRANT_LIMIT:
+        raise AssertionError(f"[phase 7 adaptive] quadrant terrain error "
+                             f"mean {q_err.mean()} > "
+                             f"{ADAPTIVE_QUADRANT_LIMIT}")
+    return pred_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -729,7 +900,7 @@ def main() -> int:
     from nksr_tpu_torch.ops import segment_sum as SEG
     from nksr_tpu_torch.ops import sorted_scatter as SS
     from nksr_tpu_torch.ops import window_basis as WB
-    from nksr_tpu_torch.recon import reconstructor as RC
+    from nksr_tpu_torch.recon import solve_tail as ST
     from nksr_tpu_torch.scripts import microbench_scatter as MB
     from nksr_tpu_torch.scripts import probe_kernels as PK
     from nksr_tpu_torch.scripts import time_adjoint as TA
@@ -950,6 +1121,7 @@ def main() -> int:
     if not err.mean() <= ERR_LIMIT:
         raise AssertionError(f"terrain error mean {err.mean()} > {ERR_LIMIT}")
     splat_launches = launches
+    splat_n0 = len(field.host_grids[0].keys)
     del field, mesh
     torch.cuda.empty_cache()
     q_err = quadrant_error(recon, xyz, nrm)
@@ -972,7 +1144,7 @@ def main() -> int:
         print("[phase 3] profiled matvec: the profiler saw no device time; "
               f"CUDA events {ev_ms:.3f} ms a matvec", flush=True)
     torch.cuda.empty_cache()
-    split = profile_solve(RC, recon, xyz, nrm)
+    split = profile_solve(ST, recon, xyz, nrm)
     print("[phase 3] profiled lattice solve, host ms / device ms: "
           + "; ".join(f"{name} {h:.3f} / {dv:.3f}" for name, h, dv in split),
           flush=True)
@@ -1008,6 +1180,15 @@ def main() -> int:
         raise AssertionError("[phase 5] the 60 m tile did not take route A")
     check_lattice_launches("phase 5", a_launches, field)
     del field, mesh
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the predicted structure (the default route) and the
+    # adaptive one on the 40 m tile, and the predicted one on its
+    # quadrants alone
+    pred_launches = structure_laps(recon, xyz, nrm, counters, splat_n0,
+                                   Reconstructor(config=PipelineConfig(
+                                       conv_dtype="bfloat16",
+                                       adaptive_depth=2), params=params))
     torch.cuda.empty_cache()
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -1072,8 +1253,10 @@ def main() -> int:
          "bound_ms": win["bound"][0], "bound_by": win["bound"][1],
          "library_ms": None},
     ]
-    for rec in kernels:     # each timed by CUDA events
-        rec["floor_ms"] = floor_events
+    for rec, key in zip(kernels, ("fwd", "rows", "adj", "adj_rows",
+                                  "segsum", "window")):
+        rec["floor_ms"] = floor_events      # each timed by CUDA events
+        rec["launches_predicted"] = pred_launches[key]
     # the scatter kernels at w = 32 (the study's width; phase 6 prints
     # w = 128 too): the blocked one on unique indices, by CUDA events; the
     # rate kernels at the study's shape, as device time in one CUDA graph
@@ -1103,6 +1286,7 @@ def main() -> int:
              "ms": rec["ms"], "plain_ms": rec["plain_ms"],
              "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
              "library_ms": None, "floor_ms": floor_graph})
+    print(smi, flush=True)      # again, where a tail of the output keeps it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

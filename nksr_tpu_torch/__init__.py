@@ -3,13 +3,14 @@ Hopper GPU.
 
 It mirrors the JAX package's module layout.  It imports torch and numpy,
 never JAX, flax or ``nksr_tpu``; the JAX package stays the reference the
-port is tested against.  The ported route is the splat points -> mesh
-path, on the dense lattice or, where its budgets are exceeded, on the
-sparse fallback (``recon/reconstructor.py`` says which input takes
-which):
+port is tested against.  The points -> mesh path runs with the three
+structures of the JAX package: predicted (the default), splat and
+adaptive, on the dense lattice or, where its budgets are exceeded, on
+the per-level predicted engine or the sparse fallback
+(``recon/reconstructor.py`` says which input takes which):
 
     from nksr_tpu_torch import Reconstructor
-    field = Reconstructor().reconstruct(xyz, normal, structure="splat")
+    field = Reconstructor().reconstruct(xyz, normal)
     mesh = field.extract_dual_mesh(mise_iter=1)
 """
 

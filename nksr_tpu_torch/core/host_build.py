@@ -1,8 +1,10 @@
-"""Host-side (numpy) splat hierarchy and index tables: the integer
-structure the lattice plan, the gather-conv UNet and the support-row
-solve are built from.  A numpy-only copy of the functions of
-nksr_tpu/core/host_build.py that the splat path uses (that module
-imports JAX through its package); tests hold the two byte-identical.
+"""Host-side (numpy) hierarchies and index tables: the integer structure
+the lattice plan, the gather-conv UNet and the support-row solve are
+built from.  A numpy-only copy of the functions of
+nksr_tpu/core/host_build.py that the port's routes use (that module
+imports JAX through its package): the splat hierarchy, the adaptive
+(normal-variation) hierarchy, and the pruning and child expansion of
+the predicted hierarchy; tests hold the two byte-identical.
 
 Every table is built here, on the host, by sorted joins; the device
 programs that read them do no sort and no search.
@@ -10,7 +12,7 @@ programs that read them do no sort and no search.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -99,6 +101,85 @@ def build_splat_grids_ex(xyz: np.ndarray, voxel_size: float, depth: int):
     return grids, orders
 
 
+def build_adaptive_grids(xyz: np.ndarray, normal: np.ndarray,
+                         voxel_size: float, depth: int, tau: float = 0.1,
+                         adaptive_depth: int = 1,
+                         splat=None) -> List[HostGrid]:
+    """Normal-variation hierarchy: levels >= adaptive_depth - 1 are the
+    splat levels; a finer level keeps a splat corner only where its
+    parent's normal variation ``max_p (1 - n_p . nbar)`` over the points
+    nearest to it exceeds ``tau``.  ``splat``: the output of
+    ``build_splat_grids_ex`` on the same points, reused."""
+    grids: List[Optional[HostGrid]] = [None] * depth
+    if splat is None:
+        splat = build_splat_grids_ex(xyz, voxel_size, depth)
+    splat, orders = splat
+    for d in range(max(adaptive_depth - 1, 0), depth):
+        grids[d] = splat[d]
+    deltas = np.array([_offset_delta(o) for o in _OFFS2], np.int64)
+    for d in range(adaptive_depth - 2, -1, -1):
+        parent = grids[d + 1]
+        pvs = parent.voxel_size
+        # nearest parent voxel center per point (round = node-centered)
+        pcell = pack64(np.round(xyz / pvs).astype(np.int64))
+        pidx = keys_lookup(parent, pcell)
+        ok = pidx >= 0
+        seg = pidx[ok]
+        npar = len(parent.keys)
+        nn = normal[ok]
+        nsum = np.stack([np.bincount(seg, weights=nn[:, c],
+                                     minlength=npar) for c in range(3)], 1)
+        nbar = nsum / (np.linalg.norm(nsum, axis=1, keepdims=True) + 1e-6)
+        dev = 1.0 - np.sum(nn * nbar[seg], axis=1)
+        sigma = np.zeros(npar, np.float64)
+        np.maximum.at(sigma, seg, dev)
+        cnt = np.bincount(seg, minlength=npar)
+        refine = (sigma > tau) & (cnt > 0)
+        # candidates at level d: the splat corners whose parent refines
+        sb, _ = orders[d]
+        ub = sb[np.concatenate([[True], sb[1:] != sb[:-1]])] if len(sb) \
+            else sb
+        corners = native.merge_unique(ub, deltas)
+        cpar = pack64(np.floor_divide(unpack64(corners).astype(np.int64),
+                                      2))
+        cpi = keys_lookup(parent, cpar)
+        # an empty parent level refines nothing (the JAX package's copy
+        # raises IndexError there: a take from an empty array)
+        keep = (cpi >= 0) & np.take(refine, np.clip(cpi, 0, None)) \
+            if npar else np.zeros(len(corners), bool)
+        keys = corners[keep]
+        grids[d] = HostGrid(coords=unpack64(keys), keys=keys,
+                            voxel_size=voxel_size * (2.0 ** d))
+    return grids
+
+
+def prune(grid: HostGrid, keep: np.ndarray) -> HostGrid:
+    """The rows of a grid where ``keep`` holds, in their (sorted) order."""
+    return HostGrid(coords=grid.coords[keep], keys=grid.keys[keep],
+                    voxel_size=grid.voxel_size)
+
+
+def children_of(grid: HostGrid, refined_rows: np.ndarray
+                ) -> Tuple[HostGrid, np.ndarray, np.ndarray]:
+    """The 8 children (one level finer) of the given rows of a grid:
+    (the child grid sorted by key, the parent row of each child, the
+    octant of each child in ``child_offsets`` order).  Children of
+    distinct parents never collide, so nothing is deduplicated."""
+    pk = grid.keys[refined_rows]
+    doubled = 2 * pk - pack64(np.zeros((1, 3), np.int64))
+    deltas = np.array([_offset_delta(o) for o in _OFFS2], np.int64)
+    ckeys = (doubled[:, None] + deltas[None]).ravel()
+    parent = np.repeat(refined_rows, 8)
+    order = native.radix_argsort(ckeys)
+    ckeys = ckeys[order]
+    coords = unpack64(ckeys)
+    oct_ = coords - 2 * np.floor_divide(coords, 2)
+    oct_id = (oct_[:, 0] * 4 + oct_[:, 1] * 2 + oct_[:, 2]).astype(np.int32)
+    return (HostGrid(coords=coords, keys=ckeys,
+                     voxel_size=grid.voxel_size * 0.5),
+            parent[order].astype(np.int32), oct_id)
+
+
 def lookup(grid: HostGrid, coords: np.ndarray) -> np.ndarray:
     """Index of each (n, 3) coord in the sorted grid, -1 if absent."""
     return native.keysearch(grid.keys, pack64(coords))
@@ -155,7 +236,10 @@ def _padded_coords(grid: HostGrid, cap: int) -> np.ndarray:
 
 
 def build_unet_tables(grids: Sequence[HostGrid], capacities: Sequence[int],
-                      stencil: np.ndarray) -> UNetTables:
+                      stencil: np.ndarray, decoder: bool = True
+                      ) -> UNetTables:
+    """The UNet's tables; ``decoder=False`` leaves ``parent`` and ``skip``
+    empty (an engine that builds its decoder's own tables)."""
     nbr = tuple(nbr_table(g, cap, stencil)
                 for g, cap in zip(grids, capacities))
     child, parent, skip = [], [], []
@@ -169,6 +253,8 @@ def build_unet_tables(grids: Sequence[HostGrid], capacities: Sequence[int],
         t[:n] = _stencil_tables(fine.keys, _OFFS2, base_keys=doubled,
                                 cap=cap_f)
         child.append(t)
+        if not decoder:
+            continue
         c = _padded_coords(fine, cap_f)
         parent.append(lookup(coarse, np.floor_divide(c, 2)))
         skip.append(lookup(fine, c))

@@ -35,15 +35,20 @@ _OFFS = np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
 
 class DenseUNetTables(NamedTuple):
     """Per depth: (cap,) dense cell of each voxel (pad rows -> 0) and
-    whether the row is a real voxel."""
+    whether the row is a real voxel, of the encoder hierarchy and of the
+    decoder hierarchy the heads are read at (the same tensors when the
+    two hierarchies are one)."""
     enc_cell: Tuple[torch.Tensor, ...]
     enc_active: Tuple[torch.Tensor, ...]
+    dec_cell: Tuple[torch.Tensor, ...]
+    dec_active: Tuple[torch.Tensor, ...]
 
 
-def build_tables(spec, origins, grids, caps, device) -> DenseUNetTables:
-    """Map the splat grids' voxel lists to dense lattice cells (host)."""
+def cell_tables(grids, caps, dims, origins, device):
+    """Per depth, the cap-padded (cells, active) of a hierarchy's voxel
+    lists in the dense lattices ``dims`` at ``origins`` (host)."""
     cells, act = [], []
-    for d in range(spec.depth):
+    for d in range(len(dims)):
         cap = caps[d]
         n = min(len(grids[d].keys), cap)
         c = np.zeros((cap, 3), np.int64)
@@ -51,17 +56,32 @@ def build_tables(spec, origins, grids, caps, device) -> DenseUNetTables:
         a = np.zeros(cap, bool)
         a[:n] = True
         cells.append(torch.from_numpy(
-            flat_cells(c, 0, origins[d], spec.dims[d]).astype(np.int64)
+            flat_cells(c, 0, origins[d], dims[d]).astype(np.int64)
         ).to(device))
         act.append(torch.from_numpy(a).to(device))
-    return DenseUNetTables(tuple(cells), tuple(act))
+    return tuple(cells), tuple(act)
 
 
-def _occupancy(spec, tables: DenseUNetTables, d: int) -> torch.Tensor:
-    occ = torch.zeros(spec.n_cells(d), dtype=torch.bool,
-                      device=tables.enc_cell[d].device)
-    occ[tables.enc_cell[d][tables.enc_active[d]]] = True
-    return occ.view(spec.dims[d])
+def build_tables(spec, origins, grids, caps, device, dec_grids=None,
+                 dec_caps=None) -> DenseUNetTables:
+    """Map the encoder (splat) grids' and the decoder grids' voxel lists
+    to dense lattice cells (host); no ``dec_grids``: the decoder is the
+    encoder hierarchy."""
+    dims = spec.dims[:spec.depth]
+    ec, ea = cell_tables(grids, caps, dims, origins, device)
+    if dec_grids is None or dec_grids is grids:
+        return DenseUNetTables(ec, ea, ec, ea)
+    dc, da = cell_tables(dec_grids, dec_caps, dims, origins, device)
+    return DenseUNetTables(ec, ea, dc, da)
+
+
+def occupancy(dims, cells: torch.Tensor, active: torch.Tensor
+              ) -> torch.Tensor:
+    """(1, 1, X, Y, Z) bool lattice, true at the active rows' cells."""
+    occ = torch.zeros(int(np.prod(dims)), dtype=torch.bool,
+                      device=cells.device)
+    occ[cells[active]] = True
+    return occ.view(1, 1, *dims)
 
 
 def trilinear_splat(dims, origin, base: torch.Tensor, frac: torch.Tensor,
@@ -172,42 +192,61 @@ def _head_rows(g, cells, act):
     return torch.where(act[:, None], rows, 0.0)
 
 
+def heads(up, d: int, g, cells, act):
+    """The depth-d basis and normal heads at the rows ``cells`` of the
+    feature lattice ``g`` (f32 rows; inactive rows read zeros, so their
+    basis is the head's bias and their normal 0)."""
+    rows = _head_rows(g, cells, act)
+    basis = getattr(up, f"basis_{d}")(rows)
+    normal = torch.where(act[:, None], getattr(up, f"normal_{d}")(rows), 0.0)
+    return basis, normal
+
+
+def encoder_path(cfg: PipelineConfig, net: NKSRNetwork, dims, origins, occ,
+                 xyz: torch.Tensor, feat, base0: torch.Tensor, cdt):
+    """Point encoder, then the encoder's conv blocks and stride-2 convs
+    on the dense lattices ``dims``, each level masked by its occupancy
+    ``occ[d]``.  Returns the per-depth encoder features (1, C, X, Y, Z)
+    in ``cdt``."""
+    up = net.unet
+    h = encode_points(cfg, net, dims[0], origins[0], xyz, feat, base0)
+    f = h.T.reshape(1, -1, *dims[0])
+    f = torch.where(occ[0], f, 0.0).to(cdt)
+    enc_feats = []
+    for d in range(len(dims)):
+        f = _conv_block(getattr(up, f"enc_{d}"), f, occ[d], cdt)
+        enc_feats.append(f)
+        if d < len(dims) - 1:
+            f = _down(getattr(up, f"down_{d}"), f, dims[d + 1], cdt)
+            f = torch.where(occ[d + 1], f, 0.0)
+    return enc_feats
+
+
 @torch.no_grad()
 def dense_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, spec, origins,
                      tables: DenseUNetTables, xyz: torch.Tensor, feat,
                      base0: torch.Tensor):
     """Encoder + UNet + heads on the dense lattice, with the decoder
-    taught the splat hierarchy.  Returns per-depth (basis_features,
-    normal_features) in the voxel-row layout of the JAX package (the
-    structure and UDF heads serve routes this package does not run)."""
+    taught the encoder hierarchy (its occupancy masks the convs) and the
+    heads read at the decoder cells of ``tables``.  Returns per-depth
+    (basis_features, normal_features) in the decoder's voxel-row layout
+    of the JAX package (the structure and UDF heads serve routes this
+    package does not run)."""
     depth = spec.depth
+    dims = spec.dims[:depth]
     cdt = getattr(torch, cfg.conv_dtype)
     up = net.unet
-    occ = [_occupancy(spec, tables, d)[None, None] for d in range(depth)]
-
-    h = encode_points(cfg, net, spec.dims[0], origins[0], xyz, feat, base0)
-    X, Y, Z = spec.dims[0]
-    f = h.T.reshape(1, -1, X, Y, Z)
-    f = torch.where(occ[0], f, 0.0).to(cdt)
-
-    enc_feats = []
-    for d in range(depth):
-        f = _conv_block(getattr(up, f"enc_{d}"), f, occ[d], cdt)
-        enc_feats.append(f)
-        if d < depth - 1:
-            f = _down(getattr(up, f"down_{d}"), f, spec.dims[d + 1], cdt)
-            f = torch.where(occ[d + 1], f, 0.0)
-
+    occ = [occupancy(dims[d], tables.enc_cell[d], tables.enc_active[d])
+           for d in range(depth)]
+    enc_feats = encoder_path(cfg, net, dims, origins, occ, xyz, feat, base0,
+                             cdt)
     basis, normal = [None] * depth, [None] * depth
     g = enc_feats[depth - 1]
     for d in range(depth - 1, -1, -1):
         g = _conv_block(getattr(up, f"dec_{d}"), g, occ[d], cdt)
-        act = tables.enc_active[d]
-        rows = _head_rows(g, tables.enc_cell[d], act)
-        basis[d] = getattr(up, f"basis_{d}")(rows)
-        normal[d] = torch.where(act[:, None],
-                                getattr(up, f"normal_{d}")(rows), 0.0)
+        basis[d], normal[d] = heads(up, d, g, tables.dec_cell[d],
+                                    tables.dec_active[d])
         if d > 0:
-            hu = _up(getattr(up, f"up_{d}"), g, spec.dims[d - 1], cdt)
+            hu = _up(getattr(up, f"up_{d}"), g, dims[d - 1], cdt)
             g = torch.where(occ[d - 1], hu + enc_feats[d - 1], 0.0)
     return tuple(basis), tuple(normal)

@@ -113,6 +113,38 @@ def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def encoder_path(cfg: PipelineConfig, net: NKSRNetwork, nbr, child,
+                 n_vox: Sequence[int], xyz: torch.Tensor, feat,
+                 splat_idx: torch.Tensor, cdt):
+    """Point encoder, then the encoder's conv blocks and stride-2 convs
+    over the splat hierarchy (``nbr[d]`` its stencil rows, ``child[d]``
+    the children of level d+1 in level d).  Returns the per-depth
+    encoder features (n_d, f_maps), f32."""
+    up = net.unet
+    f = encode_points(cfg, net, n_vox[0], xyz, feat, splat_idx)
+    enc_feats = []
+    for d in range(len(n_vox)):
+        f = conv_block(getattr(up, f"enc_{d}"), f, nbr[d][:n_vox[d]], cdt)
+        enc_feats.append(f)
+        if d < len(n_vox) - 1:
+            down = getattr(up, f"down_{d}")
+            f = gs.gather_conv(f, child[d][:n_vox[d + 1]], down_taps(down),
+                               down.bias)
+    return enc_feats
+
+
+def up_conv(up, d: int, g_parent: torch.Tensor, parent: torch.Tensor,
+            octant: torch.Tensor) -> torch.Tensor:
+    """Transposed stride-2 conv ``up_d`` onto level d-1: each child row
+    takes its parent's row (``parent``) through its octant's weight."""
+    pfeat = gs.take_rows(g_parent, parent)
+    w_up = up_taps(getattr(up, f"up_{d}"))
+    h = torch.zeros_like(pfeat)
+    for o in range(8):
+        h = torch.where((octant == o)[:, None], pfeat @ w_up[o], h)
+    return h
+
+
 @torch.no_grad()
 def sparse_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, tables,
                       n_vox: Sequence[int], caps: Sequence[int],
@@ -128,38 +160,29 @@ def sparse_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, tables,
     depth = cfg.tree_depth
     cdt = getattr(torch, cfg.conv_dtype)
     up = net.unet
-    f = encode_points(cfg, net, n_vox[0], xyz, feat, splat_idx)
-
-    enc_feats = []
-    for d in range(depth):
-        n = n_vox[d]
-        f = conv_block(getattr(up, f"enc_{d}"), f, tables.nbr[d][:n], cdt)
-        enc_feats.append(f)
-        if d < depth - 1:
-            down = getattr(up, f"down_{d}")
-            f = gs.gather_conv(f, tables.child[d][:n_vox[d + 1]],
-                               down_taps(down), down.bias)
-
+    enc_feats = encoder_path(cfg, net, tables.nbr, tables.child, n_vox, xyz,
+                             feat, splat_idx, cdt)
     basis, normal = [None] * depth, [None] * depth
     g = enc_feats[depth - 1]
     for d in range(depth - 1, -1, -1):
         g = conv_block(getattr(up, f"dec_{d}"), g, tables.nbr[d][:n_vox[d]],
                        cdt)
-        rows = _pad_rows(g, caps[d])
-        basis[d] = getattr(up, f"basis_{d}")(rows)
-        nf = getattr(up, f"normal_{d}")(rows)
-        normal[d] = torch.where(
-            (torch.arange(caps[d], device=g.device) < n_vox[d])[:, None],
-            nf, 0.0)
+        basis[d], normal[d] = heads(up, d, g, n_vox[d], caps[d])
         if d > 0:
             n = n_vox[d - 1]
-            # transposed stride-2: each child takes its parent's features
-            # through its octant's weight, plus the encoder skip row
-            pfeat = gs.take_rows(g, tables.parent[d - 1][:n])
-            w_up = up_taps(getattr(up, f"up_{d}"))
-            octant = gs.octant_id(coords[d - 1])
-            h = torch.zeros_like(pfeat)
-            for o in range(8):
-                h = torch.where((octant == o)[:, None], pfeat @ w_up[o], h)
+            # the encoder skip row of each child, after the up conv
+            h = up_conv(up, d, g, tables.parent[d - 1][:n],
+                        gs.octant_id(coords[d - 1]))
             g = h + gs.take_rows(enc_feats[d - 1], tables.skip[d - 1][:n])
     return tuple(basis), tuple(normal)
+
+
+def heads(up, d: int, rows: torch.Tensor, n: int, cap: int):
+    """The depth-d basis and normal heads of the first ``n`` rows, written
+    at (cap, C): padding rows as the JAX package computes them (basis =
+    the head's bias, normal = 0)."""
+    rows = _pad_rows(rows[:n], cap)
+    basis = getattr(up, f"basis_{d}")(rows)
+    nf = getattr(up, f"normal_{d}")(rows)
+    live = (torch.arange(cap, device=rows.device) < n)[:, None]
+    return basis, torch.where(live, nf, 0.0)

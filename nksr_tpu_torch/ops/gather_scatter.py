@@ -40,6 +40,8 @@ def octant_id(coords: torch.Tensor) -> torch.Tensor:
 
 def take_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of ``feat`` at ``idx``; idx < 0 yields zeros."""
+    if feat.shape[0] == 0:          # every index is absent
+        return feat.new_zeros((*idx.shape, feat.shape[-1]))
     out = feat.index_select(0, idx.clamp(min=0).reshape(-1))
     out = out.reshape(*idx.shape, feat.shape[-1])
     return torch.where((idx >= 0)[..., None], out, 0.0)

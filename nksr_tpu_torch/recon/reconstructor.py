@@ -1,29 +1,42 @@
 """Public reconstruction API (counterpart of
-nksr_tpu/recon/reconstructor.py, splat structure):
+nksr_tpu/recon/reconstructor.py):
 
     recon = Reconstructor()                     # device="cuda"
-    field = recon.reconstruct(xyz, normal, structure="splat")
+    field = recon.reconstruct(xyz, normal)      # structure="predicted"
     mesh  = field.extract_dual_mesh(mise_iter=1)   # mesh.v / mesh.f
 
-Stages: host grid build and lattice plan (numpy + C++), the UNet, the
-kernel solve, the field evaluator and dual marching cubes.  The route is
-chosen as the JAX package chooses it, by the same budgets in the same
-order:
+Three structures, as in the JAX package:
 
-  * lattice: the plan exists and its feature lattices fit
-    ``DENSE_UNET_CELLMAP_BUDGET``: the dense conv3d UNet, the primal
-    lattice CG solve and the lattice evaluator;
-  * route A: the plan exists but the feature lattices do not fit: the
-    gather-conv UNet over host tables, then the lattice solve;
-  * route B (the sparse fallback): ``plan_lattice`` returns None (the
-    dense coefficients would exceed its budget): the gather-conv UNet,
-    the support-row kernel solve and the host dual MC.
+  * "splat" (the point splat) and "adaptive" (the normal-variation
+    decoder hierarchy over the splat encoder): host grid build and
+    lattice plan (numpy + C++), the UNet, the kernel solve, the field
+    evaluator and dual marching cubes.  The route is chosen as the JAX
+    package chooses it, by the same budgets in the same order:
+
+      - lattice: the plan exists and its feature lattices fit
+        ``DENSE_UNET_CELLMAP_BUDGET``: the dense conv3d UNet, the primal
+        lattice CG solve and the lattice evaluator;
+      - route A: the plan exists but the feature lattices do not fit:
+        the gather-conv UNet over host tables, then the lattice solve;
+      - route B (the sparse fallback): ``plan_lattice`` returns None (the
+        dense coefficients would exceed its budget): the gather-conv
+        UNet, the support-row kernel solve and the host dual MC.
+
+    "adaptive" runs on the lattice route only; routes A and B would need
+    the gather-conv UNet taught a decoder hierarchy and raise.
+  * "predicted" (the default: the UNet predicts the decoder hierarchy):
+    the one-pass dense engine (``recon/predicted_dense.py``) where its
+    child-cover lattice fits ``DENSE_PRED_CELLMAP_BUDGET`` and the
+    prediction keeps a voxel, else the per-level engine
+    (``recon/host_predicted.py``); both end in the lattice solve, or in
+    the support-row solve for a bounding box the plan refuses.
 
 The dense mesher meshes a lattice field whose fine grid fits
 ``meshing.lattice_mc.DENSE_CELL_BUDGET``, the host mesher any other
-field.  ``_last_unet_engine`` records "dense" or "sparse".  Routes that
-are not ported yet raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; nothing falls back to another engine or to the CPU.
+field.  ``_last_unet_engine`` records "dense" or "sparse",
+``_last_pred_engine`` "dense" or "host-per-level".  Routes that are not
+ported yet raise ``NotImplementedError`` naming the ROADMAP item that
+ports them; nothing falls back to another engine or to the CPU.
 """
 
 from __future__ import annotations
@@ -36,8 +49,7 @@ import numpy as np
 import torch
 
 from ..core import host_build as HB
-from ..fields.lattice import lattice_solve, plan_lattice
-from ..fields.lattice_eval import LatticeEvalContext
+from ..fields.lattice import plan_lattice
 from ..models import dense_unet as DU
 from ..models import pipeline as P
 from ..models import sparse_unet as SU
@@ -45,7 +57,11 @@ from ..models.network import NKSRNetwork
 from ..ops.gather_scatter import stencil_offsets
 from ..utils.checkpoint import params_to_torch
 from ..utils.profiling import PhaseTimer
-from .host_field import HostField, SolverStats
+from .host_field import HostField
+from .host_predicted import reconstruct_predicted_host
+from .predicted_dense import reconstruct_predicted_dense
+from .solve_tail import (lattice_field, resolve_solver_dtype,
+                         support_row_field)
 
 # total dense cells (all depths) x f_maps the conv3d UNet may hold;
 # beyond it the gather-conv UNet runs
@@ -56,30 +72,10 @@ def _next_pow2(n: int) -> int:
     return 1 << max(8, int(math.ceil(math.log2(max(n, 1)))))
 
 
-def resolve_solver_dtype(dt: str, device: torch.device) -> str:
-    """'auto' -> bf16 on CUDA (half the bytes of the matvec's dominant
-    streams; sums stay f32), f32 on the CPU."""
-    if dt != "auto":
-        return dt
-    return "bfloat16" if torch.device(device).type == "cuda" else "float32"
-
-
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to nksr_tpu_torch yet (ROADMAP.md queue 1, "
         f"{item})")
-
-
-def _splat_normals_dense(spec, origins, d, voxel_size, xyz, normal,
-                         vox_cell, vox_active):
-    """Normal prior per voxel: trilinear splat of the input normals onto
-    the depth-d lattice, read at the voxel cells and normalized."""
-    g = xyz / (voxel_size * (2.0 ** d))
-    base = torch.floor(g).long()
-    acc, _ = DU.trilinear_splat(spec.dims[d], origins[d], base,
-                                g - base.float(), normal)
-    rows = torch.where(vox_active[:, None], acc[vox_cell], 0.0)
-    return rows / (torch.linalg.norm(rows, dim=-1, keepdim=True) + 1e-6)
 
 
 def _dense_unet_fits(spec, cfg) -> bool:
@@ -167,14 +163,55 @@ class Reconstructor:
             fused_mode=fused_mode)
         if structure is not None:
             cfg = dataclasses.replace(cfg, structure_mode=structure)
-        if cfg.structure_mode != "splat":
-            raise _not_ported(f"structure={cfg.structure_mode!r}",
-                              "items 8-9 (adaptive, predicted)")
+        if cfg.structure_mode == "predicted":
+            return self._reconstruct_predicted(cfg, xyz, normal, sens)
+        if cfg.structure_mode == "predicted_ingraph":
+            raise _not_ported("structure='predicted_ingraph' (the traced "
+                              "training forward)", "item 14")
+        if cfg.structure_mode not in ("splat", "adaptive"):
+            raise ValueError(f"unknown structure {cfg.structure_mode!r}")
+        if cfg.structure_mode == "adaptive" and normal is None:
+            raise ValueError("adaptive structure needs input normals")
         return self._reconstruct_host(cfg, xyz, normal, sens)
+
+    def _inputs(self, cfg, xyz, normal, sens):
+        """The points and their input features on the device."""
+        dev = self.device
+        xyz_t = torch.as_tensor(xyz, device=dev)
+        feat = P.point_features(
+            cfg, xyz_t,
+            normal=None if normal is None else torch.as_tensor(normal,
+                                                               device=dev),
+            sensor=None if sens is None else torch.as_tensor(sens,
+                                                             device=dev))
+        return xyz_t, feat
+
+    def _reconstruct_predicted(self, cfg, xyz, normal, sens) -> HostField:
+        """The predicted structure: the one-pass dense engine, or the
+        per-level engine where it does not apply (the JAX package's
+        order)."""
+        times: dict = {}
+        tm = PhaseTimer(self.device, times)
+        xyz_t, feat = self._inputs(cfg, xyz, normal, sens)
+        # the encoder's splat hierarchy, shared by both engines
+        splat = HB.build_splat_grids_ex(xyz, cfg.voxel_size, cfg.tree_depth)
+        tm.lap("splat grids")
+        hf = reconstruct_predicted_dense(cfg, self.network, xyz, xyz_t, feat,
+                                         splat, tm, times)
+        if hf is not None:
+            self._last_pred_engine = self._last_unet_engine = "dense"
+            return hf
+        self._last_pred_engine = "host-per-level"
+        self._last_unet_engine = "sparse"
+        return reconstruct_predicted_host(cfg, self.network, xyz, xyz_t,
+                                          feat, splat, tm, times)
 
     def _reconstruct_host(self, cfg, xyz, normal, sens) -> HostField:
         """Host-built grids, plan and tables, then the device stages of
-        the route the budgets pick (see the module docstring)."""
+        the route the budgets pick (see the module docstring).  With
+        ``structure="adaptive"`` the decoder hierarchy (the plan, the
+        heads, the solve and the field's mask) is the normal-variation
+        one, the encoder's the splat."""
         dev = self.device
         times: dict = {}
         tm = PhaseTimer(dev, times)
@@ -182,117 +219,73 @@ class Reconstructor:
                                                 cfg.tree_depth)
         caps = tuple(max(_next_pow2(int(len(g.keys) * 1.05)), 512)
                      for g in grids)
+        dec_grids, dec_caps = grids, caps
+        if cfg.structure_mode == "adaptive":
+            dec_grids = HB.build_adaptive_grids(
+                xyz, normal, cfg.voxel_size, cfg.tree_depth,
+                tau=cfg.adaptive_tau, adaptive_depth=cfg.adaptive_depth,
+                splat=(grids, orders))
+            dec_caps = tuple(max(_next_pow2(int(len(g.keys) * 1.05)), 512)
+                             for g in dec_grids)
         plan = plan_lattice(grids, caps, xyz, orders[0][0], orders[0][1],
                             cfg.voxel_size, cfg.tree_depth,
-                            cfg.adaptive_depth, k=cfg.kernel_dim)
+                            cfg.adaptive_depth, k=cfg.kernel_dim,
+                            dec_grids=None if dec_grids is grids
+                            else dec_grids,
+                            dec_caps=None if dec_grids is grids
+                            else dec_caps)
         dense_unet = plan is not None and _dense_unet_fits(plan.spec, cfg)
         self._last_unet_engine = "dense" if dense_unet else "sparse"
+        if dec_grids is not grids and not dense_unet:
+            raise _not_ported(
+                "structure='adaptive' on the gather-conv UNet (routes A "
+                "and B: a bounding box over the dense UNet's budget)",
+                "item 8b")
 
         def up(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
 
         i64 = torch.int64
-        xyz_t = up(xyz)
-        feat = P.point_features(
-            cfg, xyz_t, normal=None if normal is None else up(normal),
-            sensor=None if sens is None else up(sens))
+        xyz_t, feat = self._inputs(cfg, xyz, normal, sens)
         input_normal = feat if cfg.feature == "normal" else None
         tm.lap("host build + plan + upload")
 
         if dense_unet:
             tables = DU.build_tables(plan.spec, plan.origins, grids, caps,
-                                     dev)
+                                     dev, dec_grids, dec_caps)
             perm = up(orders[0][1], i64)
             base0 = up(HB.unpack64(orders[0][0]), i64)
             basis_f, normal_f = DU.dense_unet_apply(
                 cfg, self.network, plan.spec, plan.origins, tables,
                 xyz_t[perm], None if feat is None else feat[perm], base0)
             tm.lap("dense unet")
-        else:
-            # the points' splat rows: the encoder's depth-0 table, the
-            # normal prior's (adaptive depths) and route B's value rows
-            # (every depth)
-            n_sup = cfg.tree_depth if plan is None else cfg.adaptive_depth
-            pt_sup = tuple(up(t, i64) for t in HB.support_indices(
-                grids[:n_sup], caps[:n_sup], xyz, presorted=orders[:n_sup]))
-            ut = HB.build_unet_tables(grids, caps, stencil_offsets(3))
-            ut = HB.UNetTables(*(tuple(up(t, i64) for t in part)
-                                 for part in ut))
-            coords = tuple(up(g.coords, i64) for g in grids)
-            tm.lap("unet tables")
-            basis_f, normal_f = SU.sparse_unet_apply(
-                cfg, self.network, ut, [len(g.keys) for g in grids], caps,
-                coords, xyz_t, feat, pt_sup[0])
-            del ut, coords
-            tm.lap("sparse unet")
+            return lattice_field(cfg, self.network, plan, dec_grids, xyz,
+                                 xyz_t, input_normal, basis_f, normal_f, tm,
+                                 times, dense_prior=True)
 
+        # the points' splat rows: the encoder's depth-0 table, the normal
+        # prior's (adaptive depths) and route B's value rows (every depth)
+        n_sup = cfg.tree_depth if plan is None else cfg.adaptive_depth
+        pt_sup = tuple(up(t, i64) for t in HB.support_indices(
+            grids[:n_sup], caps[:n_sup], xyz, presorted=orders[:n_sup]))
+        ut = HB.build_unet_tables(grids, caps, stencil_offsets(3))
+        ut = HB.UNetTables(*(tuple(up(t, i64) for t in part)
+                             for part in ut))
+        coords = tuple(up(g.coords, i64) for g in grids)
+        tm.lap("unet tables")
+        basis_f, normal_f = SU.sparse_unet_apply(
+            cfg, self.network, ut, [len(g.keys) for g in grids], caps,
+            coords, xyz_t, feat, pt_sup[0])
+        del ut, coords
+        tm.lap("sparse unet")
         if plan is None:
-            return self._support_row_solve(cfg, grids, caps, xyz_t,
-                                           input_normal, basis_f, normal_f,
-                                           pt_sup, tm, times)
-
-        spec = plan.spec
-        vox_cell = tuple(up(v, i64) for v in plan.vox_cell)
-        vox_active = tuple(up(v) for v in plan.vox_active)
-        nvals = []
-        for d in range(cfg.adaptive_depth):
-            nv = normal_f[d]
-            if input_normal is not None:
-                if dense_unet:
-                    nv = nv + _splat_normals_dense(
-                        spec, plan.origins, d, cfg.voxel_size, xyz_t,
-                        input_normal, vox_cell[d], vox_active[d])
-                else:
-                    nv = nv + P.splat_normals_to_grid(
-                        P.level_voxel_size(cfg, d), caps[d], xyz_t,
-                        input_normal, pt_sup[d])
-            nvals.append(nv)
-        cdt = getattr(torch, cfg.solver_compute_dtype)
-        alphas, dense_xs, (iters, rel_res) = lattice_solve(
-            spec, self.network.interpolators, basis_f,
-            up(xyz[plan.pt_perm]), up(plan.pt_cell0, i64),
-            up(plan.pt_dest, i64), up(plan.slot_cell_pt, i64),
-            up(plan.slot_cell_gr, i64), up(plan.gr_coords, i64),
-            up(plan.gr_depth, i64), up(plan.gr_active),
-            -torch.cat(nvals, 0), vox_cell, vox_active,
-            voxel_size=cfg.voxel_size, pos_weight=cfg.pos_weight,
-            normal_weight=cfg.normal_weight, reg_weight=cfg.reg_weight,
-            tol=cfg.solver_tol, max_iters=cfg.solver_max_iters,
-            approx_grad=cfg.approx_kernel_grad,
-            slot_cell0_pt=up(plan.slot_cell0_pt, i64),
-            slot_cell0_gr=up(plan.slot_cell0_gr, i64),
-            gr_perm=up(plan.gr_perm, i64), compute_dtype=cdt)
-        tm.lap("lattice solve")
-
-        ctx = LatticeEvalContext(
-            spec, plan.origins, self.network.interpolators, basis_f,
-            vox_cell, vox_active, cfg.voxel_size, cfg.approx_kernel_grad,
-            compute_dtype=cdt, dense_xs=dense_xs)
-        return HostField(cfg, grids, alphas, ctx,
-                         SolverStats(iters, rel_res, cfg.solver_tol,
-                                     cfg.solver_max_iters),
-                         phase_times=times)
-
-    def _support_row_solve(self, cfg, grids, caps, xyz_t, input_normal,
-                           basis_f, normal_f, pt_sup, tm, times
-                           ) -> HostField:
-        """Route B: the support-row kernel solve on the splat hierarchy
-        (value rows at the points, gradient rows at the voxel centers of
-        the adaptive depths)."""
-        grad_sup = tuple(
-            torch.as_tensor(t.astype(np.int64), device=self.device)
-            for t in HB.support_indices(grids, caps,
-                                        P.grad_row_centers(cfg, grids)))
-        tm.lap("support tables")
-        field = P.solve_kernel_field(cfg, self.network, grids, caps, xyz_t,
+            return support_row_field(cfg, self.network, grids, caps, xyz_t,
                                      input_normal, basis_f, normal_f,
-                                     pt_sup, grad_sup)
-        tm.lap("support-row solve")
-        iters, rel_res = field.cg_stats
-        return HostField(cfg, grids, field.alpha, None,
-                         SolverStats(iters, rel_res, cfg.solver_tol,
-                                     cfg.solver_max_iters),
-                         phase_times=times, field=field, capacities=caps)
+                                     pt_sup, tm, times)
+        return lattice_field(cfg, self.network, plan, grids, xyz, xyz_t,
+                             input_normal, basis_f, normal_f, tm, times,
+                             dense_prior=False, pt_sup=pt_sup,
+                             dec_caps=caps)
 
     # -------------------------------------------------------------- helpers
     def _pick_voxel_size(self, xyz: np.ndarray,

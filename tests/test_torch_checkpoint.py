@@ -115,3 +115,42 @@ def test_seeded_init_follows_the_jax_rules():
             lim = np.sqrt(6.0 / (np.prod(v.shape[:-1]) + v.shape[-1]))
             assert np.abs(v).max() <= lim and v.std() > 0.2 * lim, k
             assert not np.array_equal(v, c[k]), k
+
+
+@pytest.mark.parametrize("d", [0, 1, 2, 3])
+def test_struct_heads_and_up_taps_equal_the_checkpoint(d):
+    """The predicted structure's weights from the scene_big checkpoint:
+    the ``struct_d`` head (a Linear of the flax kernel's transpose) and,
+    for d > 0, ``up_d``'s octant taps (``models/sparse_unet.up_taps``)
+    equal the flax leaves exactly; and each octant tap is what the dense
+    transposed conv (``models/dense_unet._up``) writes into that child of
+    a unit parent."""
+    from nksr_tpu_torch.models import dense_unet as DU
+    from nksr_tpu_torch.models import sparse_unet as SU
+
+    tree = CK.model_params(CK.load_tree(
+        os.path.join(ROOT, "runs/scene_big/best.ckpt")))["unet"]
+    net = NKSRNetwork(P.PipelineConfig())
+    net.load_state_dict(CK.params_to_torch(
+        CK.load_tree(os.path.join(ROOT, "runs/scene_big/best.ckpt"))),
+        strict=True)
+    head = getattr(net.unet, f"struct_{d}")
+    np.testing.assert_array_equal(head.weight.detach().numpy().T,
+                                  tree[f"struct_{d}"]["kernel"])
+    np.testing.assert_array_equal(head.bias.detach().numpy(),
+                                  tree[f"struct_{d}"]["bias"])
+    if d == 0:
+        return
+    conv = getattr(net.unet, f"up_{d}")
+    taps = SU.up_taps(conv).detach()
+    np.testing.assert_array_equal(taps.numpy(), tree[f"up_{d}"])
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(1, 32, 1, 1, 1)).astype(
+        np.float32))
+    with torch.no_grad():
+        y = DU._up(conv, x, (2, 2, 2), torch.float32)[0]
+    for o in range(8):
+        ox, oy, oz = o >> 2, (o >> 1) & 1, o & 1
+        np.testing.assert_allclose(y[:, ox, oy, oz].numpy(),
+                                   (x[0, :, 0, 0, 0] @ taps[o]).numpy(),
+                                   rtol=1e-5, atol=1e-6)

@@ -237,8 +237,6 @@ def test_host_field_queries(solved):
 
 
 @pytest.mark.parametrize("cfg_kw,call_kw", [
-    ({}, dict(structure="adaptive")),
-    ({}, dict(structure="predicted")),
     ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None)),
     ({}, dict(structure="splat", mesh=object())),
     (dict(udf_enabled=True), dict(structure="splat")),
