@@ -85,6 +85,25 @@ Phases (any failure ends the run with a non-zero exit):
      splat gate, and its quadrants alone under 1.5x the JAX package's
      adaptive error there.  The kernels line gains each lattice kernel's
      launches on the predicted lap (``launches_predicted``).
+  8. (run after phase 7) the checkpoint under its own configuration, UDF
+     mask head on: runs/scene_big/config.yaml through the port's
+     load_config and pipeline_config_from_yaml, with bf16 convs, as
+     bench.py's predicted row runs the JAX package.  The predicted
+     structure on the 40 m tile (a warm-up lap and two timed laps on the
+     per-level engine; bit-equal, the lattice launches, the dense mesher
+     trimming, the trim's time and the faces it dropped printed) and its
+     four 20 m quadrants on the one-pass dense engine, each under 1.5x
+     the JAX package's UDF-on predicted error on the quadrants; one splat
+     lap on the dense lattice and its quadrants under 1.5x the JAX
+     package's UDF-on splat error (both from
+     scripts/terrain_reference_udf.py); one lap of route A (the 60 m
+     tile), whose host mesher seals at the mask, its "mc: ..." stages
+     beside phase 5's, and its four central 20 m sub-tiles alone on route
+     A, both under 1.5x the JAX package's sealed error on those sub-tiles
+     (the same script's --route-a; the seal's second sheet puts it 8x
+     over the UDF-off routes' gate).  The kernels line gains
+     each lattice kernel's launches on the UDF predicted lap
+     (``launches_udf``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -95,6 +114,7 @@ rest of the repository beside it, the script fails before printing any
 result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -133,6 +153,25 @@ PRED_ERR_LIMIT = 1.5 * JAX_PRED_QUADRANT_ERR
 # is 1.5x that, the adaptive tile's the splat gate.
 JAX_ADAPTIVE_QUADRANT_ERR = 0.005881
 ADAPTIVE_QUADRANT_LIMIT = 1.5 * JAX_ADAPTIVE_QUADRANT_ERR
+# The checkpoint's own configuration (runs/scene_big/config.yaml, UDF
+# mask head on) with bf16 convs: the JAX package's interior terrain error
+# mean on the same four 20 m quadrants with the predicted and the splat
+# structure (scripts/terrain_reference_udf.py and its --structure splat,
+# on the CPU; the dense mesher trims).  Phase 8's gates are 1.5x these,
+# for the tiles and the quadrants.
+UDF_CONFIG = os.path.join("runs", "scene_big", "config.yaml")
+JAX_UDF_PRED_QUADRANT_ERR = 0.003712
+UDF_PRED_ERR_LIMIT = 1.5 * JAX_UDF_PRED_QUADRANT_ERR
+JAX_UDF_SPLAT_QUADRANT_ERR = 0.003831
+UDF_SPLAT_ERR_LIMIT = 1.5 * JAX_UDF_SPLAT_QUADRANT_ERR
+# The same on route A's scene (the 60 m tile): its four central 20 m
+# sub-tiles, each alone on route A, whose host mesher seals at the UDF
+# mask with a second sheet at the mask's edge (the script's --route-a).
+# Under the UDF head the route-A gate is 1.5x that, for the tile and the
+# sub-tiles: ROUTE_ERR_LIMIT holds the UDF-off routes, and the JAX
+# package's own sealed mesh is 8x over it.
+JAX_UDF_ROUTE_A_ERR = 0.069686
+UDF_ROUTE_A_ERR_LIMIT = 1.5 * JAX_UDF_ROUTE_A_ERR
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
 BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 # the adjoint's input forms: (buffer dtype, compute dtype) of the solve's
@@ -683,7 +722,7 @@ def route_lap(recon, synthetic_scene, counters, half_extent: float):
     return field, mesh, launches, lap
 
 
-def print_route(tag, recon, field, launches, lap):
+def print_route(tag, recon, field, launches, lap, limit=ROUTE_ERR_LIMIT):
     solve = "lattice" if field.lattice_ctx is not None else "support-row"
     mesher = "host" if "host dual mc" in field.phase_times else "dense"
     print(f"[{tag}] route: unet {recon._last_unet_engine}, solve {solve}, "
@@ -697,10 +736,10 @@ def print_route(tag, recon, field, launches, lap):
           f"{lap['faces']}", flush=True)
     print(f"[{tag}] terrain vertex error on {lap['n_inner']} interior "
           f"vertices: mean {lap['err_mean']:.5f} q90 {lap['err_q90']:.5f} "
-          f"max {lap['err_max']:.5f} (limit {ROUTE_ERR_LIMIT})", flush=True)
-    if not lap["faces"] or not lap["err_mean"] <= ROUTE_ERR_LIMIT:
+          f"max {lap['err_max']:.5f} (limit {limit})", flush=True)
+    if not lap["faces"] or not lap["err_mean"] <= limit:
         raise AssertionError(f"[{tag}] empty mesh or terrain error mean "
-                             f"{lap['err_mean']} > {ROUTE_ERR_LIMIT}")
+                             f"{lap['err_mean']} > {limit}")
 
 
 def check_lattice_launches(tag, launches, field, segsum=2):
@@ -887,6 +926,192 @@ def structure_laps(recon, xyz, nrm, counters, splat_n0, adaptive_recon):
     return pred_launches
 
 
+def check_trim(tag, field, mesh):
+    """A dense-mesher lap with the UDF mask: the trim ran as its own phase
+    and kept the mesh's faces.  Prints its time and the faces it
+    dropped."""
+    st = field.trim_stats
+    if not field.has_udf_mask or st is None \
+            or "dmc: udf mask trim" not in field.phase_times \
+            or st["faces"] - st["dropped"] != len(mesh.f):
+        raise AssertionError(f"[{tag}] the dense mesher did not trim at the "
+                             f"UDF mask: {st}")
+    print(f"[{tag}] UDF trim: dmc: udf mask trim "
+          f"{field.phase_times['dmc: udf mask trim']:.4f} s, dropped "
+          f"{st['dropped']} of {st['faces']} faces "
+          f"({st['dropped'] / max(st['faces'], 1):.4%})", flush=True)
+
+
+def udf_laps(recon, xyz, nrm, counters, synthetic_scene, a_phases, a_lap):
+    """Phase 8.  ``recon`` runs the checkpoint under its own config.yaml
+    (UDF mask head on, bf16 convs).  The predicted structure on the 40 m
+    tile: a warm-up lap and two timed laps, on the per-level engine, the
+    lattice solve and the dense mesher (which trims), bit-equal, with the
+    lattice launches, under 1.5x the JAX package's UDF-on predicted
+    quadrant error; its four quadrants on the one-pass dense engine under
+    the same gate; one splat lap and its quadrants under 1.5x the JAX
+    package's UDF-on splat quadrant error; one route-A lap of the 60 m
+    tile (host mesher, sealed at the mask), its host-MC stages beside
+    phase 5's (``a_phases``, ``a_lap``: its phases and lap record), and
+    the tile's four central 20 m sub-tiles alone on route A (the budgets
+    set to 0 for them), both under 1.5x the JAX package's sealed
+    sub-tile error.  Returns the predicted lap's launches."""
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted")
+    print(f"[phase 8] predicted warm-up lap: reconstruct_s {tr:.3f} "
+          f"extract_mesh_s {tm:.3f}", flush=True)
+    del field, mesh
+    laps, lap_out = [], []
+    for _ in range(2):
+        field = mesh = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted")
+        launches = read_counts(counters)
+        laps.append((tr, tm))
+        lap_out.append(([a.clone() for a in field.alpha], mesh.v, mesh.f))
+        err, n_inner = terrain_error(mesh)
+        print_lap("phase 8", field, tr, tm, launches, mesh, err, n_inner,
+                  UDF_PRED_ERR_LIMIT)
+        check_trim("phase 8", field, mesh)
+    tr, tm = min(t[0] for t in laps), min(t[1] for t in laps)
+    print(f"[phase 8] predicted, UDF on, {N_POINTS} points: engine "
+          f"{recon._last_pred_engine}, reconstruct_s {tr:.3f} extract_mesh_s "
+          f"{tm:.3f} pts/s {N_POINTS / (tr + tm):.1f}", flush=True)
+    same = lap_diff(*lap_out)
+    print("[phase 8] the two predicted laps on one input: " + same,
+          flush=True)
+    del lap_out
+    if "coefficients bit-equal" not in same or "mesh bit-equal" not in same:
+        raise AssertionError("[phase 8] two predicted laps on one input are "
+                             "not bit-equal: " + same)
+    if recon._last_pred_engine != "host-per-level":
+        raise AssertionError("[phase 8] the 40 m tile took the "
+                             f"{recon._last_pred_engine!r} engine, not the "
+                             "per-level one")
+    check_dense_lattice("phase 8", field, mesh, err, UDF_PRED_ERR_LIMIT)
+    check_lattice_launches("phase 8", launches, field)
+    udf_launches = launches
+    del field, mesh
+    torch.cuda.empty_cache()
+
+    engines = []
+
+    def quadrant_lap(field, tr, tm):
+        engines.append(recon._last_pred_engine)
+        st = field.trim_stats or {}
+        print(f"[phase 8] quadrant on the {engines[-1]} engine: reconstruct_s "
+              f"{tr:.3f} extract_mesh_s {tm:.3f}, trim dropped "
+              f"{st.get('dropped')} of {st.get('faces')} faces, phases "
+              + json.dumps({k: round(v, 4)
+                            for k, v in field.phase_times.items()}),
+              flush=True)
+        if field.lattice_ctx is None or not field.has_udf_mask \
+                or "dmc: udf mask trim" not in field.phase_times:
+            raise AssertionError("[phase 8] a quadrant left the lattice "
+                                 "solve or the UDF trim")
+
+    q_err = quadrant_error(recon, xyz, nrm, "predicted", quadrant_lap)
+    print(f"[phase 8] predicted, UDF on, the four 20 m quadrants alone "
+          f"(engines {engines}): terrain vertex error on {len(q_err)} "
+          f"interior vertices: mean {q_err.mean():.5f} q90 "
+          f"{np.quantile(q_err, 0.9):.5f} max {q_err.max():.5f} (the JAX "
+          f"package, CPU: mean {JAX_UDF_PRED_QUADRANT_ERR}; limit "
+          f"{UDF_PRED_ERR_LIMIT:.5f})", flush=True)
+    if engines != ["dense"] * 4:
+        raise AssertionError(f"[phase 8] quadrant engines {engines}, not "
+                             "the one-pass dense engine")
+    if not q_err.mean() <= UDF_PRED_ERR_LIMIT:
+        raise AssertionError(f"[phase 8] predicted quadrant terrain error "
+                             f"mean {q_err.mean()} > {UDF_PRED_ERR_LIMIT}")
+    torch.cuda.empty_cache()
+
+    # the splat structure on the dense lattice, one lap
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "splat")
+    launches = read_counts(counters)
+    err, n_inner = terrain_error(mesh)
+    print_lap("phase 8 splat", field, tr, tm, launches, mesh, err, n_inner,
+              UDF_SPLAT_ERR_LIMIT)
+    check_trim("phase 8 splat", field, mesh)
+    check_dense_lattice("phase 8 splat", field, mesh, err,
+                        UDF_SPLAT_ERR_LIMIT)
+    check_lattice_launches("phase 8 splat", launches, field)
+    del field, mesh
+    torch.cuda.empty_cache()
+    q_err = quadrant_error(recon, xyz, nrm, "splat")
+    print(f"[phase 8 splat] the four 20 m quadrants alone: terrain vertex "
+          f"error on {len(q_err)} interior vertices: mean {q_err.mean():.5f}"
+          f" q90 {np.quantile(q_err, 0.9):.5f} max {q_err.max():.5f} (the "
+          f"JAX package, CPU: mean {JAX_UDF_SPLAT_QUADRANT_ERR}; limit "
+          f"{UDF_SPLAT_ERR_LIMIT:.5f})", flush=True)
+    if not q_err.mean() <= UDF_SPLAT_ERR_LIMIT:
+        raise AssertionError(f"[phase 8 splat] quadrant terrain error mean "
+                             f"{q_err.mean()} > {UDF_SPLAT_ERR_LIMIT}")
+    torch.cuda.empty_cache()
+
+    # route A: the host mesher seals at the mask
+    field, mesh, launches, lap = route_lap(recon, synthetic_scene, counters,
+                                           30.0)
+    print_route("phase 8 route A", recon, field, launches, lap,
+                UDF_ROUTE_A_ERR_LIMIT)
+    print(f"[phase 8 route A] the seal: {lap['verts']} vertices against "
+          f"phase 5's {a_lap['verts']} (UDF off), error mean "
+          f"{lap['err_mean']:.5f} against {a_lap['err_mean']:.5f}",
+          flush=True)
+    if not (recon._last_unet_engine == "sparse"
+            and field.lattice_ctx is not None and field.has_udf_mask
+            and "host dual mc" in field.phase_times
+            and "mc: udf support joins" in field.phase_times):
+        raise AssertionError("[phase 8 route A] the 60 m tile did not take "
+                             "route A, or its host mesher did not seal at "
+                             "the UDF mask")
+    check_lattice_launches("phase 8 route A", launches, field)
+    mc = sorted(k for k in set(field.phase_times) | set(a_phases)
+                if k.startswith("mc: ") or k == "host dual mc")
+    print("[phase 8 route A] host MC stages, s (UDF on / phase 5, UDF off): "
+          + "; ".join(f"{k} {field.phase_times.get(k, 0.0):.3f} / "
+                      f"{a_phases.get(k, 0.0):.3f}" for k in mc), flush=True)
+    del field, mesh
+    torch.cuda.empty_cache()
+
+    # the tile's four central 20 m sub-tiles alone, on route A (the JAX
+    # reference's configuration)
+    from nksr_tpu_torch.meshing import lattice_mc as LMC
+    from nksr_tpu_torch.recon import reconstructor as RC
+    xyz, nrm = synthetic_scene(N_POINTS, half_extent=30.0)
+    inner = (np.abs(xyz[:, 0]) < 20) & (np.abs(xyz[:, 1]) < 20)
+
+    def sub_tile_lap(field, tr, tm):
+        print(f"[phase 8 route A] sub-tile: reconstruct_s {tr:.3f} "
+              f"extract_mesh_s {tm:.3f}", flush=True)
+        if not (recon._last_unet_engine == "sparse"
+                and field.lattice_ctx is not None
+                and "mc: udf support joins" in field.phase_times):
+            raise AssertionError("[phase 8 route A] a sub-tile left route "
+                                 "A or the seal")
+
+    budgets = RC.DENSE_UNET_CELLMAP_BUDGET, LMC.DENSE_CELL_BUDGET
+    RC.DENSE_UNET_CELLMAP_BUDGET = LMC.DENSE_CELL_BUDGET = 0
+    try:
+        q_err = quadrant_error(recon, xyz[inner], nrm[inner], "splat",
+                               sub_tile_lap)
+    finally:
+        RC.DENSE_UNET_CELLMAP_BUDGET, LMC.DENSE_CELL_BUDGET = budgets
+    print(f"[phase 8 route A] the four central 20 m sub-tiles alone: "
+          f"terrain vertex error on {len(q_err)} interior vertices: mean "
+          f"{q_err.mean():.5f} q90 {np.quantile(q_err, 0.9):.5f} max "
+          f"{q_err.max():.5f} (the JAX package, CPU: mean "
+          f"{JAX_UDF_ROUTE_A_ERR}; limit {UDF_ROUTE_A_ERR_LIMIT:.5f})",
+          flush=True)
+    if not q_err.mean() <= UDF_ROUTE_A_ERR_LIMIT:
+        raise AssertionError(f"[phase 8 route A] sub-tile terrain error "
+                             f"mean {q_err.mean()} > {UDF_ROUTE_A_ERR_LIMIT}")
+    torch.cuda.empty_cache()
+    return udf_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -905,7 +1130,9 @@ def main() -> int:
     from nksr_tpu_torch.scripts import probe_kernels as PK
     from nksr_tpu_torch.scripts import time_adjoint as TA
     from nksr_tpu_torch.scripts import time_rows as TR
+    from nksr_tpu_torch.train.driver import pipeline_config_from_yaml
     from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.config import load_config
     from nksr_tpu_torch.utils.scenes import synthetic_scene
     counters = {"fwd": LK.av0_cascade, "adj": LK.av0_adjoint_cascade,
                 "window": WB.window_and_grad_fused, "rows": LK.av0_rows,
@@ -1179,6 +1406,7 @@ def main() -> int:
             and "host dual mc" in field.phase_times):
         raise AssertionError("[phase 5] the 60 m tile did not take route A")
     check_lattice_launches("phase 5", a_launches, field)
+    a_phases, a_lap = dict(field.phase_times), lap
     del field, mesh
     torch.cuda.empty_cache()
 
@@ -1189,6 +1417,18 @@ def main() -> int:
                                    Reconstructor(config=PipelineConfig(
                                        conv_dtype="bfloat16",
                                        adaptive_depth=2), params=params))
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the checkpoint under its own config.yaml (UDF mask head
+    # on), bf16 convs: predicted, splat and route A
+    udf_cfg = dataclasses.replace(pipeline_config_from_yaml(load_config(
+        os.path.join(REPO, UDF_CONFIG))), conv_dtype="bfloat16")
+    if not udf_cfg.udf_enabled:
+        raise AssertionError(f"[phase 8] {UDF_CONFIG} has no UDF head")
+    print(f"[phase 8] {UDF_CONFIG}: {udf_cfg}", flush=True)
+    udf_launches = udf_laps(Reconstructor(config=udf_cfg, params=params),
+                            xyz, nrm, counters, synthetic_scene, a_phases,
+                            a_lap)
     torch.cuda.empty_cache()
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -1257,6 +1497,7 @@ def main() -> int:
                                   "segsum", "window")):
         rec["floor_ms"] = floor_events      # each timed by CUDA events
         rec["launches_predicted"] = pred_launches[key]
+        rec["launches_udf"] = udf_launches[key]
     # the scatter kernels at w = 32 (the study's width; phase 6 prints
     # w = 128 too): the blocked one on unique indices, by CUDA events; the
     # rate kernels at the study's shape, as device time in one CUDA graph

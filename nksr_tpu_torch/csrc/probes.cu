@@ -15,8 +15,10 @@
 // and the window product does 0.5 MFLOP.  Design: one thread per output
 // element (the strided row write: one per input element, writing two
 // rows), so every probe is a gather of its index map; the per-probe
-// functors below hold only that map.  Sums run in a fixed order, so a
-// probe is exact wherever its inputs' sums are.
+// functors below hold only that map.  The window product is the one
+// exception (its own kernel below): a thread summing a 128-long product
+// alone waited on 128 loads of z in turn.  Sums run in a fixed order, so
+// a probe is exact wherever its inputs' sums are.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,21 +143,42 @@ struct ShiftedBlocks {  // bisect 3: out block x = a block (x >> 1) + 1
 };
 
 // bisect 4: a (3, 17, 32), z (128, 128) -> out (2, 8, 128),
-// out[x] = concat_{i, j in {0, 1}} a[x + i, j : j + 8, :] @ z
-struct WindowDot {
-  static constexpr int kThreads = 2 * 8 * L;
-  __device__ static void run(const float* a, const float* z, float* o,
-                             int e) {
-    const int x = e / (8 * L), r = (e / L) % 8, n = e % L;
-    float acc = 0.0f;
-    for (int kk = 0; kk < L; ++kk) {
-      const int g = kk / 32, c = kk % 32;
-      const float av = a[((x + (g >> 1)) * 17 + (g & 1) + r) * 32 + c];
-      acc = fmaf(av, z[kk * L + n], acc);
-    }
-    o[e] = acc;
+// out[x] = concat_{i, j in {0, 1}} a[x + i, j : j + 8, :] @ z.
+// A CTA per output row (x, r), 16 in all: its 128-long window row goes
+// to shared memory once; each of kWdSlices groups of 128 threads sums a
+// 16-long slice of the product for every column n, with the slice's 16
+// loads of z (each z row read once by the CTA, coalesced) issued
+// together; the slices' partials fold in a fixed order.
+constexpr int kWdSlices = 8;
+constexpr int kWdLen = L / kWdSlices;
+
+__global__ void __launch_bounds__(kWdSlices * L)
+window_dot_kernel(const float* __restrict__ a, const float* __restrict__ z,
+                  float* __restrict__ o) {
+  __shared__ float row[L];
+  __shared__ float part[kWdSlices][L];
+  const int x = blockIdx.x / 8, r = blockIdx.x % 8;
+  const int n = threadIdx.x % L, q = threadIdx.x / L;
+  if (threadIdx.x < L) {
+    const int g = threadIdx.x / 32, c = threadIdx.x % 32;
+    row[threadIdx.x] = a[((x + (g >> 1)) * 17 + (g & 1) + r) * 32 + c];
   }
-};
+  __syncthreads();
+  float zv[kWdLen];
+#pragma unroll
+  for (int t = 0; t < kWdLen; ++t) zv[t] = __ldg(&z[(q * kWdLen + t) * L + n]);
+  float acc = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kWdLen; ++t) acc = fmaf(row[q * kWdLen + t], zv[t], acc);
+  part[q][n] = acc;
+  __syncthreads();
+  if (q == 0) {
+    float sum = part[0][n];
+#pragma unroll
+    for (int i = 1; i < kWdSlices; ++i) sum += part[i][n];
+    o[blockIdx.x * L + n] = sum;
+  }
+}
 
 template <class P>
 __global__ void probe_kernel(const float* __restrict__ a,
@@ -195,8 +218,14 @@ PROBE(times2, Times2)
 PROBE(grid_accumulate, GridAccumulate)
 PROBE(element_blocks, ElementBlocks)
 PROBE(shifted_blocks, ShiftedBlocks)
-PROBE(window_dot, WindowDot)
 PROBE(row_replicate, PairReplicate<8>)
+
+extern "C" int probe_window_dot(const float* a, const float* z, float* o,
+                                void* stream) {
+  window_dot_kernel<<<2 * 8, kWdSlices * L, 0, (cudaStream_t)stream>>>(
+      a, z, o);
+  return (int)cudaGetLastError();
+}
 
 // The launch floor: a kernel that does nothing, one thread.  Timed as
 // each kernel beside it is timed (in one CUDA graph, or by CUDA events

@@ -1,5 +1,5 @@
 """Dense-lattice dual marching cubes (counterpart of
-nksr_tpu/meshing/lattice_mc.py, without the UDF trim).
+nksr_tpu/meshing/lattice_mc.py).
 
 On the dense fine grid (depth-0 lattice refined ``f`` times) every
 structure op is a shift:
@@ -13,14 +13,21 @@ structure op is a shift:
   * dual vertices   = means of the edge crossings of each crossing cell;
   * quads           = sign changes along +x/+y/+z corner edges whose 4
                       surrounding cells all cross; vertex ids are ranks
-                      from a cumulative sum over the crossing cells.
+                      from a cumulative sum over the crossing cells;
+  * UDF trim        = with a UDF mask head, after the Newton step, every
+                      quad with a dual vertex outside the mask is
+                      dropped (the JAX package's dense-mesher semantics:
+                      open rims where the host mesher would seal).
 
 Compaction is ``torch.nonzero`` (ascending flat ids) and ``cumsum``.
+Everything stays on the device until the one copy of the finished mesh
+(the trim's host support join reads a copy of the vertices).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -171,13 +178,29 @@ def newton_step(ctx, verts: torch.Tensor, centers: torch.Tensor, f: int,
                          centers + 0.5 * s_f)
 
 
+def trim_quads(quads, flips, keep_vertex: torch.Tensor):
+    """The quads (and their flip flags) whose 4 vertices all pass
+    ``keep_vertex``."""
+    kept_q, kept_f = [], []
+    for q, fl in zip(quads, flips):
+        keep = keep_vertex[q].all(1)
+        kept_q.append(q[keep])
+        kept_f.append(fl[keep])
+    return kept_q, kept_f
+
+
 @torch.no_grad()
 def extract_dual_mesh_dense(ctx, mise_iter: int = 0, grid_upsample: int = 1,
-                            max_points: Optional[int] = None
+                            max_points: Optional[int] = None,
+                            udf_mask: Optional[Callable] = None,
+                            trim_stats: Optional[dict] = None
                             ) -> Optional[TriangleMesh]:
     """Dense-lattice extraction.  ``mise_iter`` rounds double the
     extraction resolution and add a Newton polish; ``max_points`` bounds
-    each evaluation wave.  None when the fine grid is over
+    each evaluation wave.  ``udf_mask`` (device vertices -> device bool)
+    trims the quads with a vertex it rejects; ``trim_stats`` then gets
+    the trim's "seconds" and the triangles before it ("faces") and
+    dropped by it ("dropped").  None when the fine grid is over
     ``DENSE_CELL_BUDGET``: the host mesher (``meshing/host_mc.py``) takes
     over."""
     spec = ctx.spec
@@ -192,6 +215,21 @@ def extract_dual_mesh_dense(ctx, mise_iter: int = 0, grid_upsample: int = 1,
         v_dense, cand, ctx.origins[0], f, ctx.voxel_size)
     if mise_iter > 0 and len(verts):
         verts = newton_step(ctx, verts, centers, f, max_points)
+
+    if udf_mask is not None:
+        sync = verts.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(verts.device)
+        t0 = time.perf_counter()
+        n_before = 2 * sum(len(q) for q in quads)
+        if len(verts):
+            quads, flips = trim_quads(quads, flips, udf_mask(verts))
+        if sync:
+            torch.cuda.synchronize(verts.device)
+        if trim_stats is not None:
+            trim_stats.update(
+                seconds=time.perf_counter() - t0, faces=n_before,
+                dropped=n_before - 2 * sum(len(q) for q in quads))
 
     tris = []
     for q, fl in zip(quads, flips):

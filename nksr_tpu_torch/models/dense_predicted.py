@@ -134,16 +134,22 @@ def predicted_forward(cfg: PipelineConfig, net: NKSRNetwork, dims, origins,
 
 
 @torch.no_grad()
-def predicted_heads(net: NKSRNetwork, gs, dec_cell, dec_active):
-    """Basis and normal heads at the decoder voxels: one row gather a
+def predicted_heads(net: NKSRNetwork, gs, dec_cell, dec_active,
+                    cand_cell=None, cand_active=None):
+    """Basis and normal heads at the decoder voxels, and with
+    ``cand_cell`` the UDF head at the candidate voxels: one row gather a
     depth from the retained feature lattices, in the cap-padded voxel-list
-    order of the JAX package."""
-    basis, normal = [], []
+    order of the JAX package.  Returns (basis, normal, udf or None)."""
+    basis, normal, udf = [], [], []
     for d in range(len(gs)):
         b, n = DU.heads(net.unet, d, gs[d], dec_cell[d], dec_active[d])
         basis.append(b)
         normal.append(n)
-    return tuple(basis), tuple(normal)
+        if cand_cell is not None:
+            udf.append(DU.udf_head(net.unet, d, gs[d], cand_cell[d],
+                                   cand_active[d]))
+    return tuple(basis), tuple(normal), \
+        tuple(udf) if cand_cell is not None else None
 
 
 def status_lists(st: np.ndarray, origin, sel: int):

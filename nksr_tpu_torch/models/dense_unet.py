@@ -202,6 +202,12 @@ def heads(up, d: int, g, cells, act):
     return basis, normal
 
 
+def udf_head(up, d: int, g, cells, act):
+    """The depth-d UDF head at the rows ``cells`` of ``g``, read as the
+    basis head reads them (inactive rows: the head's bias)."""
+    return getattr(up, f"udf_{d}")(_head_rows(g, cells, act))
+
+
 def encoder_path(cfg: PipelineConfig, net: NKSRNetwork, dims, origins, occ,
                  xyz: torch.Tensor, feat, base0: torch.Tensor, cdt):
     """Point encoder, then the encoder's conv blocks and stride-2 convs
@@ -229,9 +235,11 @@ def dense_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, spec, origins,
     """Encoder + UNet + heads on the dense lattice, with the decoder
     taught the encoder hierarchy (its occupancy masks the convs) and the
     heads read at the decoder cells of ``tables``.  Returns per-depth
-    (basis_features, normal_features) in the decoder's voxel-row layout
-    of the JAX package (the structure and UDF heads serve routes this
-    package does not run)."""
+    (basis_features, normal_features, udf_features) in the voxel-row
+    layouts of the JAX package: the UDF head (None unless
+    ``cfg.udf_enabled``) at the encoder cells, the candidates of a
+    teacher-forced decoder (the structure head serves the predicted
+    engines, ``models/dense_predicted.py``)."""
     depth = spec.depth
     dims = spec.dims[:depth]
     cdt = getattr(torch, cfg.conv_dtype)
@@ -240,13 +248,17 @@ def dense_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, spec, origins,
            for d in range(depth)]
     enc_feats = encoder_path(cfg, net, dims, origins, occ, xyz, feat, base0,
                              cdt)
-    basis, normal = [None] * depth, [None] * depth
+    basis, normal, udf = [None] * depth, [None] * depth, [None] * depth
     g = enc_feats[depth - 1]
     for d in range(depth - 1, -1, -1):
         g = _conv_block(getattr(up, f"dec_{d}"), g, occ[d], cdt)
         basis[d], normal[d] = heads(up, d, g, tables.dec_cell[d],
                                     tables.dec_active[d])
+        if cfg.udf_enabled:
+            udf[d] = udf_head(up, d, g, tables.enc_cell[d],
+                              tables.enc_active[d])
         if d > 0:
             hu = _up(getattr(up, f"up_{d}"), g, dims[d - 1], cdt)
             g = torch.where(occ[d - 1], hu + enc_feats[d - 1], 0.0)
-    return tuple(basis), tuple(normal)
+    return tuple(basis), tuple(normal), \
+        tuple(udf) if cfg.udf_enabled else None

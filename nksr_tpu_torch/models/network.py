@@ -112,8 +112,9 @@ class UNetParams(nn.Module):
 
 
 class NKSRNetwork(nn.Module):
-    """All parameters of one model.  The SDF and UDF decoders are held so
-    a checkpoint loads whole; no route of this package reads them yet."""
+    """All parameters of one model.  The UDF decoder is the UDF mask
+    head's (``fields/neural_field.py``); the SDF decoder is held so a
+    checkpoint loads whole (no route of this package reads it yet)."""
 
     def __init__(self, cfg: PipelineConfig):
         super().__init__()

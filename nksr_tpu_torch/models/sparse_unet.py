@@ -13,7 +13,7 @@ conv3d weight reads back as 27 taps in ``stencil_offsets(3)`` order,
 Capacity-padding rows are trimmed: each level holds its n_d real voxels
 only, so the masked GroupNorm is a plain GroupNorm over the rows.  The
 heads are written back at (cap_d, C), padding rows as the JAX package
-computes them (basis = the head's bias, normal = 0).
+computes them (basis and UDF = the head's bias, normal = 0).
 
 With ``conv_dtype="bfloat16"`` the 27-tap convs gather and multiply in
 bf16 with f32 sums, rounded once (``ops/gather_scatter.gather_conv``);
@@ -156,25 +156,30 @@ def sparse_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, tables,
     ``n_vox[d]`` real voxels and ``caps[d]`` capacity of level d;
     ``coords[d]`` (n_d, 3) int64 voxel coords; ``splat_idx`` (N, 8) the
     points' depth-0 splat rows.  Returns per-depth (basis_features,
-    normal_features) at (cap_d, C), the layout of the JAX package."""
+    normal_features, udf_features) at (cap_d, C), the layout of the JAX
+    package; the UDF head (None unless ``cfg.udf_enabled``) at the
+    decoder's candidate rows, which are the splat hierarchy's here."""
     depth = cfg.tree_depth
     cdt = getattr(torch, cfg.conv_dtype)
     up = net.unet
     enc_feats = encoder_path(cfg, net, tables.nbr, tables.child, n_vox, xyz,
                              feat, splat_idx, cdt)
-    basis, normal = [None] * depth, [None] * depth
+    basis, normal, udf = [None] * depth, [None] * depth, [None] * depth
     g = enc_feats[depth - 1]
     for d in range(depth - 1, -1, -1):
         g = conv_block(getattr(up, f"dec_{d}"), g, tables.nbr[d][:n_vox[d]],
                        cdt)
         basis[d], normal[d] = heads(up, d, g, n_vox[d], caps[d])
+        if cfg.udf_enabled:
+            udf[d] = udf_head(up, d, g, n_vox[d], caps[d])
         if d > 0:
             n = n_vox[d - 1]
             # the encoder skip row of each child, after the up conv
             h = up_conv(up, d, g, tables.parent[d - 1][:n],
                         gs.octant_id(coords[d - 1]))
             g = h + gs.take_rows(enc_feats[d - 1], tables.skip[d - 1][:n])
-    return tuple(basis), tuple(normal)
+    return tuple(basis), tuple(normal), \
+        tuple(udf) if cfg.udf_enabled else None
 
 
 def heads(up, d: int, rows: torch.Tensor, n: int, cap: int):
@@ -186,3 +191,9 @@ def heads(up, d: int, rows: torch.Tensor, n: int, cap: int):
     nf = getattr(up, f"normal_{d}")(rows)
     live = (torch.arange(cap, device=rows.device) < n)[:, None]
     return basis, torch.where(live, nf, 0.0)
+
+
+def udf_head(up, d: int, rows: torch.Tensor, n: int, cap: int):
+    """The depth-d UDF head of the first ``n`` rows, written at (cap, C):
+    padding rows as the JAX package computes them (the head's bias)."""
+    return getattr(up, f"udf_{d}")(_pad_rows(rows[:n], cap))

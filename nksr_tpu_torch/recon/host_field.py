@@ -8,18 +8,31 @@ nksr_tpu/recon/host_field.py): one class for both engines.
     the device evaluates the basis; the trust mask is the union of the
     queries' supports.
 
+A model with a UDF head (``cfg.udf_enabled``) carries its mask field
+instead (``fields/neural_field.NeuralField`` at level set ``2 *
+voxel_size`` over ``udf_host``, the hierarchy its features live on):
+then the trust mask is ``level_set - udf(x) > 0`` alone, on either
+engine, and the values are the field's own (the lattice's trusted-cell
+mask is not read), as in the JAX package.
+
 Meshing takes the dense device mesher where there is a lattice and the
-fine grid fits ``DENSE_CELL_BUDGET``, else the host mesher.
+fine grid fits ``DENSE_CELL_BUDGET``, else the host mesher.  With a UDF
+mask the two differ as they do in the JAX package: the dense mesher
+TRIMS (faces with a dual vertex outside the mask are dropped after the
+Newton step), the host mesher SEALS (corners outside the mask read
+``-voxel_size`` through ``eval_fbar_batched``, so the surface closes
+at the mask's edge).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import host_build as HB
+from ..fields.neural_field import NeuralField
 from ..meshing.host_mc import host_extract_dual_mesh
 from ..meshing.lattice_mc import TriangleMesh, extract_dual_mesh_dense
 from ..utils.profiling import PhaseTimer
@@ -68,7 +81,10 @@ class HostField:
     def __init__(self, cfg, host_grids, alpha: Sequence[torch.Tensor],
                  lattice_ctx, solver_stats: SolverStats,
                  phase_times: Optional[dict] = None, field=None,
-                 capacities: Optional[Sequence[int]] = None):
+                 capacities: Optional[Sequence[int]] = None,
+                 udf_host: Optional[List[HB.HostGrid]] = None,
+                 udf_caps: Optional[Sequence[int]] = None,
+                 mask_field: Optional[NeuralField] = None):
         self.cfg = cfg
         self.host_grids = host_grids
         self.alpha = tuple(alpha)
@@ -77,10 +93,48 @@ class HostField:
         self.capacities = None if capacities is None else tuple(capacities)
         self.solver_stats = solver_stats
         self.phase_times = {} if phase_times is None else phase_times
+        # the UDF mask head's grids, capacities and field (None without
+        # one); the last dense extraction's trim, in triangles
+        self.udf_host = udf_host
+        self.udf_caps = None if udf_caps is None else tuple(udf_caps)
+        self.mask_field = mask_field
+        self.trim_stats: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.alpha[0].device
+
+    @property
+    def has_udf_mask(self) -> bool:
+        return self.udf_host is not None and self.mask_field is not None
+
+    def set_mask_field(self, mf: Optional[NeuralField]) -> "HostField":
+        """Replace the mask field (e.g. ``mask_field.set_level_set(v)``);
+        None falls back to the union-of-support / trusted-cell mask."""
+        self.mask_field = mf
+        return self
+
+    def udf_mask(self, x: np.ndarray, tm=None) -> torch.Tensor:
+        """``level_set - udf(x) > 0`` at (n, 3) host points, as a device
+        bool tensor: per wave a host join over ``udf_host``, then the
+        pool and the decoder on the device.  ``tm`` (a ``PhaseTimer``)
+        splits the time into "mc: udf support joins" and "mc: udf
+        mask"."""
+        x = np.asarray(x, np.float32)
+        out = torch.empty(x.shape[0], dtype=torch.bool, device=self.device)
+        for s in range(0, x.shape[0], _EVAL_BATCH):
+            xb = x[s:s + _EVAL_BATCH]
+            sup = tuple(torch.as_tensor(t.astype(np.int64),
+                                        device=self.device)
+                        for t in HB.support_indices(self.udf_host,
+                                                    self.udf_caps, xb))
+            if tm is not None:
+                tm.lap("mc: udf support joins")
+            out[s:s + len(xb)] = self.mask_field.evaluate_mask(
+                torch.as_tensor(xb, device=self.device), sup) > 0
+            if tm is not None:
+                tm.lap("mc: udf mask")
+        return out
 
     def _support_eval(self, x: np.ndarray, grad: bool, tm=None):
         """Support-row field on host points: values, union-of-support
@@ -118,23 +172,38 @@ class HostField:
         return (v, g) if grad else v
 
     def _mask_host(self, x: np.ndarray) -> np.ndarray:
-        """Trust mask: the lattice's trusted cells, or the union of the
-        queries' supports."""
+        """Trust mask: the UDF mask where the model has one, else the
+        lattice's trusted cells, or the union of the queries' supports."""
         x = np.asarray(x, np.float32)
+        if self.has_udf_mask:
+            return self.udf_mask(x).cpu().numpy()
         if self.lattice_ctx is not None:
             return self.lattice_ctx.eval_batched(x)[1]
         return _in_support(HB.support_indices(self.host_grids,
                                               self.capacities, x))
 
     def eval_fbar_batched(self, x: np.ndarray, tm=None) -> np.ndarray:
-        """Field value where trusted, ``-voxel_size`` elsewhere."""
+        """Field value where trusted, ``-voxel_size`` elsewhere (the host
+        mesher's corner values: with a UDF mask, its seal)."""
         x = np.asarray(x, np.float32)
-        if self.lattice_ctx is not None:
+        if self.has_udf_mask:
+            v = self._eval_batched(x, tm=tm)
+            if tm is not None:
+                tm.lap("mc: field eval")
+            m = self.udf_mask(x, tm).cpu().numpy()
+        elif self.lattice_ctx is not None:
             v, m = self.lattice_ctx.eval_batched(x)
         else:
             v, m, _ = self._support_eval(x, False, tm)
         return np.where(m, v, -self.host_grids[0].voxel_size
                         ).astype(np.float32)
+
+    def evaluate_f_bar(self, x) -> np.ndarray:
+        """``evaluate_f`` where the mask passes, ``-voxel_size``
+        elsewhere."""
+        x = np.asarray(x, np.float32)
+        return np.where(self._mask_host(x), self._eval_batched(x),
+                        -self.host_grids[0].voxel_size).astype(np.float32)
 
     def evaluate_f(self, x, grad: bool = False) -> FieldEval:
         x = np.asarray(x, np.float32)
@@ -151,11 +220,19 @@ class HostField:
         if self.lattice_ctx is not None:
             self.lattice_ctx.tables()
             tm.lap("evaluator tables")
+            trim = {} if self.has_udf_mask else None
             mesh = extract_dual_mesh_dense(
                 self.lattice_ctx, mise_iter=mise_iter,
-                grid_upsample=grid_upsample, max_points=max_points)
+                grid_upsample=grid_upsample, max_points=max_points,
+                udf_mask=(lambda v: self.udf_mask(v.cpu().numpy()))
+                if trim is not None else None, trim_stats=trim)
             if mesh is not None:
                 tm.lap("dual mc")
+                if trim is not None:
+                    # the trim as a phase of its own, out of "dual mc"
+                    self.phase_times["dual mc"] -= trim["seconds"]
+                    self.phase_times["dmc: udf mask trim"] = trim["seconds"]
+                self.trim_stats = trim
                 return mesh
         mesh = host_extract_dual_mesh(self, mise_iter=mise_iter,
                                       grid_upsample=grid_upsample,

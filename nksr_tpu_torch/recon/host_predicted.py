@@ -13,9 +13,10 @@ cuts:
                      stencil, parent and skip rows;
   per level (device) the octant-weighted transposed conv ``up_d``, the
                      encoder skip, the ``dec_{d-1}`` block and its logits;
-  final (device)     the heads on the pruned grids, then the lattice
-                     solve (or, for a bounding box ``plan_lattice``
-                     refuses, the support-row solve).
+  final (device)     the heads on the pruned grids (a UDF head on every
+                     candidate row, its mask on the candidate grids),
+                     then the lattice solve (or, for a bounding box
+                     ``plan_lattice`` refuses, the support-row solve).
 
 It runs where the one-pass dense engine (``recon/predicted_dense.py``)
 does not: a UNet lattice over its budget, or a prediction that prunes
@@ -39,7 +40,7 @@ from ..models.dense_predicted import VOXEL_REFINED
 from ..ops import gather_scatter as gs
 from ..utils.profiling import PhaseTimer
 from .host_field import HostField
-from .solve_tail import lattice_field, support_row_field
+from .solve_tail import UdfHead, lattice_field, support_row_field
 
 
 def _next_pow2(n: int) -> int:
@@ -91,12 +92,14 @@ def reconstruct_predicted_host(cfg, net, xyz: np.ndarray,
     # level loop: the host prunes and refines, the device runs the next
     # level's convs; each part summed as a phase of its own
     loop = PhaseTimer(dev, times, accumulate=True)
-    cand = grids[D - 1]
+    cand, cand_cap = grids[D - 1], caps[D - 1]
     g_convs = [None] * D
     g_convs[D - 1] = g
     dec_host = [None] * D
     head_rows = [None] * D
+    cand_host, cand_caps = [None] * D, [0] * D
     for d in range(D - 1, -1, -1):
+        cand_host[d], cand_caps[d] = cand, cand_cap
         keep = status > 0
         dec_host[d] = HB.prune(cand, keep)
         head_rows[d] = np.nonzero(keep)[0]
@@ -117,7 +120,7 @@ def reconstruct_predicted_host(cfg, net, xyz: np.ndarray,
         loop.lap("level loop: device")
         status = st_dev.cpu().numpy()
         loop.lap("level loop: status readback")
-        cand = kid
+        cand, cand_cap = kid, _next_pow2(cn)
     del enc_feats
     tm.lap("level loop")
 
@@ -140,6 +143,12 @@ def reconstruct_predicted_host(cfg, net, xyz: np.ndarray,
         b, nf = SU.heads(up, d, gd, live, dec_caps[d])
         basis_f.append(b)
         normal_f.append(nf)
+    udf = None
+    if cfg.udf_enabled:
+        # the UDF head on every candidate row of each level
+        udf = UdfHead(cand_host, tuple(cand_caps), tuple(
+            SU.udf_head(up, d, g_convs[d], len(cand_host[d].keys),
+                        cand_caps[d]) for d in range(D)))
     del g_convs
     tm.lap("dispatch heads")
 
@@ -162,7 +171,7 @@ def reconstruct_predicted_host(cfg, net, xyz: np.ndarray,
                              input_normal, basis_f, normal_f, tm, times,
                              dense_prior=False, pt_sup=pt_sup,
                              dec_caps=dec_caps,
-                             label="final solve (lattice)")
+                             label="final solve (lattice)", udf=udf)
     return support_row_field(cfg, net, dec_host, dec_caps, xyz_t,
                              input_normal, basis_f, normal_f, pt_sup, tm,
-                             times)
+                             times, udf=udf)

@@ -6,7 +6,8 @@ lattice (``models/dense_predicted.py``); the host reads back one int8
 status lattice a level and builds the decoder voxel lists from it; the
 heads are read from the retained feature lattices; the final solve and
 the mesher are the splat path's (dense lattice solve with the dense
-normal prior, lattice evaluator, dense dual MC).
+normal prior, lattice evaluator, dense dual MC).  A UDF head is read at
+the candidate voxels, and its mask lives on the candidate hierarchy.
 
 ``reconstruct_predicted_dense`` returns None where this engine does not
 apply (the UNet lattice over ``DENSE_PRED_CELLMAP_BUDGET``, an empty
@@ -28,7 +29,7 @@ from ..fields.lattice import plan_lattice
 from ..models import dense_predicted as DP
 from ..models import dense_unet as DU
 from .host_field import HostField
-from .solve_tail import lattice_field
+from .solve_tail import UdfHead, lattice_field
 
 
 def _next_pow2(n: int) -> int:
@@ -38,10 +39,11 @@ def _next_pow2(n: int) -> int:
 class PredictedParts:
     """What the structure-predicting forward gives the final solve: the
     encoder grids and point orders, the decoder and candidate grids and
-    their cells in the UNet lattice, and the head features."""
+    their cells in the UNet lattice, and the head features (the UDF
+    head's at the candidates, None without one)."""
     __slots__ = ("grids", "orders", "caps", "dec_host", "dec_caps",
-                 "cand_host", "dec_cells", "cand_cells", "basis_f",
-                 "normal_f")
+                 "cand_host", "cand_caps", "dec_cells", "cand_cells",
+                 "basis_f", "normal_f", "udf_f")
 
 
 def _sorted_grid(coords: np.ndarray, voxel_size: float) -> HB.HostGrid:
@@ -98,22 +100,29 @@ def predicted_structures(cfg, net, xyz: np.ndarray, xyz_t: torch.Tensor,
         return None
 
     dec_caps = tuple(_next_pow2(len(g.keys)) for g in dec_host)
-    dc, da = [], []
-    for d, ids in enumerate(dec_ids):
-        c = np.zeros(dec_caps[d], np.int64)
-        c[:len(ids)] = ids
-        dc.append(torch.as_tensor(c, device=dev))
-        da.append(torch.arange(dec_caps[d], device=dev) < len(ids))
-    basis_f, normal_f = DP.predicted_heads(net, gs, dc, da)
+    cand_caps = tuple(_next_pow2(len(g.keys)) for g in cand_host)
+
+    def padded(ids_list, caps_):
+        cells, active = [], []
+        for d, ids in enumerate(ids_list):
+            c = np.zeros(caps_[d], np.int64)
+            c[:len(ids)] = ids
+            cells.append(torch.as_tensor(c, device=dev))
+            active.append(torch.arange(caps_[d], device=dev) < len(ids))
+        return cells, active
+
+    dc, da = padded(dec_ids, dec_caps)
+    cc, ca = padded(cand_ids, cand_caps) if cfg.udf_enabled else (None, None)
+    basis_f, normal_f, udf_f = DP.predicted_heads(net, gs, dc, da, cc, ca)
     del gs
     tm.lap("dispatch heads")
 
     parts = PredictedParts()
     parts.grids, parts.orders, parts.caps = grids, orders, caps
     parts.dec_host, parts.dec_caps = dec_host, dec_caps
-    parts.cand_host = cand_host
+    parts.cand_host, parts.cand_caps = cand_host, cand_caps
     parts.dec_cells, parts.cand_cells = dec_ids, cand_ids
-    parts.basis_f, parts.normal_f = basis_f, normal_f
+    parts.basis_f, parts.normal_f, parts.udf_f = basis_f, normal_f, udf_f
     return parts
 
 
@@ -135,7 +144,9 @@ def reconstruct_predicted_dense(cfg, net, xyz: np.ndarray,
         return None
     tm.lap("lattice plan")
     input_normal = feat if cfg.feature == "normal" else None
+    udf = None if parts.udf_f is None else UdfHead(
+        parts.cand_host, parts.cand_caps, parts.udf_f)
     return lattice_field(cfg, net, plan, parts.dec_host, xyz, xyz_t,
                          input_normal, parts.basis_f, parts.normal_f, tm,
                          times, dense_prior=True,
-                         label="final solve (lattice)")
+                         label="final solve (lattice)", udf=udf)

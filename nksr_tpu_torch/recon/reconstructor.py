@@ -31,9 +31,16 @@ Three structures, as in the JAX package:
     (``recon/host_predicted.py``); both end in the lattice solve, or in
     the support-row solve for a bounding box the plan refuses.
 
+A model with a UDF head (``udf_enabled``, e.g. ``runs/scene_big`` under
+its own config.yaml through ``train.driver.pipeline_config_from_yaml``)
+runs every route above with the head's mask on its field: the head reads
+the encoder's splat hierarchy on the splat and adaptive structures and
+the candidate hierarchy on the predicted one, as in the JAX package.
+
 The dense mesher meshes a lattice field whose fine grid fits
 ``meshing.lattice_mc.DENSE_CELL_BUDGET``, the host mesher any other
-field.  ``_last_unet_engine`` records "dense" or "sparse",
+field; with a UDF mask the dense mesher trims and the host mesher seals
+(``recon/host_field.py``).  ``_last_unet_engine`` records "dense" or "sparse",
 ``_last_pred_engine`` "dense" or "host-per-level".  Routes that are not
 ported yet raise ``NotImplementedError`` naming the ROADMAP item that
 ports them; nothing falls back to another engine or to the CPU.
@@ -60,7 +67,7 @@ from ..utils.profiling import PhaseTimer
 from .host_field import HostField
 from .host_predicted import reconstruct_predicted_host
 from .predicted_dense import reconstruct_predicted_dense
-from .solve_tail import (lattice_field, resolve_solver_dtype,
+from .solve_tail import (UdfHead, lattice_field, resolve_solver_dtype,
                          support_row_field)
 
 # total dense cells (all depths) x f_maps the conv3d UNet may hold;
@@ -148,8 +155,6 @@ class Reconstructor:
         if mesh is not None:
             raise _not_ported("multi-device reconstruction (mesh=)",
                               "item 15")
-        if self.config.udf_enabled:
-            raise _not_ported("the UDF mask head (udf_enabled)", "item 10")
         if self.config.solver_formulation != "primal":
             raise _not_ported("solver_formulation="
                               f"{self.config.solver_formulation!r}", "item 13")
@@ -255,13 +260,16 @@ class Reconstructor:
                                      dev, dec_grids, dec_caps)
             perm = up(orders[0][1], i64)
             base0 = up(HB.unpack64(orders[0][0]), i64)
-            basis_f, normal_f = DU.dense_unet_apply(
+            basis_f, normal_f, udf_f = DU.dense_unet_apply(
                 cfg, self.network, plan.spec, plan.origins, tables,
                 xyz_t[perm], None if feat is None else feat[perm], base0)
             tm.lap("dense unet")
+            # the UDF head lives on the encoder's splat hierarchy
             return lattice_field(cfg, self.network, plan, dec_grids, xyz,
                                  xyz_t, input_normal, basis_f, normal_f, tm,
-                                 times, dense_prior=True)
+                                 times, dense_prior=True,
+                                 udf=None if udf_f is None else
+                                 UdfHead(grids, caps, udf_f))
 
         # the points' splat rows: the encoder's depth-0 table, the normal
         # prior's (adaptive depths) and route B's value rows (every depth)
@@ -273,19 +281,20 @@ class Reconstructor:
                              for part in ut))
         coords = tuple(up(g.coords, i64) for g in grids)
         tm.lap("unet tables")
-        basis_f, normal_f = SU.sparse_unet_apply(
+        basis_f, normal_f, udf_f = SU.sparse_unet_apply(
             cfg, self.network, ut, [len(g.keys) for g in grids], caps,
             coords, xyz_t, feat, pt_sup[0])
         del ut, coords
         tm.lap("sparse unet")
+        udf = None if udf_f is None else UdfHead(grids, caps, udf_f)
         if plan is None:
             return support_row_field(cfg, self.network, grids, caps, xyz_t,
                                      input_normal, basis_f, normal_f,
-                                     pt_sup, tm, times)
+                                     pt_sup, tm, times, udf=udf)
         return lattice_field(cfg, self.network, plan, grids, xyz, xyz_t,
                              input_normal, basis_f, normal_f, tm, times,
                              dense_prior=False, pt_sup=pt_sup,
-                             dec_caps=caps)
+                             dec_caps=caps, udf=udf)
 
     # -------------------------------------------------------------- helpers
     def _pick_voxel_size(self, xyz: np.ndarray,

@@ -10,12 +10,15 @@ host_predicted.py).
     whose lattice plan is refused, meshed on the host.
 
 The field's mask follows the decoder grids it is handed, as the JAX
-package's ``LayerField(dec_svh, adaptive_depth)`` does.
+package's ``LayerField(dec_svh, adaptive_depth)`` does; a model with a
+UDF head (``cfg.udf_enabled``) hands its features instead (``UdfHead``),
+and the mask is the UDF's ``NeuralField`` at level set ``2 *
+voxel_size`` (nksr_tpu/recon/reconstructor.py:352-359).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +26,31 @@ import torch
 from ..core import host_build as HB
 from ..fields.lattice import lattice_solve
 from ..fields.lattice_eval import LatticeEvalContext
+from ..fields.neural_field import NeuralField
 from ..models import dense_unet as DU
 from ..models import pipeline as P
 from .host_field import HostField, SolverStats
+
+
+class UdfHead(NamedTuple):
+    """The UDF head's per-depth features (cap_d, udf_dim) and the host
+    grids and capacities they live on: the encoder's splat hierarchy on
+    the splat and adaptive routes, the candidate hierarchy on the
+    predicted one."""
+    grids: Sequence[HB.HostGrid]
+    caps: Tuple[int, ...]
+    features: Tuple[torch.Tensor, ...]
+
+
+def udf_mask_kw(cfg, net, udf: Optional[UdfHead]) -> dict:
+    """``HostField`` arguments of the UDF mask (none without a head)."""
+    if udf is None:
+        return {}
+    mf = NeuralField([P.level_voxel_size(cfg, d)
+                      for d in range(len(udf.features))], udf.features,
+                     net.udf_decoder).set_level_set(2.0 * cfg.voxel_size)
+    return dict(udf_host=list(udf.grids), udf_caps=tuple(udf.caps),
+                mask_field=mf)
 
 
 def resolve_solver_dtype(dt: str, device: torch.device) -> str:
@@ -53,13 +78,14 @@ def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
                   basis_f, normal_f, tm, times: dict, *,
                   dense_prior: bool, pt_sup=None,
                   dec_caps: Optional[Sequence[int]] = None,
-                  label: str = "lattice solve") -> HostField:
+                  label: str = "lattice solve",
+                  udf: Optional[UdfHead] = None) -> HostField:
     """Lattice solve on ``plan`` (built on ``dec_grids``) and the lattice
     field.  Gradient targets: the residual normal head plus the input
     normals' prior, splatted onto the solve lattice (``dense_prior``) or
     through ``pt_sup[d]``, the points' (N, 8) splat rows into the depth-d
     decoder voxels of capacity ``dec_caps[d]``.  ``label``: the solve's
-    phase name."""
+    phase name; ``udf``: the UDF head, whose mask the field carries."""
     dev = xyz_t.device
     i64 = torch.int64
 
@@ -106,15 +132,16 @@ def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
     return HostField(cfg, dec_grids, alphas, ctx,
                      SolverStats(iters, rel_res, cfg.solver_tol,
                                  cfg.solver_max_iters),
-                     phase_times=times)
+                     phase_times=times, **udf_mask_kw(cfg, net, udf))
 
 
 def support_row_field(cfg, net, grids, caps, xyz_t: torch.Tensor,
                       input_normal, basis_f, normal_f, pt_sup, tm,
-                      times: dict) -> HostField:
+                      times: dict, udf: Optional[UdfHead] = None
+                      ) -> HostField:
     """The support-row kernel solve on the hierarchy ``grids`` (value rows
     at the points through ``pt_sup``, gradient rows at the voxel centers
-    of the adaptive depths) and its field."""
+    of the adaptive depths) and its field, with the mask of ``udf``."""
     grad_sup = tuple(
         torch.as_tensor(t.astype(np.int64), device=xyz_t.device)
         for t in HB.support_indices(grids, caps,
@@ -127,4 +154,5 @@ def support_row_field(cfg, net, grids, caps, xyz_t: torch.Tensor,
     return HostField(cfg, grids, field.alpha, None,
                      SolverStats(iters, rel_res, cfg.solver_tol,
                                  cfg.solver_max_iters),
-                     phase_times=times, field=field, capacities=caps)
+                     phase_times=times, field=field, capacities=caps,
+                     **udf_mask_kw(cfg, net, udf))

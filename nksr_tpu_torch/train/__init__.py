@@ -1,0 +1,1 @@
+"""train layer of the PyTorch port (see the package docstring)."""

@@ -173,7 +173,7 @@ def test_dense_unet_heads_at_the_decoder_match_jax(case):
                                       plan.vox_active[d])
     perm = case["orders"][0][1]
     with torch.no_grad():
-        basis, normal = DU.dense_unet_apply(
+        basis, normal, _ = DU.dense_unet_apply(
             cfg, net, plan.spec, plan.origins, tables,
             torch.from_numpy(case["xyz"][perm]),
             torch.from_numpy(case["nrm"][perm]),

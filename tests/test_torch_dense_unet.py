@@ -75,7 +75,7 @@ def test_dense_unet_matches_jax():
     tables = DU.build_tables(plan.spec, plan.origins, grids, caps, "cpu")
     perm = orders[0][1]
     with torch.no_grad():
-        basis, normal = DU.dense_unet_apply(
+        basis, normal, _ = DU.dense_unet_apply(
             cfg, net, plan.spec, plan.origins, tables,
             torch.from_numpy(xyz[perm]), torch.from_numpy(nrm[perm]),
             torch.from_numpy(HB.unpack64(orders[0][0]).astype(np.int64)))

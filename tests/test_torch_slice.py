@@ -239,7 +239,6 @@ def test_host_field_queries(solved):
 @pytest.mark.parametrize("cfg_kw,call_kw", [
     ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None)),
     ({}, dict(structure="splat", mesh=object())),
-    (dict(udf_enabled=True), dict(structure="splat")),
     (dict(solver_formulation="dual"), dict(structure="splat")),
     (dict(geometry="neural"), dict(structure="splat")),
 ])

@@ -99,7 +99,7 @@ def unet_pair():
     ut = HB.build_unet_tables(grids, caps, GS.stencil_offsets(3))
     ut = HB.UNetTables(*(tuple(torch.from_numpy(t.astype(np.int64))
                                for t in part) for part in ut))
-    basis, normal = SU.sparse_unet_apply(
+    basis, normal, _ = SU.sparse_unet_apply(
         cfg, net, ut, [len(g.keys) for g in grids], caps,
         [torch.from_numpy(g.coords.astype(np.int64)) for g in grids],
         torch.from_numpy(xyz), torch.from_numpy(nrm),
