@@ -104,6 +104,22 @@ Phases (any failure ends the run with a non-zero exit):
      over the UDF-off routes' gate).  The kernels line gains
      each lattice kernel's launches on the UDF predicted lap
      (``launches_udf``).
+  9. (run after phase 8) the README's lidar recipe under the same
+     configuration: the 40 m tile without its normals, a sensor at
+     (0, 0, 10) for every point, reconstruct(xyz, sensor=sensor,
+     chunk_size=..., preprocess_fn=get_estimate_normal_preprocess_fn(64,
+     85.0)) and extract_dual_mesh(mise_iter=1).  The normal estimation
+     on the card (kept share, angle to the analytic normals, time by
+     stage; the kNN's neighbour sets at 4,096 seeded queries equal to
+     its run on CPU tensors); the four 20 m quadrants alone with
+     chunk_size=10.0 under 1.5x the JAX package's error for the same
+     recipe there (scripts/terrain_reference_chunked.py), one of them
+     twice bit-equal; the whole tile with chunk_size=20.0 in four chunks
+     under the same gate, each chunk parked on the CPU after its solve
+     and back on the card for the mesh (the host mesher, sealed at each
+     chunk's UDF mask), the dense forward launched once per chunk there.
+     The kernels line gains each lattice kernel's launches on the whole
+     tile's lap (``launches_chunked``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -172,6 +188,20 @@ UDF_SPLAT_ERR_LIMIT = 1.5 * JAX_UDF_SPLAT_QUADRANT_ERR
 # package's own sealed mesh is 8x over it.
 JAX_UDF_ROUTE_A_ERR = 0.069686
 UDF_ROUTE_A_ERR_LIMIT = 1.5 * JAX_UDF_ROUTE_A_ERR
+# The README's lidar recipe under the same configuration: no normals, a
+# sensor at (0, 0, 10) for every point, get_estimate_normal_preprocess_fn(
+# 64, 85.0), chunked reconstruction and ChunkedField.extract_dual_mesh(
+# mise_iter=1), whose host mesher seals at each chunk's UDF mask.  The JAX
+# package's interior terrain error mean on the same four 20 m quadrants,
+# each alone with chunk_size=10.0 (scripts/terrain_reference_chunked.py,
+# on the CPU: 0.082588, 0.082977, 0.085382, 0.083859 by quadrant).
+# Phase 9's gate is 1.5x that, for the quadrants and for the whole tile
+# in four 20 m chunks.
+JAX_CHUNKED_QUADRANT_ERR = 0.083710
+CHUNKED_ERR_LIMIT = 1.5 * JAX_CHUNKED_QUADRANT_ERR
+SENSOR_Z = 10.0
+KNN, MAX_ANGLE = 64, 85.0
+KNN_CHECK_QUERIES = 4096
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
 BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 # the adjoint's input forms: (buffer dtype, compute dtype) of the solve's
@@ -530,17 +560,20 @@ def compare_adjoint_rows(LK, TA, spec, cells, kept, s_pt: int, gen,
     return out
 
 
-def quadrant_error(recon, xyz, nrm, structure="splat", on_lap=None):
+def quadrant_error(recon, xyz, nrm, structure="splat", on_lap=None,
+                   lap=None):
     """The scene's four 20 m quadrants, each reconstructed and meshed
     alone (the configuration of JAX_QUADRANT_ERR): the vertex errors over
     used vertices 1 m inside each quadrant, pooled.  ``on_lap(field,
-    t_recon, t_mesh)`` sees each quadrant's lap."""
+    t_recon, t_mesh)`` sees each quadrant's lap; ``lap(xyz, nrm)``
+    replaces ``main_path_lap``."""
     errs = []
     for sx in (-1, 1):
         for sy in (-1, 1):
             m = (np.sign(xyz[:, 0]) == sx) & (np.sign(xyz[:, 1]) == sy)
-            tr, tm, field, mesh = main_path_lap(recon, xyz[m], nrm[m],
-                                                structure)
+            tr, tm, field, mesh = (
+                main_path_lap(recon, xyz[m], nrm[m], structure)
+                if lap is None else lap(xyz[m], nrm[m]))
             if on_lap is not None:
                 on_lap(field, tr, tm)
             del field
@@ -1112,6 +1145,201 @@ def udf_laps(recon, xyz, nrm, counters, synthetic_scene, a_phases, a_lap):
     return udf_launches
 
 
+def chunked_lap(recon, xyz, sensor, chunk_size, pre):
+    """The lidar recipe once: reconstruct(xyz, sensor=, chunk_size=,
+    preprocess_fn=) and extract_dual_mesh(mise_iter=1); (t_recon, t_mesh,
+    chunked field, mesh)."""
+    t0 = time.perf_counter()
+    cf = recon.reconstruct(xyz, sensor=sensor, chunk_size=chunk_size,
+                           preprocess_fn=pre)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mesh = cf.extract_dual_mesh(mise_iter=1)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1, cf, mesh
+
+
+def chunk_alphas(cf):
+    return [a.clone() for ch in cf.chunks for a in ch["field"].alpha]
+
+
+def check_knn(K, xyz, seed: int):
+    """The card's neighbour sets against the same function on CPU
+    tensors at KNN_CHECK_QUERIES seeded queries (buckets over every
+    point): equal as sets, squared distances bit-equal."""
+    q = np.random.default_rng(seed).choice(len(xyz), KNN_CHECK_QUERIES,
+                                           replace=False)
+    cs = K.estimate_cell_size(xyz, KNN)
+    m = max(2 * KNN // 9, 8)
+    out = []
+    for dev in ("cuda", "cpu"):
+        x = torch.as_tensor(xyz, device=dev)
+        idx, d2 = K.knn_search(K.build_buckets(x, cs, m), x, x[q], KNN)
+        out.append((torch.sort(idx, 1).values.cpu(), d2.cpu()))
+    (gi, gd), (ci, cd) = out
+    same_sets = torch.equal(gi, ci)
+    d2_err = float((gd - cd).abs().max())
+    print(f"[phase 9] kNN on the card against CPU tensors at "
+          f"{KNN_CHECK_QUERIES} seeded queries (k {KNN}, cell {cs:.4f} m, "
+          f"{m} per cell): neighbour sets "
+          f"{'equal' if same_sets else 'DIFFER'}, d2 max abs diff "
+          f"{d2_err:.3e}", flush=True)
+    if not (same_sets and d2_err == 0.0):
+        raise AssertionError("[phase 9] the card's kNN differs from its "
+                             "CPU run")
+
+
+def chunked_laps(recon, counters, synthetic_scene):
+    """Phase 9.  ``recon`` runs the checkpoint under its own config.yaml
+    (UDF on, bf16 convs).  The README's lidar recipe on the 40 m tile
+    without its normals, a sensor at (0, 0, SENSOR_Z) for every point:
+    (a) the normal estimation on the card (kept share, angle to the
+    analytic normals, time by stage; the kNN against its CPU run); (b)
+    the four 20 m quadrants alone with chunk_size=10.0 under 1.5x the
+    JAX package's error there, one quadrant twice bit-equal; (c) the
+    whole tile with chunk_size=20.0: four chunks, parked on the CPU
+    after the solve, on the card for the mesh, the dense forward once
+    per chunk (the evaluator's tables, built at the mesh), under the
+    same gate.  Returns the launches of (c)."""
+    from nksr_tpu_torch import get_estimate_normal_preprocess_fn
+    from nksr_tpu_torch.ops import knn as K
+    from nksr_tpu_torch.utils.scenes import terrain_normals
+    xyz, _ = synthetic_scene(N_POINTS)
+    sensor = np.zeros_like(xyz)
+    sensor[:, 2] = SENSOR_Z
+    pre = get_estimate_normal_preprocess_fn(KNN, MAX_ANGLE,
+                                            device=recon.device)
+
+    # (a) the preprocess on the whole tile (a warm-up call, then a timed
+    # one), and the kNN on the card against its CPU run
+    pre(xyz, None, sensor)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xk, nk, _ = pre(xyz, None, sensor)
+    pre_s = time.perf_counter() - t0
+    dot = np.clip((nk * terrain_normals(xk[:, :2])).sum(1), -1, 1)
+    ang = np.degrees(np.arccos(dot))
+    print(f"[phase 9] normal estimation (k {KNN}, {MAX_ANGLE} degrees) on "
+          f"{N_POINTS} points: {pre_s:.3f} s, by stage "
+          + json.dumps({k: round(v, 4) for k, v in pre.phase_times.items()})
+          + f"; kept {len(xk)} ({len(xk) / N_POINTS:.4%}); angle to the "
+          f"analytic normals mean {ang.mean():.3f} q90 "
+          f"{np.quantile(ang, 0.9):.3f} max {ang.max():.3f} degrees, "
+          f"{int((dot < 0).sum())} facing away; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if not (0.5 < len(xk) / N_POINTS <= 1.0 and ang.mean() < 10.0):
+        raise AssertionError("[phase 9] the estimated normals are off")
+    check_knn(K, xyz, seed=9)
+    torch.cuda.empty_cache()
+
+    # (b) the quadrants alone, chunk_size=10.0
+    laps = []
+
+    def quadrant_lap(x, s):
+        out = chunked_lap(recon, x, s, 10.0, pre)
+        if not laps:        # the first quadrant, run again below
+            laps.append((out[2], out[3]))
+        return out
+
+    def on_lap(cf, tr, tm):
+        print(f"[phase 9] quadrant: {len(cf.chunks)} chunks "
+              f"{[ch['engine'] for ch in cf.chunks]}, reconstruct_s "
+              f"{tr:.3f} extract_mesh_s {tm:.3f}", flush=True)
+
+    q_err = quadrant_error(recon, xyz, sensor, on_lap=on_lap,
+                           lap=quadrant_lap)
+    print(f"[phase 9] the four 20 m quadrants alone, chunk_size 10: terrain "
+          f"vertex error on {len(q_err)} interior vertices: mean "
+          f"{q_err.mean():.5f} q90 {np.quantile(q_err, 0.9):.5f} max "
+          f"{q_err.max():.5f} (the JAX package, CPU: mean "
+          f"{JAX_CHUNKED_QUADRANT_ERR}; limit {CHUNKED_ERR_LIMIT:.5f})",
+          flush=True)
+    if not q_err.mean() <= CHUNKED_ERR_LIMIT:
+        raise AssertionError(f"[phase 9] quadrant terrain error mean "
+                             f"{q_err.mean()} > {CHUNKED_ERR_LIMIT}")
+    cf, mesh = laps[0]
+    first = (chunk_alphas(cf), mesh.v, mesh.f)
+    del laps, cf, mesh
+    m = (np.sign(xyz[:, 0]) == -1) & (np.sign(xyz[:, 1]) == -1)
+    _, _, cf, mesh = chunked_lap(recon, xyz[m], sensor[m], 10.0, pre)
+    same = lap_diff(first, (chunk_alphas(cf), mesh.v, mesh.f))
+    print("[phase 9] one quadrant twice: " + same, flush=True)
+    if "coefficients bit-equal" not in same or "mesh bit-equal" not in same:
+        raise AssertionError("[phase 9] one quadrant twice is not "
+                             "bit-equal: " + same)
+    del first, cf, mesh
+    torch.cuda.empty_cache()
+
+    # (c) the whole tile in 20 m chunks
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    cf = recon.reconstruct(xyz, sensor=sensor, chunk_size=20.0,
+                           preprocess_fn=pre)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solve_launches = read_counts(counters)
+    parked = [ch["field"].device.type for ch in cf.chunks]
+    mesh = cf.extract_dual_mesh(mise_iter=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    on_card = [(ch["field"].device.type,
+                ch["field"].lattice_ctx.tables().av0.device.type)
+               for ch in cf.chunks]
+    err, n_inner = terrain_error(mesh)
+    n = len(cf.chunks)
+    iters = [ch["field"].solver_stats.iters for ch in cf.chunks]
+    for ch in cf.chunks:
+        print(f"[phase 9] chunk {ch['cid'].tolist()}: {ch['n_points']} "
+              f"points (halo included), engine {ch['engine']}, "
+              f"{ch['seconds']:.3f} s, {ch['field'].solver_stats}, phases "
+              + json.dumps({k: round(v, 4)
+                            for k, v in ch["field"].phase_times.items()}),
+              flush=True)
+    pre_s = sum(pre.phase_times.values())
+    print(f"[phase 9] the lidar recipe on the 40 m tile, chunk_size 20: "
+          f"{n} chunks; preprocess_s {pre_s:.3f} reconstruct_s "
+          f"{t1 - t0:.3f} (the preprocess included) extract_mesh_s "
+          f"{t2 - t1:.3f}; mesh verts {len(mesh.v)} faces {len(mesh.f)}; "
+          f"peak memory {peak:.2f} GiB; stages (chunks: the solves' host "
+          f"orchestration; mc: the host mesher) "
+          + json.dumps({k: round(v, 4) for k, v in cf.phase_times.items()}),
+          flush=True)
+    print(f"[phase 9] launches: after reconstruct {solve_launches}, after "
+          f"the mesh {launches}; chunks after reconstruct on {parked}, "
+          f"after the mesh (field, evaluator table) on {on_card}",
+          flush=True)
+    print(f"[phase 9] terrain vertex error on {n_inner} interior vertices: "
+          f"mean {err.mean():.5f} q90 {np.quantile(err, 0.9):.5f} max "
+          f"{err.max():.5f} (limit {CHUNKED_ERR_LIMIT:.5f})", flush=True)
+    if n != 4:
+        raise AssertionError(f"[phase 9] {n} chunks, not 4")
+    if parked != ["cpu"] * n:
+        raise AssertionError(f"[phase 9] chunks not parked on the CPU after "
+                             f"the solve: {parked}")
+    if on_card != [("cuda", "cuda")] * n:
+        raise AssertionError(f"[phase 9] chunks not on the card for the "
+                             f"mesh: {on_card}")
+    want = {"fwd": n, "rows": sum(iters), "adj_rows": sum(iters) + 2 * n,
+            "adj": 0}
+    if solve_launches["fwd"] != 0 or \
+            {k: launches[k] for k in want} != want:
+        raise AssertionError(f"[phase 9] launches {launches} (after the "
+                             f"solves {solve_launches}): expected {want}, "
+                             "the dense forward only at the mesh")
+    if not len(mesh.f) or not np.isfinite(mesh.v).all():
+        raise AssertionError("[phase 9] empty or non-finite mesh")
+    if not err.mean() <= CHUNKED_ERR_LIMIT:
+        raise AssertionError(f"[phase 9] terrain error mean {err.mean()} > "
+                             f"{CHUNKED_ERR_LIMIT}")
+    del cf, mesh
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1426,9 +1654,18 @@ def main() -> int:
     if not udf_cfg.udf_enabled:
         raise AssertionError(f"[phase 8] {UDF_CONFIG} has no UDF head")
     print(f"[phase 8] {UDF_CONFIG}: {udf_cfg}", flush=True)
-    udf_launches = udf_laps(Reconstructor(config=udf_cfg, params=params),
-                            xyz, nrm, counters, synthetic_scene, a_phases,
-                            a_lap)
+    udf_recon = Reconstructor(config=udf_cfg, params=params)
+    udf_launches = udf_laps(udf_recon, xyz, nrm, counters, synthetic_scene,
+                            a_phases, a_lap)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the README's lidar recipe (normals from the sensor,
+    # chunked reconstruction, the stitched mesh) under the same
+    # configuration
+    t_phase = time.perf_counter()
+    chunked_launches = chunked_laps(udf_recon, counters, synthetic_scene)
+    print(f"[phase 9] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del udf_recon
     torch.cuda.empty_cache()
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -1498,6 +1735,7 @@ def main() -> int:
         rec["floor_ms"] = floor_events      # each timed by CUDA events
         rec["launches_predicted"] = pred_launches[key]
         rec["launches_udf"] = udf_launches[key]
+        rec["launches_chunked"] = chunked_launches[key]
     # the scatter kernels at w = 32 (the study's width; phase 6 prints
     # w = 128 too): the blocked one on unique indices, by CUDA events; the
     # rate kernels at the study's shape, as device time in one CUDA graph

@@ -12,9 +12,18 @@ the per-level predicted engine or the sparse fallback
     from nksr_tpu_torch import Reconstructor
     field = Reconstructor().reconstruct(xyz, normal)
     mesh = field.extract_dual_mesh(mise_iter=1)
+
+and the README's lidar recipe, normals estimated from sensor positions
+and the scene reconstructed in chunks:
+
+    from nksr_tpu_torch import get_estimate_normal_preprocess_fn
+    field = Reconstructor().reconstruct(
+        xyz, sensor=sensor, chunk_size=20.0,
+        preprocess_fn=get_estimate_normal_preprocess_fn(64, 85.0))
 """
 
 from .models.pipeline import PipelineConfig
-from .recon.reconstructor import Reconstructor
+from .recon import Reconstructor, get_estimate_normal_preprocess_fn
 
-__all__ = ["PipelineConfig", "Reconstructor"]
+__all__ = ["PipelineConfig", "Reconstructor",
+           "get_estimate_normal_preprocess_fn"]

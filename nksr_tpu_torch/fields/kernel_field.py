@@ -58,6 +58,14 @@ class KernelField:
                            self.mlps, self.kernel_dim,
                            self.approx_kernel_grad, tuple(alpha), stats)
 
+    def to(self, device) -> "KernelField":
+        """Move the basis features and coefficients to ``device`` in place
+        (the MLPs stay with the network)."""
+        self.features = tuple(f.to(device) for f in self.features)
+        if self.alpha is not None:
+            self.alpha = tuple(a.to(device) for a in self.alpha)
+        return self
+
     def support(self, x: torch.Tensor, sup_idx, grad: bool = False):
         return S.svh_support(self.voxel_sizes, self.features, self.mlps, x,
                              sup_idx, grad=grad,

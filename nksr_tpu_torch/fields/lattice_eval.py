@@ -85,6 +85,22 @@ class LatticeEvalContext:
         self.dense_xs = dense_xs
         self._tables: Optional[LatticeEvalTables] = None
 
+    def to(self, device) -> "LatticeEvalContext":
+        """Move the solved field, and its tables once built, to
+        ``device`` in place (the MLPs stay with the network)."""
+        def mv(ts):
+            return tuple(t.to(device) for t in ts)
+        self.basis_features = mv(self.basis_features)
+        self.vox_cell = mv(self.vox_cell)
+        self.vox_active = mv(self.vox_active)
+        self.dense_xs = mv(self.dense_xs)
+        if self._tables is not None:
+            tab = self._tables
+            self._tables = LatticeEvalTables(
+                tab.av0.to(device), mv(tab.fdp), tab.mask0.to(device),
+                tab.shell0.to(device))
+        return self
+
     def tables(self) -> LatticeEvalTables:
         if self._tables is None:
             self._tables = prepare_tables(

@@ -57,6 +57,12 @@ class NeuralField:
         """(n,) field values."""
         return self.decoder(self.pooled(x, sup_idx))[..., 0]
 
+    def to(self, device) -> "NeuralField":
+        """Move the feature rows to ``device`` in place (the decoder stays
+        with the network)."""
+        self.features = tuple(f.to(device) for f in self.features)
+        return self
+
     def set_level_set(self, v: float) -> "NeuralField":
         return NeuralField(self.voxel_sizes, self.features, self.decoder, v)
 

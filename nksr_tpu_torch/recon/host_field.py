@@ -108,6 +108,21 @@ class HostField:
     def has_udf_mask(self) -> bool:
         return self.udf_host is not None and self.mask_field is not None
 
+    def to(self, device) -> "HostField":
+        """Move the field to ``device`` in place: the coefficients, the
+        lattice evaluator's state, the support-row field and the UDF
+        mask's features.  The MLPs are the Reconstructor's network and
+        stay where it lives, so a field parked off the network's device
+        cannot be evaluated until it is moved back.  Chunked mode parks
+        each chunk on the CPU between its solve and the mesh."""
+        for part in (self.lattice_ctx, self.field, self.mask_field):
+            if part is not None:
+                part.to(device)
+        # the support-row field's coefficients are this field's
+        self.alpha = self.field.alpha if self.field is not None else \
+            tuple(a.to(device) for a in self.alpha)
+        return self
+
     def set_mask_field(self, mf: Optional[NeuralField]) -> "HostField":
         """Replace the mask field (e.g. ``mask_field.set_level_set(v)``);
         None falls back to the union-of-support / trusted-cell mask."""
@@ -171,12 +186,13 @@ class HostField:
         v, _, g = self._support_eval(x, grad, tm)
         return (v, g) if grad else v
 
-    def _mask_host(self, x: np.ndarray) -> np.ndarray:
-        """Trust mask: the UDF mask where the model has one, else the
-        lattice's trusted cells, or the union of the queries' supports."""
+    def _mask_host(self, x: np.ndarray, tm=None) -> np.ndarray:
+        """Trust mask: the UDF mask where the model has one (``tm`` splits
+        its time as in ``udf_mask``), else the lattice's trusted cells,
+        or the union of the queries' supports."""
         x = np.asarray(x, np.float32)
         if self.has_udf_mask:
-            return self.udf_mask(x).cpu().numpy()
+            return self.udf_mask(x, tm).cpu().numpy()
         if self.lattice_ctx is not None:
             return self.lattice_ctx.eval_batched(x)[1]
         return _in_support(HB.support_indices(self.host_grids,

@@ -4,6 +4,8 @@ nksr_tpu/recon/reconstructor.py):
     recon = Reconstructor()                     # device="cuda"
     field = recon.reconstruct(xyz, normal)      # structure="predicted"
     mesh  = field.extract_dual_mesh(mise_iter=1)   # mesh.v / mesh.f
+    field = recon.reconstruct(xyz, sensor=sensor, chunk_size=20.0,
+        preprocess_fn=get_estimate_normal_preprocess_fn(64, 85.0))
 
 Three structures, as in the JAX package:
 
@@ -37,6 +39,15 @@ runs every route above with the head's mask on its field: the head reads
 the encoder's splat hierarchy on the splat and adaptive structures and
 the candidate hierarchy on the predicted one, as in the JAX package.
 
+The README's lidar recipe runs too: ``reconstruct(xyz, sensor=...,
+chunk_size=..., preprocess_fn=get_estimate_normal_preprocess_fn(64,
+85.0))`` estimates normals on the device (``ops/knn.py``), then splits
+the scene into chunks, each reconstructed alone by this class and parked
+on ``chunk_tmp_device`` (``recon/chunking.py``); the returned
+``ChunkedField`` meshes the blend of all chunks with the host mesher.
+Without normals and without a preprocess, the points' sensor directions
+are the input feature (``feature="sensor"``).
+
 The dense mesher meshes a lattice field whose fine grid fits
 ``meshing.lattice_mc.DENSE_CELL_BUDGET``, the host mesher any other
 field; with a UDF mask the dense mesher trims and the host mesher seals
@@ -61,6 +72,7 @@ from ..models import dense_unet as DU
 from ..models import pipeline as P
 from ..models import sparse_unet as SU
 from ..models.network import NKSRNetwork
+from ..ops import knn as K
 from ..ops.gather_scatter import stencil_offsets
 from ..utils.checkpoint import params_to_torch
 from ..utils.profiling import PhaseTimer
@@ -121,6 +133,9 @@ class Reconstructor:
         net = NKSRNetwork(self.config)
         net.load_state_dict(params_to_torch(params), strict=True)
         self.network = net.to(self.device).eval()
+        # where chunked mode parks each chunk's field between its solve
+        # and the mesh (the reference's attribute)
+        self.chunk_tmp_device = torch.device("cpu")
 
     # ------------------------------------------------------------------ api
     @torch.no_grad()
@@ -134,12 +149,14 @@ class Reconstructor:
                     solver_max_iters: Optional[int] = None,
                     fused_mode: bool = False,
                     structure: Optional[str] = None,
-                    mesh=None) -> HostField:
+                    mesh=None):
         """Reconstruct an implicit field from a point cloud (parameter
-        semantics of ``nksr_tpu.Reconstructor.reconstruct``).
-        ``fused_mode`` selects the support-row solve that recomputes its
-        supports in every matvec; the lattice solve is matrix-free
-        either way."""
+        semantics of ``nksr_tpu.Reconstructor.reconstruct``): a
+        ``HostField``, or with ``chunk_size`` a ``chunking.ChunkedField``
+        whose chunks each took this call with the configuration's
+        structure.  ``fused_mode`` selects the support-row solve that
+        recomputes its supports in every matvec; the lattice solve is
+        matrix-free either way."""
         xyz = np.asarray(input_xyz, np.float32)
         normal = None if input_normal is None else np.asarray(
             input_normal, np.float32)
@@ -150,8 +167,18 @@ class Reconstructor:
             normal = None if normal is None else np.asarray(normal,
                                                             np.float32)
         if chunk_size is not None:
-            raise _not_ported("chunked reconstruction (chunk_size=)",
-                              "item 11")
+            if voxel_size is not None or (detail_level or 0.0) != 0.0:
+                # the reference's restriction (NKSR-USAGE.md:137)
+                raise ValueError(
+                    "detail tuning is not supported in chunk mode; "
+                    "prescale your cloud instead")
+            if mesh is not None:
+                raise _not_ported("chunked reconstruction over a device "
+                                  "mesh (chunk_size= with mesh=)", "item 15")
+            from .chunking import reconstruct_chunked
+            return reconstruct_chunked(self, xyz, normal, sens, chunk_size,
+                                       approx_kernel_grad=approx_kernel_grad,
+                                       solver_tol=solver_tol)
         if mesh is not None:
             raise _not_ported("multi-device reconstruction (mesh=)",
                               "item 15")
@@ -325,3 +352,44 @@ class Reconstructor:
             feature=feature, fused_mode=fused_mode,
             solver_compute_dtype=resolve_solver_dtype(
                 self.config.solver_compute_dtype, self.device))
+
+
+def get_estimate_normal_preprocess_fn(knn: int = 64,
+                                      max_angle_deg: float = 85.0,
+                                      device="cuda"):
+    """The reference's normal-estimation preprocess (NKSR-USAGE.md:109):
+    ``fn(xyz, None, sensor)`` returns the kept points, their kNN-PCA
+    normals flipped toward the sensor (grazing points beyond
+    ``max_angle_deg`` dropped) and None, as numpy arrays.  It computes
+    on ``device`` (the card by default; the CPU only when asked for, as
+    ``Reconstructor``).  ``fn.phase_times``: the last call's seconds by
+    stage ("knn: ...")."""
+    device = torch.device(device)
+    times: dict = {}
+
+    def fn(xyz, normal, sensor):
+        if normal is not None:
+            raise ValueError("normals already provided")
+        if sensor is None:
+            raise ValueError("sensor positions required")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("get_estimate_normal_preprocess_fn(device="
+                               "'cuda'): no CUDA device is available")
+        times.clear()
+        tm = PhaseTimer(device, times)
+        xyz = np.asarray(xyz, np.float32)
+        xyz_t = torch.as_tensor(xyz, device=device)
+        sens_t = torch.as_tensor(np.asarray(sensor, np.float32),
+                                 device=device)
+        tm.lap("knn: upload")
+        nrm, keep = K.estimate_normals(
+            xyz_t, knn, K.estimate_cell_size(xyz, knn),
+            max_per_cell=max(2 * knn // 9, 8), sensor=sens_t,
+            max_angle_deg=max_angle_deg, tm=tm)
+        keep_np = keep.cpu().numpy()
+        out = xyz[keep_np], nrm.cpu().numpy()[keep_np], None
+        tm.lap("knn: readback")
+        return out
+
+    fn.phase_times = times
+    return fn

@@ -736,3 +736,36 @@ def test_sparse_encoder_reproducible(gen):
         b = SU.encode_points(cfg, net, n0, xyz, feat, idx)
     assert torch.equal(a, b)
     assert SEG.segment_sum.launches == before + 2
+
+
+def test_knn_on_the_card_matches_its_cpu_run(gen):
+    """The normal-estimation preprocess's kNN (plain PyTorch, no hand
+    kernel: the JAX package has none there) on the card: neighbour sets
+    and squared distances equal to its run on CPU tensors, on a terrain
+    with an overfilled bucket, in several waves; the keep masks equal
+    away from the 85-degree cut."""
+    from nksr_tpu_torch.ops import knn as K
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(-4, 4, (200000, 2))
+    z = 0.3 * np.sin(1.5 * xy[:, 0]) * np.cos(xy[:, 1])
+    xyz = np.concatenate([np.concatenate([xy, z[:, None]], 1),
+                          0.3 + rng.uniform(0, 0.01, (80, 3))]
+                         ).astype(np.float32)
+    sens = np.zeros_like(xyz)
+    sens[:, 2] = 0.8
+    cs = K.estimate_cell_size(xyz, 64)
+    out = []
+    for dev in ("cuda", "cpu"):
+        x = torch.as_tensor(xyz, device=dev)
+        idx, d2 = K.knn_search(K.build_buckets(x, cs, 14), x, x, 64)
+        nrm, keep = K.estimate_normals(x, 64, cs, 14,
+                                       sensor=torch.as_tensor(sens,
+                                                              device=dev))
+        out.append([t.cpu() for t in (torch.sort(idx, 1).values, d2, nrm,
+                                      keep)])
+    (gi, gd, gn, gk), (ci, cd, cn, ck) = out
+    assert torch.equal(gi, ci) and torch.equal(gd, cd)
+    view = torch.as_tensor(sens - xyz)
+    cos = (view / view.norm(dim=1, keepdim=True) * cn).sum(1).abs()
+    away = (cos - np.cos(np.deg2rad(85.0))).abs() > 1e-4
+    assert torch.equal(gk[away], ck[away]) and 0 < int((~ck).sum())

@@ -236,18 +236,19 @@ def test_host_field_queries(solved):
     np.testing.assert_array_equal(fb, np.where(m, v, -np.float32(VS)))
 
 
-@pytest.mark.parametrize("cfg_kw,call_kw", [
-    ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None)),
-    ({}, dict(structure="splat", mesh=object())),
-    (dict(solver_formulation="dual"), dict(structure="splat")),
-    (dict(geometry="neural"), dict(structure="splat")),
+@pytest.mark.parametrize("cfg_kw,call_kw,item", [
+    ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None,
+              mesh=object()), "item 15"),
+    ({}, dict(structure="splat", mesh=object()), "item 15"),
+    (dict(solver_formulation="dual"), dict(structure="splat"), "item 13"),
+    (dict(geometry="neural"), dict(structure="splat"), "item 17"),
 ])
-def test_unported_routes_raise(cfg_kw, call_kw):
+def test_unported_routes_raise(cfg_kw, call_kw, item):
     xyz, nrm = _scene(200)
     recon = Reconstructor(device="cpu",
                           config=P.PipelineConfig(**SMALL, **cfg_kw))
     kw = dict(KW, **call_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         recon.reconstruct(xyz, nrm, **kw)
 
 
