@@ -120,6 +120,28 @@ Phases (any failure ends the run with a non-zero exit):
      chunk's UDF mask), the dense forward launched once per chunk there.
      The kernels line gains each lattice kernel's launches on the whole
      tile's lap (``launches_chunked``).
+ 10. (run after phase 9) the dual (row-space) formulation,
+     solver_formulation="dual": (a) its middle C C^T at the 40 m plan's
+     slot cells on random f32 slot rows, the slot-row adjoint in f32 then
+     the slot rows in bf16, within one bf16 ulp of the literal middle of
+     the JAX package's ``_gram_middle`` (segment sum into the dense
+     buffer, dense adjoint in f32, dense forward in bf16, row gather) and
+     bit-equal from call to call, both timed in turns; (b) phase 3's
+     splat tile with the dual at tol 1e-4 and at most 64 iterations, a
+     warm-up lap and two timed laps bit-equal, the launches of a dual
+     lap (the slot rows once a matvec, the slot-row adjoint once a
+     matvec and once for the back-substitution), the terrain error of
+     the tile and of its quadrants alone under 1.5x the JAX package's
+     dual error there (scripts/terrain_reference_dual.py), one dual
+     matvec under torch.profiler; (c) tests/test_torch_dual.py's sphere
+     solved to tol 1e-4 with f32 rows, converged, its field at the probes
+     within 5e-3 of the same call on CPU tensors, and its bf16 run
+     beside it; (d) one predicted lap with the dual; (e) the primal
+     against the dual at equal budgets
+     (``nksr_tpu_torch.scripts.compare_formulations``).  The kernels line
+     gains each lattice kernel's launches on the dual splat and
+     predicted laps (``launches_dual``, ``launches_dual_predicted``) and
+     the middle's times.
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -199,6 +221,31 @@ UDF_ROUTE_A_ERR_LIMIT = 1.5 * JAX_UDF_ROUTE_A_ERR
 # in four 20 m chunks.
 JAX_CHUNKED_QUADRANT_ERR = 0.083710
 CHUNKED_ERR_LIMIT = 1.5 * JAX_CHUNKED_QUADRANT_ERR
+# Phase 10, the dual (row-space) solve: the splat path of phase 3 with
+# solver_formulation="dual" at tol 1e-4 and at most 64 CG iterations.  The
+# JAX package's interior terrain error mean under that configuration on
+# the same four 20 m quadrants (scripts/terrain_reference_dual.py, on the
+# CPU, f32 rows: 0.075950, 0.078004, 0.077618, 0.079404 by quadrant, each
+# solve at its 64th iteration with rel_res 2.0-2.4).  At 64 iterations the
+# JAX package's dual is 20x the primal's error at 16 (0.003831): its
+# Jacobi-preconditioned Gram converges slowly at scene size
+# (nksr_tpu/models/pipeline.py:54-61).  With bf16 row values, as on the
+# card, the same script gives 0.079243 (its --solver-compute-dtype
+# bfloat16).  The gate is 1.5x the f32 figure, for the tile and the
+# quadrants.
+DUAL_KW = dict(KW, solver_max_iters=64)
+JAX_DUAL_QUADRANT_ERR = 0.077736
+DUAL_ERR_LIMIT = 1.5 * JAX_DUAL_QUADRANT_ERR
+# Phase 10's converged parity: the scene of tests/test_torch_dual.py
+# (tests/test_pipeline.py's pin: a 1,200-point sphere, 150 probes inside
+# it, the port's seeded weights), the dual to tol 1e-4 in f32 on the card
+# against the same call on CPU tensors, field values within 5e-3 of the
+# largest |f|.
+PARITY_CFG = dict(voxel_size=0.1, tree_depth=3, adaptive_depth=1, f_maps=16,
+                  basis_dim=8, udf_dim=8, solver_formulation="dual")
+PARITY_KW = dict(detail_level=None, voxel_size=0.1, structure="splat",
+                 solver_tol=1e-4, solver_max_iters=500)
+PARITY_BOUND = 5e-3
 SENSOR_Z = 10.0
 KNN, MAX_ANGLE = 64, 85.0
 KNN_CHECK_QUERIES = 4096
@@ -707,10 +754,10 @@ def compare_probes(P, seed: int):
     return out
 
 
-def main_path_lap(recon, xyz, nrm, structure="splat"):
+def main_path_lap(recon, xyz, nrm, structure="splat", kw=KW):
     """One reconstruct + extract_dual_mesh; (t_recon, t_mesh, field, mesh)."""
     t0 = time.perf_counter()
-    field = recon.reconstruct(xyz, nrm, structure=structure, **KW)
+    field = recon.reconstruct(xyz, nrm, structure=structure, **kw)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     mesh = field.extract_dual_mesh(mise_iter=1)
@@ -775,16 +822,17 @@ def print_route(tag, recon, field, launches, lap, limit=ROUTE_ERR_LIMIT):
                              f"{lap['err_mean']} > {limit}")
 
 
-def check_lattice_launches(tag, launches, field, segsum=2):
+def check_lattice_launches(tag, launches, field, segsum=2, dual=False):
     """A lattice lap: the slot-row kernel once a matvec (one matvec a CG
-    iteration), the slot-row adjoint once a matvec and for the rhs and
-    the Jacobi diagonal, the dense adjoint never, the dense forward once
+    iteration), the slot-row adjoint once a matvec and, in the primal,
+    for the rhs and the Jacobi diagonal, in the ``dual`` for the
+    back-substitution, the dense adjoint never, the dense forward once
     (the evaluator tables), and the segment sum ``segsum`` times: at the
     encoder's splat and the normal prior's, one a gradient depth (the
     slot-row adjoint sums its rows itself)."""
     iters = field.solver_stats.iters
-    want = {"fwd": 1, "rows": iters, "adj_rows": iters + 2, "adj": 0,
-            "segsum": segsum}
+    want = {"fwd": 1, "rows": iters, "adj_rows": iters + (1 if dual else 2),
+            "adj": 0, "segsum": segsum}
     got = {k: launches[k] for k in want}
     if not (iters > 0 and got == want):
         raise AssertionError(
@@ -1340,6 +1388,242 @@ def chunked_laps(recon, counters, synthetic_scene):
     return launches
 
 
+def sphere_points(n: int, r: float, seed: int):
+    """n points on a sphere of radius r and their normals
+    (tests/test_field.py)."""
+    v = np.random.default_rng(seed).normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return (r * v).astype(np.float32), v.astype(np.float32)
+
+
+def bf16_ulps(a, b) -> float:
+    """Largest |a - b| in units of the bf16 spacing at max(|a|, |b|)
+    (2^-7 of its power of two); 0 where both are zero."""
+    m = torch.maximum(a.abs(), b.abs())
+    spacing = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7),
+                          1.0)
+    return float(((a - b).abs() / spacing).max())
+
+
+def compare_gram_middle(spec, cells, kept, gen):
+    """The dual matvec's middle C C^T on random f32 slot rows at the
+    plan's slot cells ``cells`` (zero, and dropped, where ``kept`` is
+    -1): the slot-row middle (``lattice.gram_middle``: the slot-row
+    adjoint in f32, then the slot rows in bf16) against the literal one
+    of the JAX package's ``_gram_middle`` (the segment sum into the dense
+    f32 buffer, the dense adjoint in f32, the dense forward in bf16, the
+    rows at the slot cells): within one bf16 ulp, the slot-row middle
+    bit-equal from call to call; both timed in turns by CUDA events.  The
+    bound adds the slot-row adjoint's (the kept rows and their order
+    read, the coefficients written, each value added once) and the slot
+    rows' (``rows_bound``)."""
+    from nksr_tpu_torch.fields import lattice as LAT
+    from nksr_tpu_torch.fields import lattice_kernels as LK
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    r = cells.numel()
+    y = torch.randn((r, spec.lanes), device=cells.device, generator=gen) \
+        * (kept >= 0)[:, None]
+    tab = LK.adjoint_rows_tables(spec, kept)
+    order = SEG.segment_order(kept, spec.n_cells(0))
+    bf, cl = torch.bfloat16, cells.long()
+
+    def slot_row():
+        return LAT.gram_middle(spec, tab, y, cells, bf)
+
+    def literal():
+        xs = LK.av0_adjoint_cascade(spec, SEG.segment_sum(y, order),
+                                    torch.float32)
+        return LK.av0_cascade(spec, xs, bf).index_select(0, cl).float()
+
+    got, again, lit = slot_row(), slot_row(), literal()
+    if not torch.equal(got, again):
+        raise AssertionError("[phase 10] the slot-row middle: two calls "
+                             "differ")
+    out = {"ulps": bf16_ulps(got, lit),
+           "bit_equal": torch.equal(got + 0.0, lit + 0.0),
+           "err": float((got - lit).abs().max())}
+    del got, again, lit
+    if not out["ulps"] <= 1.0:
+        raise AssertionError(f"[phase 10] the slot-row middle differs from "
+                             f"the literal one by {out['ulps']} bf16 ulps")
+    l1 = cuda_ms(literal, 3)
+    s1 = cuda_ms(slot_row, 10)
+    s2 = cuda_ms(slot_row, 10)
+    l2 = cuda_ms(literal, 3)
+    plain = cuda_ms(lambda: LK.av0_rows_plain(
+        spec, LK.av0_adjoint_rows_plain(spec, tab, y, torch.float32),
+        cells, bf), 1)
+    coef = sum(spec.n_cells(d) for d in range(spec.depth)) * spec.k * 4
+    n_kept = tab.perm.numel()
+    adj_b, _ = bound_ms(n_kept * spec.lanes * 4 + n_kept * 4 + coef,
+                        (n_kept + tab.cells.numel()) * spec.lanes)
+    rows_b, _ = rows_bound(spec, cells)
+    out.update(ms=min(s1, s2), ms_turns=(s1, s2), literal_ms=min(l1, l2),
+               literal_turns=(l1, l2), plain_ms=plain, bound=adj_b + rows_b)
+    return out
+
+
+def converged_parity():
+    """Phase 10 (c).  The converged dual on tests/test_torch_dual.py's
+    sphere: f32 rows on the card and the same call on CPU tensors, both
+    converged, the card's field values at the probes within PARITY_BOUND
+    of the largest |f| of the CPU's; the bf16 rows' run on the card
+    beside them (printed, not gated)."""
+    from nksr_tpu_torch import PipelineConfig, Reconstructor
+    from nksr_tpu_torch.models import pipeline as P
+    cfg = PipelineConfig(**PARITY_CFG, solver_compute_dtype="float32")
+    params = P.init_params(cfg, 0)
+    xyz, nrm = sphere_points(1200, 0.5, 3)
+    probe = sphere_points(150, 0.45, 4)[0]
+    runs = {}
+    for tag, dev, c in (("card f32", "cuda", cfg), ("cpu f32", "cpu", cfg),
+                        ("card bf16", "cuda", dataclasses.replace(
+                            cfg, solver_compute_dtype="bfloat16"))):
+        t0 = time.perf_counter()
+        f = Reconstructor(device=dev, config=c, params=params).reconstruct(
+            xyz, nrm, **PARITY_KW)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[tag] = (f.solver_stats, f.evaluate_f(probe).value,
+                     time.perf_counter() - t0)
+        print(f"[phase 10] converged parity, {tag}: {f.solver_stats} in "
+              f"{runs[tag][2]:.3f} s", flush=True)
+    (card, cv, _), (cpu, pv, _), (_, bv, _) = (runs["card f32"],
+                                                runs["cpu f32"],
+                                                runs["card bf16"])
+    scale = float(np.abs(pv).max())
+    rel = float(np.abs(cv - pv).max()) / scale
+    print(f"[phase 10] converged parity: card f32 against CPU tensors, "
+          f"field values at {len(probe)} probes max diff {rel:.3e} of max "
+          f"|f| {scale:.4f} (bound {PARITY_BOUND}); card bf16 against them "
+          f"{float(np.abs(bv - pv).max()) / scale:.3e}", flush=True)
+    if not (card.converged and cpu.converged):
+        raise AssertionError(f"[phase 10] the f32 dual did not converge: "
+                             f"card {card}, CPU {cpu}")
+    if not rel < PARITY_BOUND:
+        raise AssertionError(f"[phase 10] card and CPU fields differ by "
+                             f"{rel} of max |f|")
+    return runs
+
+
+def dual_laps(params, xyz, nrm, counters, spec, cells, kept, gen,
+              primal_mv_ms):
+    """Phase 10.  The dual formulation on the card: (a) its middle at the
+    40 m plan's slot cells against the literal one; (b) the 40 m splat
+    tile (phase 3's checkpoint and bf16 convs, DUAL_KW): a warm-up lap and
+    two timed laps, bit-equal, the dual's launches, the terrain error of
+    the tile and of its four quadrants alone under DUAL_ERR_LIMIT, and one
+    dual matvec under torch.profiler; (c) the converged parity; (d) one
+    predicted lap (per-level engine) with the dual; (e) the primal
+    against the dual at equal budgets (``scripts.compare_formulations``).
+    Returns the launches of (b) and (d) and the middle's record."""
+    from nksr_tpu_torch import PipelineConfig, Reconstructor
+    from nksr_tpu_torch.fields import lattice as LAT
+    from nksr_tpu_torch.scripts import compare_formulations as CF
+    mid = compare_gram_middle(spec, cells, kept, gen)
+    print(f"[phase 10] (a) the dual's middle C C^T at the main path's "
+          f"{cells.numel()} slot cells: slot-row middle (adjoint f32 + slot "
+          f"rows bf16) against the literal one (segment sum + dense adjoint "
+          f"f32 + dense forward bf16 + row gather): "
+          f"{'bit-equal' if mid['bit_equal'] else 'differs'}, max "
+          f"{mid['ulps']:.2f} bf16 ulps (abs {mid['err']:.3e}), bit-equal "
+          f"call to call; {mid['ms']:.4f} ms (turns {mid['ms_turns'][0]:.4f},"
+          f" {mid['ms_turns'][1]:.4f}; bound {mid['bound']:.4f}; plain "
+          f"{mid['plain_ms']:.3f}) against "
+          f"{mid['literal_ms']:.4f} ms (turns {mid['literal_turns'][0]:.4f}, "
+          f"{mid['literal_turns'][1]:.4f}); one primal matvec (phase 3) "
+          f"{primal_mv_ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+    recon = Reconstructor(config=PipelineConfig(
+        conv_dtype="bfloat16", solver_formulation="dual"), params=params)
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "splat", DUAL_KW)
+    print(f"[phase 10] (b) dual warm-up lap: reconstruct_s {tr:.3f} "
+          f"extract_mesh_s {tm:.3f}", flush=True)
+    del field, mesh
+    laps, lap_out = [], []
+    for _ in range(2):
+        field = mesh = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "splat", DUAL_KW)
+        launches = read_counts(counters)
+        laps.append((tr, tm))
+        lap_out.append(([a.clone() for a in field.alpha], mesh.v, mesh.f))
+        err, n_inner = terrain_error(mesh)
+        print_lap("phase 10", field, tr, tm, launches, mesh, err, n_inner,
+                  DUAL_ERR_LIMIT)
+    tr, tm = min(t[0] for t in laps), min(t[1] for t in laps)
+    print(f"[phase 10] (b) dual splat, {N_POINTS} points: reconstruct_s "
+          f"{tr:.3f} extract_mesh_s {tm:.3f} pts/s {N_POINTS / (tr + tm):.1f};"
+          f" {field.solver_stats}", flush=True)
+    same = lap_diff(*lap_out)
+    print("[phase 10] (b) the two dual laps on one input: " + same,
+          flush=True)
+    del lap_out
+    if "coefficients bit-equal" not in same or "mesh bit-equal" not in same:
+        raise AssertionError("[phase 10] two dual laps on one input are not "
+                             "bit-equal: " + same)
+    check_dense_lattice("phase 10", field, mesh, err, DUAL_ERR_LIMIT)
+    check_lattice_launches("phase 10", launches, field, dual=True)
+    dual_launches = launches
+    del field, mesh
+    torch.cuda.empty_cache()
+    q_err = quadrant_error(recon, xyz, nrm, lap=lambda x, n: main_path_lap(
+        recon, x, n, "splat", DUAL_KW))
+    print(f"[phase 10] (b) dual, the four 20 m quadrants alone: terrain "
+          f"vertex error on {len(q_err)} interior vertices: mean "
+          f"{q_err.mean():.5f} q90 {np.quantile(q_err, 0.9):.5f} max "
+          f"{q_err.max():.5f} (the JAX package, CPU: mean "
+          f"{JAX_DUAL_QUADRANT_ERR}; limit {DUAL_ERR_LIMIT:.5f})", flush=True)
+    if not q_err.mean() <= DUAL_ERR_LIMIT:
+        raise AssertionError(f"[phase 10] dual quadrant terrain error mean "
+                             f"{q_err.mean()} > {DUAL_ERR_LIMIT}")
+    torch.cuda.empty_cache()
+    rows, dev_ms, ev_ms = profile_matvec(LAT, recon, xyz, nrm)
+    print(f"[phase 10] (b) profiled dual matvec: device total {dev_ms:.3f} ms"
+          f" (CUDA events {ev_ms:.3f} ms a matvec; the primal's "
+          f"{primal_mv_ms:.3f}); top ten: "
+          + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                      for t, name, n in rows[:10]), flush=True)
+    torch.cuda.empty_cache()
+
+    converged_parity()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted", DUAL_KW)
+    pred_launches = read_counts(counters)
+    err, n_inner = terrain_error(mesh)
+    print(f"[phase 10] (d) one dual predicted lap on the "
+          f"{recon._last_pred_engine} engine: reconstruct_s {tr:.3f} "
+          f"extract_mesh_s {tm:.3f}; {field.solver_stats}; launches "
+          f"{pred_launches}; terrain error mean {err.mean():.5f} on "
+          f"{n_inner} interior vertices", flush=True)
+    if recon._last_pred_engine != "host-per-level":
+        raise AssertionError("[phase 10] the dual predicted lap took the "
+                             f"{recon._last_pred_engine!r} engine")
+    check_dense_lattice("phase 10 predicted", field, mesh, err, np.inf)
+    check_lattice_launches("phase 10 predicted", pred_launches, field,
+                           dual=True)
+    del field, mesh, recon
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cf_rows = CF.run("cuda", log=lambda m: print("[phase 10] (e) " + m,
+                                                 flush=True))
+    print(f"[phase 10] (e) compare_formulations: {len(cf_rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(r["verts"] > 0 and np.isfinite(r["vert_err"])
+               for r in cf_rows):
+        raise AssertionError("[phase 10] compare_formulations gave an empty "
+                             "or non-finite mesh")
+    torch.cuda.empty_cache()
+    return dual_launches, pred_launches, mid
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1589,15 +1873,15 @@ def main() -> int:
         raise AssertionError(f"quadrant terrain error mean {q_err.mean()} > "
                              f"{ERR_LIMIT}")
     torch.cuda.empty_cache()
-    rows, dev_ms, ev_ms = profile_matvec(LAT, recon, xyz, nrm)
+    rows, dev_ms, primal_mv_ms = profile_matvec(LAT, recon, xyz, nrm)
     if rows:
         print(f"[phase 3] profiled matvec: device total {dev_ms:.3f} ms "
-              f"(CUDA events {ev_ms:.3f} ms a matvec); top ten: "
+              f"(CUDA events {primal_mv_ms:.3f} ms a matvec); top ten: "
               + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
                           for t, name, n in rows[:10]), flush=True)
     else:
         print("[phase 3] profiled matvec: the profiler saw no device time; "
-              f"CUDA events {ev_ms:.3f} ms a matvec", flush=True)
+              f"CUDA events {primal_mv_ms:.3f} ms a matvec", flush=True)
     torch.cuda.empty_cache()
     split = profile_solve(ST, recon, xyz, nrm)
     print("[phase 3] profiled lattice solve, host ms / device ms: "
@@ -1668,6 +1952,14 @@ def main() -> int:
     del udf_recon
     torch.cuda.empty_cache()
 
+    # ---- phase 10: the dual (row-space) formulation
+    t_phase = time.perf_counter()
+    dual_launches, dual_pred_launches, mid = dual_laps(
+        params, xyz, nrm, counters, spec, slot_cells, adj_kept, gen,
+        primal_mv_ms)
+    print(f"[phase 10] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
     reset_counts(scatter_counters)
@@ -1736,6 +2028,14 @@ def main() -> int:
         rec["launches_predicted"] = pred_launches[key]
         rec["launches_udf"] = udf_launches[key]
         rec["launches_chunked"] = chunked_launches[key]
+        rec["launches_dual"] = dual_launches[key]
+        rec["launches_dual_predicted"] = dual_pred_launches[key]
+    # the dual's middle: the slot-row adjoint (f32) then the slot rows,
+    # and the literal chain it stands for, at the main path's slot cells
+    kernels[3].update(gram_middle_ms=mid["ms"],
+                      gram_middle_literal_ms=mid["literal_ms"],
+                      gram_middle_plain_ms=mid["plain_ms"],
+                      gram_middle_bound_ms=mid["bound"])
     # the scatter kernels at w = 32 (the study's width; phase 6 prints
     # w = 128 too): the blocked one on unique indices, by CUDA events; the
     # rate kernels at the study's shape, as device time in one CUDA graph

@@ -1,5 +1,5 @@
 """Dense-lattice kernel solve (counterpart of nksr_tpu/fields/lattice.py,
-primal formulation).
+primal and dual formulations).
 
 The plan half (``LatticeSpec``, ``LatticePlan``, ``plan_lattice``) is
 integer numpy, copied from the JAX package so that both packages build
@@ -7,15 +7,19 @@ byte-identical plans from the same host grids.
 
 The device half fits per-depth coefficient lattices ``xs[d]`` of shape
 ``(n_d, k)`` f32 by preconditioned CG on the normal equations
-``(A^T W A + reg I) x = A^T W y``.  Each matvec computes the slots'
-rows of the fused depth-0 support buffer AV0 ``(cells_0, depth*8k)``
-straight from the coefficient lattices with the slot-row kernel,
-contracts each with the slot's basis block, and maps the transposed
-contraction's slot rows back with the slot-row adjoint, which sums each
-cell's rows in a fixed order (``fields/lattice_kernels.py``).  No
-depth-0 buffer is built in the solve, and two solves on one input are
-bit-equal on the card.  The whole of AV0 is
-built only for the evaluator (``fields/lattice_eval.py``).
+``(A^T W A + reg I) x = A^T W y`` (the primal), or in row space
+``(W^1/2 A A^T W^1/2 + reg I) u = W^1/2 y`` with ``x = A^T W^1/2 u``
+(the dual, the reference NKSR's own formulation).  Each primal matvec
+computes the slots' rows of the fused depth-0 support buffer AV0
+``(cells_0, depth*8k)`` straight from the coefficient lattices with the
+slot-row kernel, contracts each with the slot's basis block, and maps the
+transposed contraction's slot rows back with the slot-row adjoint, which
+sums each cell's rows in a fixed order (``fields/lattice_kernels.py``).
+The dual matvec runs the same two kernels the other way round: the
+adjoint of the slot rows, then AV0's rows of the result.  No depth-0
+buffer is built in the solve, and two solves on one input are bit-equal
+on the card.  The whole of AV0 is built only for the evaluator
+(``fields/lattice_eval.py``).
 
 The lattice is exact integer geometry: a point's support cell at depth d
 is ``floor(x / vs_d)`` and deeper cells are nested prefixes
@@ -475,6 +479,23 @@ def assemble_rows(spec: LatticeSpec, interp: Interpolators, fdp, adp,
 
 
 # ------------------------------------------------------------------- solve
+FORMULATIONS = ("primal", "dual")
+
+
+def gram_middle(spec: LatticeSpec, adj_tables, y: torch.Tensor,
+                slot_cells0: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The dual matvec's middle ``C C^T`` in slot-row space: the slot
+    rows ``y`` (R, lanes) f32 summed at their cells and mapped to the
+    coefficient lattices by the slot-row adjoint in f32, then AV0's rows
+    of those lattices at ``slot_cells0``, rounded to ``compute_dtype``.
+    The JAX package's ``_gram_middle`` (nksr_tpu/fields/lattice.py:860)
+    read at the slot cells, without its dense f32 buffer: its adjoint
+    reads that buffer in f32 and only ``_av0``'s output is rounded."""
+    return LK.av0_rows(
+        spec, LK.av0_adjoint_rows(spec, adj_tables, y, torch.float32),
+        slot_cells0, compute_dtype)
+
+
 @torch.no_grad()
 def lattice_solve(spec: LatticeSpec, interp: Interpolators,
                   basis_features: Sequence[torch.Tensor],
@@ -489,21 +510,29 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
                   normal_weight: float, reg_weight: float, tol: float,
                   max_iters: int, approx_grad: bool, *,
                   slot_cell0_pt: torch.Tensor, slot_cell0_gr: torch.Tensor,
-                  gr_perm: torch.Tensor, compute_dtype=torch.float32):
-    """Fit the per-depth coefficients (primal formulation).
+                  gr_perm: torch.Tensor, compute_dtype=torch.float32,
+                  formulation: str = "primal"):
+    """Fit the per-depth coefficients.
 
     Point arrays hold the real points only, in plan order
     (``plan.pt_perm``); ``gr_targets`` (s_gr, 3) are the gradient targets
     in hierarchy order (``gr_perm`` realigns them with the sorted slots).
     Row blocks and AV0's slot rows are held in ``compute_dtype`` values
-    (bf16 on the card), every contraction and sum is f32.  The phases
-    outside the matvecs are ``torch.profiler`` ranges named
-    ``lattice_solve: ...``.
+    (bf16 on the card), every contraction and sum is f32.
+    ``formulation``: "primal" (the normal equations over the
+    coefficients) or "dual" (the row-space system over the weighted rows,
+    then ``x = A^T W^1/2 u``; ``rel_res`` is then the row-space
+    residual), as ``nksr_tpu.fields.lattice.lattice_solve`` computes
+    them.  The phases outside the matvecs are ``torch.profiler`` ranges
+    named ``lattice_solve: ...``.
 
     Returns (alphas, dense_xs, (iters, rel_res)): per-voxel flat
     coefficients (cap_d * k,), the dense (n_d, k) solution lattices (zero
     outside the active voxels) for the evaluator, and CG diagnostics.
     """
+    if formulation not in FORMULATIONS:
+        raise ValueError(f"unknown solver formulation {formulation!r}; "
+                         f"one of {FORMULATIONS}")
     depth, k = spec.depth, spec.k
     cdt = compute_dtype
     f32 = torch.float32
@@ -541,45 +570,78 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
         adj_tables = LK.adjoint_rows_tables(
             spec, torch.where(real, slot_cells0, -1))
 
-    def apply_A(xs):
-        av = LK.av0_rows(spec, xs, slot_cells0, cdt)
-        av_pt, av_gr = av[:s_pt], av[s_pt:]
-        t_pt = torch.bmm(b_pt, av_pt[..., None])[..., 0]        # (s_pt, r)
-        t_gr = torch.bmm(b_gr, av_gr[..., None])[..., 0]        # (s_gr, 3)
+    def contract(av):
+        """Each slot's basis block times its AV0 row: the rows' values
+        (s_pt, r) and (s_gr, 3)."""
+        t_pt = torch.bmm(b_pt, av[:s_pt, :, None])[..., 0]
+        t_gr = torch.bmm(b_gr, av[s_pt:, :, None])[..., 0]
         return t_pt, t_gr
 
-    def apply_AT(t_pt, t_gr):
-        # the slot rows, point slots then gradient slots, in one buffer
+    def slot_rows(t_pt, t_gr):
+        """The transposed contraction: the slot rows, point slots then
+        gradient slots, in one f32 buffer, from row values rounded to
+        the compute dtype."""
         y = torch.empty((s_pt + s_gr, spec.lanes), dtype=f32, device=dev)
         torch.bmm(b_pt.transpose(1, 2), t_pt.to(cdt).float()[..., None],
                   out=y[:s_pt, :, None])
         torch.bmm(b_gr.transpose(1, 2), t_gr.to(cdt).float()[..., None],
                   out=y[s_pt:, :, None])
-        return LK.av0_adjoint_rows(spec, adj_tables, y, cdt)
+        return y
 
-    def matvec(xs):
-        t_pt, t_gr = apply_A(xs)
-        y = apply_AT(w_pt * t_pt, w_gr[:, None] * t_gr)
-        return tuple(yi + reg_weight * xi for yi, xi in zip(y, xs))
+    def apply_A(xs):
+        return contract(LK.av0_rows(spec, xs, slot_cells0, cdt))
 
-    # rhs = A_g^T W_g targets (value rows have target 0)
-    with record_function("lattice_solve: rhs"):
-        rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
+    def apply_AT(t_pt, t_gr):
+        return LK.av0_adjoint_rows(spec, adj_tables, slot_rows(t_pt, t_gr),
+                                   cdt)
 
-    # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k), mapped
-    # back by the adjoint in f32
-    with record_function("lattice_solve: jacobi diagonal"):
-        dy = torch.cat([(b_pt ** 2 * w_pt[..., None]).sum(1),
-                        (b_gr ** 2).sum(1) * w_gr[:, None]])
-        diag = tuple(a + reg_weight for a in
-                     LK.av0_adjoint_rows(spec, adj_tables, dy, f32))
-        del dy
+    if formulation == "dual":
+        # (nksr_tpu/fields/lattice.py:1243-1319, its default "gram"
+        # middle; plan phases are zero, so its phase0 is the plan's)
+        sw_pt, sw_gr = torch.sqrt(w_pt), torch.sqrt(w_gr)[:, None]
+
+        def matvec(u):
+            u_pt, u_gr = u
+            t_pt, t_gr = contract(gram_middle(
+                spec, adj_tables, slot_rows(sw_pt * u_pt, sw_gr * u_gr),
+                slot_cells0, cdt))
+            return (sw_pt * t_pt + reg_weight * u_pt,
+                    sw_gr * t_gr + reg_weight * u_gr)
+
+        rhs = (torch.zeros_like(w_pt), sw_gr * gr_targets)
+        # the rows of B C touch pairwise distinct coefficients lane by
+        # lane, so the Gram diagonal is w * |b|^2 exactly: no adjoint
+        with record_function("lattice_solve: jacobi diagonal"):
+            diag = (w_pt * (b_pt ** 2).sum(-1) + reg_weight,
+                    w_gr[:, None] * (b_gr ** 2).sum(-1) + reg_weight)
+    else:
+        def matvec(xs):
+            t_pt, t_gr = apply_A(xs)
+            y = apply_AT(w_pt * t_pt, w_gr[:, None] * t_gr)
+            return tuple(yi + reg_weight * xi for yi, xi in zip(y, xs))
+
+        # rhs = A_g^T W_g targets (value rows have target 0)
+        with record_function("lattice_solve: rhs"):
+            rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
+
+        # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k),
+        # mapped back by the adjoint in f32
+        with record_function("lattice_solve: jacobi diagonal"):
+            dy = torch.cat([(b_pt ** 2 * w_pt[..., None]).sum(1),
+                            (b_gr ** 2).sum(1) * w_gr[:, None]])
+            diag = tuple(a + reg_weight for a in
+                         LK.av0_adjoint_rows(spec, adj_tables, dy, f32))
+            del dy
 
     with record_function("lattice_solve: pcg"):
         xs, iters, rel_res = pcg(
             matvec, rhs,
             precond=lambda r: tuple(ri / di for ri, di in zip(r, diag)),
             tol=tol, max_iters=max_iters)
+    if formulation == "dual":
+        # x = A^T W^1/2 u, through the primal's adjoint (rows in cdt)
+        with record_function("lattice_solve: back-substitution"):
+            xs = apply_AT(sw_pt * xs[0], sw_gr * xs[1])
 
     alphas = []
     for d in range(depth):

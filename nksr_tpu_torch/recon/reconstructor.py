@@ -182,9 +182,6 @@ class Reconstructor:
         if mesh is not None:
             raise _not_ported("multi-device reconstruction (mesh=)",
                               "item 15")
-        if self.config.solver_formulation != "primal":
-            raise _not_ported("solver_formulation="
-                              f"{self.config.solver_formulation!r}", "item 13")
         if self.config.geometry != "kernel":
             raise _not_ported(f"geometry={self.config.geometry!r}",
                               "item 17")

@@ -3,11 +3,13 @@ the field it returns (counterpart of the solve tails of
 nksr_tpu/recon/reconstructor.py, predicted_dense.py and
 host_predicted.py).
 
-  * ``lattice_field``: the primal dense-lattice CG solve, then the
+  * ``lattice_field``: the dense-lattice CG solve in the configuration's
+    formulation (``solver_formulation``, primal or dual), then the
     lattice evaluator; the normal prior is splatted onto the solve
     lattice (``dense_prior``) or through the points' host splat rows;
   * ``support_row_field``: the support-row kernel solve for a hierarchy
-    whose lattice plan is refused, meshed on the host.
+    whose lattice plan is refused, meshed on the host; it solves the
+    primal whatever the formulation, as the JAX package's does.
 
 The field's mask follows the decoder grids it is handed, as the JAX
 package's ``LayerField(dec_svh, adaptive_depth)`` does; a model with a
@@ -123,7 +125,8 @@ def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
         approx_grad=cfg.approx_kernel_grad,
         slot_cell0_pt=up(plan.slot_cell0_pt, i64),
         slot_cell0_gr=up(plan.slot_cell0_gr, i64),
-        gr_perm=up(plan.gr_perm, i64), compute_dtype=cdt)
+        gr_perm=up(plan.gr_perm, i64), compute_dtype=cdt,
+        formulation=cfg.solver_formulation)
     tm.lap(label)
     ctx = LatticeEvalContext(
         spec, plan.origins, net.interpolators, basis_f, vox_cell,

@@ -1,6 +1,7 @@
-"""The CUDA kernels (the AV0 cascade pair and slot rows, the window, the
-sorted scatters and the probes) against their plain PyTorch versions on
-the card (marker ``cuda``; skipped where there is no CUDA device).  Run on a
+"""The CUDA kernels (the AV0 cascade pair and slot rows, the dual's
+middle built of them, the window, the sorted scatters and the probes)
+against their plain PyTorch versions on the card (marker ``cuda``;
+skipped where there is no CUDA device).  Run on a
 machine with the card, where JAX need not be installed (``--noconftest``
 skips the JAX set-up of conftest.py):
 
@@ -648,6 +649,41 @@ def test_adjoint_rows_cases_equal_dense_kernel(gen, depth, k, dtype, case):
     for g, a, dn in zip(got, again, dense):
         assert torch.equal(g, a)
         assert torch.equal(g + 0.0, dn + 0.0)
+
+
+@pytest.mark.parametrize("case", ADJ_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_gram_middle_equals_dense_chain(gen, depth, k, dtype, case):
+    """The dual matvec's middle ``C C^T`` in slot-row space
+    (``lattice.gram_middle``: the slot-row adjoint in f32, then the slot
+    rows in ``dtype``) equals the literal middle the JAX package runs
+    (``_gram_middle``): the dense buffer CPU ``index_add_`` builds from
+    the slot rows, the dense adjoint kernel in f32, the dense forward in
+    ``dtype``, then the rows at the slot cells; bit for bit up to the
+    sign of a zero, two calls bit-equal, one launch of each slot-row
+    kernel a call and none of the dense ones."""
+    spec = _ragged_spec(depth, k)
+    kept = torch.from_numpy(adjoint_case(spec, case)).cuda()
+    cells = kept.clamp(min=0).to(torch.int32)
+    y = torch.randn((kept.numel(), spec.lanes), device="cuda",
+                    generator=gen) * (kept >= 0)[:, None]
+    tab = LK.adjoint_rows_tables(spec, kept)
+    counted = (LK.av0_adjoint_rows, LK.av0_rows, LK.av0_adjoint_cascade,
+               LK.av0_cascade)
+    before = [fn.launches for fn in counted]
+    got = LAT.gram_middle(spec, tab, y, cells, dtype)
+    again = LAT.gram_middle(spec, tab, y, cells, dtype)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == \
+        [2, 2, 0, 0]
+    xs = LK.av0_adjoint_cascade(spec, _dense_z0(spec, cells, y),
+                                torch.float32)
+    ref = LK.av0_cascade(spec, xs, dtype).index_select(0, cells.long())
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, again)
+    assert torch.equal(got + 0.0, ref.float() + 0.0)
 
 
 def test_adjoint_rows_real_plan_sizes(gen):

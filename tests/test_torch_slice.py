@@ -113,7 +113,7 @@ def test_solve_never_builds_dense_av0(monkeypatch):
     _check_solve_against_jax(3)
 
 
-def _check_solve_against_jax(max_iters):
+def _check_solve_against_jax(max_iters, formulation="primal"):
     cfg = P.PipelineConfig(**SMALL)
     params = random_params(cfg, 2)
     xyz, plan, basis, tgt = _solve_inputs(cfg, 7)
@@ -142,7 +142,7 @@ def _check_solve_against_jax(max_iters):
         slot_cell0_pt=jnp.asarray(plan.slot_cell0_pt),
         slot_cell0_gr=jnp.asarray(plan.slot_cell0_gr),
         gr_perm=jnp.asarray(plan.gr_perm), cascade_engine="xla",
-        return_dense=True, return_stats=True)
+        formulation=formulation, return_dense=True, return_stats=True)
 
     def t(a):
         a = np.asarray(a)
@@ -157,7 +157,8 @@ def _check_solve_against_jax(max_iters):
         t(plan.gr_active), torch.from_numpy(tgt),
         [t(v) for v in plan.vox_cell], [t(v) for v in plan.vox_active],
         **w, slot_cell0_pt=t(plan.slot_cell0_pt),
-        slot_cell0_gr=t(plan.slot_cell0_gr), gr_perm=t(plan.gr_perm))
+        slot_cell0_gr=t(plan.slot_cell0_gr), gr_perm=t(plan.gr_perm),
+        formulation=formulation)
     assert iters == int(j_iters) == max_iters
     np.testing.assert_allclose(res, float(j_res), rtol=1e-4)
     for d in range(spec.depth):
@@ -240,7 +241,6 @@ def test_host_field_queries(solved):
     ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None,
               mesh=object()), "item 15"),
     ({}, dict(structure="splat", mesh=object()), "item 15"),
-    (dict(solver_formulation="dual"), dict(structure="splat"), "item 13"),
     (dict(geometry="neural"), dict(structure="splat"), "item 17"),
 ])
 def test_unported_routes_raise(cfg_kw, call_kw, item):
