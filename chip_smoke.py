@@ -142,6 +142,41 @@ Phases (any failure ends the run with a non-zero exit):
      gains each lattice kernel's launches on the dual splat and
      predicted laps (``launches_dual``, ``launches_dual_predicted``) and
      the middle's times.
+ 11. (run after phase 10) training, teacher-forced, at the full width of
+     runs/scene_big/config.yaml (UDF head on, f32 convs), on item 0 of
+     scripts/make_synth_scenes.py's corpus (5 m terrain patches, 8,000
+     input points of 30,000), written under the checkout's data/: (a) the
+     training step's two backwards at its shapes on the card, bit-equal
+     to their plain versions on CPU copies and call to call, timed: the
+     gather's (the fixed-order segment sum over the order sorted once per
+     index table, at the depth-0 conv gather) and the segment sum's (a
+     row gather, at the encoder splat); (b) solve_spd's gradients on the card
+     against its CPU run on an f64 system, and one step on
+     tests/test_train.py's sphere with the solve converged, card against
+     CPU; (c) one step from runs/scene_big/best.ckpt on the item, card
+     against the same step on CPU tensors with one set of draws: at the
+     run's 16 iterations the UNet's outputs and the structure losses
+     gated, every loss term and gradient leaf printed; with the solve to
+     convergence every loss term, every gradient leaf and the whole
+     gradient gated (iterations printed); then three steps with the
+     optimizer: seconds a warm step by phase, peak memory, the launches
+     of one step (the segment sum and the window kernel must run), the
+     gathers' backwards and their sorts in a step, and the window kernel
+     against its plain version on every input the first of those steps
+     gave it, timed; (d) 30 overfit steps from the
+     port's seeded init, the last 3 sums under 0.85x the first 3; (e) two
+     runs of 5 steps from one state, parameters and losses bit-equal;
+     (f) ``train.driver.fit`` for 4 steps with one validation from the
+     checkpoint, its best.ckpt through ``Reconstructor`` on the item,
+     the mesh's vertices within FIT_MESH_LIMIT of the GT cloud on
+     average.  The CPU side of (b) and (c) runs in a second process
+     (``--train-cpu-reference``) on the host's last TRAIN_REF_THREADS
+     cores, started after phase 1 so that its minutes overlap phases
+     2-10; once it has ended, phase 3's splat lap and phase 7's
+     predicted lap run again, and their host times are printed beside
+     those taken while it ran.  The kernels line gains each kernel's
+     launches in one training step (``launches_train``), the backwards'
+     times and the window kernel's at the step's inputs.
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -246,6 +281,57 @@ PARITY_CFG = dict(voxel_size=0.1, tree_depth=3, adaptive_depth=1, f_maps=16,
 PARITY_KW = dict(detail_level=None, voxel_size=0.1, structure="splat",
                  solver_tol=1e-4, solver_max_iters=500)
 PARITY_BOUND = 5e-3
+# Phase 11, training (teacher-forced) at runs/scene_big's width under its
+# config.yaml (UDF head on, f32 convs, 16 CG iterations at tol 1e-4), on
+# item 0 of scripts/make_synth_scenes.py's corpus (5 m terrain patches of
+# 30,000 points; 8,000 input points, as the config's train_dataset draws),
+# written under the checkout's gitignored data/.  Card against the same
+# step on CPU tensors with one set of draws: the UNet's structure logits
+# and basis features within TRAIN_UNET_TOL of their largest magnitude and
+# the structure losses within TRAIN_STRUCT_RTOL (f32, other summation
+# orders; the port's CPU run is 1e-6 from the JAX package's there), at
+# the run's 16 iterations; with the solve to convergence (tol
+# TRAIN_CONV_TOL, at most TRAIN_CONV_ITERS iterations) every loss term
+# within TRAIN_LOSS_RTOL, the whole gradient (all leaves at once) within
+# TRAIN_GRAD_RTOL relative L2 and each leaf within TRAIN_SCENE_LEAF_RTOL.
+# At this width the f32 backward solve takes some 6,200 iterations to
+# tol 1e-4, and along its slow modes two runs that differ only in
+# summation order still differ by a few percent on some leaves: the port
+# on the CPU at 4 and at 8 threads 5.4e-2 on interp_2's last layer (9.6e-4
+# over the whole gradient), the card against the CPU 9.3e-2 there (1.3e-3
+# whole); a leaf whose gradient is lost or wrong reads about 1.  The
+# sphere of (b), whose backward converges in some 370 iterations, has
+# each leaf within TRAIN_GRAD_RTOL.  The bounds are
+# tests/test_torch_train.py's against the JAX package.
+TRAIN_ROOT = os.path.join("data", "synth_scene_smoke")
+TRAIN_ITEMS = 8
+TRAIN_UNET_TOL = 1e-4
+TRAIN_STRUCT_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_SCENE_LEAF_RTOL = 0.3
+TRAIN_CONV_TOL = 1e-4
+TRAIN_CONV_ITERS = 12000
+# the CPU side of phase 11 (b) and (c) runs in its own process, on this
+# many threads pinned to the host's last cores, beside phases 2-10 on the
+# card: alone it takes some 400 s, which would bring the script near its
+# time limit; phase 11 waits for it at most TRAIN_REF_TIMEOUT seconds
+TRAIN_REF_THREADS = 4
+TRAIN_REF_TIMEOUT = 900
+# the overfit of tests/test_train.py:163-176 (its learning rate 2e-3, the
+# last 3 sums' mean under 0.85x the first 3's), 30 steps at full width
+OVERFIT_STEPS = 30
+OVERFIT_LR = 2e-3
+# the port-trained checkpoint's mesh of item 0: mean distance of its
+# vertices to the GT cloud under half a voxel
+FIT_MESH_LIMIT = 0.05
+# phase 11 (b): tests/test_train.py's sphere configuration, its solve
+# raised to convergence as tests/test_torch_train.py raises it
+SPHERE_TRAIN_CFG = dict(voxel_size=0.1, tree_depth=3, adaptive_depth=1,
+                        f_maps=16, basis_dim=8, udf_dim=8,
+                        capacities=(2048, 1024, 512), solver_max_iters=600,
+                        solver_tol=1e-4)
+SPHERE_TRAIN_LOSS = dict(gt_surface_subsample=2048)
 SENSOR_Z = 10.0
 KNN, MAX_ANGLE = 64, 85.0
 KNN_CHECK_QUERIES = 4096
@@ -632,12 +718,17 @@ def quadrant_error(recon, xyz, nrm, structure="splat", on_lap=None,
     return np.concatenate(errs)
 
 
-def compare_window(WB, q: int, gen, timed: bool):
-    """Window kernel vs plain version on local offsets in [-1.25, 1.25]
-    (the support's [-1, 1) plus the clamped margin): rtol 1e-5 / atol
-    1e-6, the bound of the JAX package's own window test (FMA contraction
-    may move an ulp)."""
-    x = torch.rand((q, 8, 3), device="cuda", generator=gen) * 2.5 - 1.25
+def window_offsets(q: int, gen):
+    """(q, 8, 3) local offsets in [-1.25, 1.25] (the support's [-1, 1)
+    plus the clamped margin)."""
+    return torch.rand((q, 8, 3), device="cuda", generator=gen) * 2.5 - 1.25
+
+
+def compare_window(WB, x, timed: bool):
+    """Window kernel vs plain version on the (Q, 8, 3) local offsets
+    ``x``: rtol 1e-5 / atol 1e-6, the bound of the JAX package's own
+    window test (FMA contraction may move an ulp)."""
+    q = x.shape[0]
     w, dw = WB.window_and_grad_fused(x)
     rw, rdw = WB.window_and_grad_plain(x)
     torch.testing.assert_close(w, rw, rtol=1e-5, atol=1e-6)
@@ -904,7 +995,8 @@ def structure_laps(recon, xyz, nrm, counters, splat_n0, adaptive_recon):
     gate; one adaptive lap (adaptive depth 2) on the dense lattice route
     with a decoder smaller than the splat hierarchy at depth 0, under the
     splat gate, and its four quadrants alone under 1.5x the JAX package's
-    adaptive error there.  Returns the predicted lap's launches."""
+    adaptive error there.  Returns the predicted lap's launches and its
+    (reconstruct, mesh) seconds, the faster of two laps each."""
     tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, "predicted")
     print(f"[phase 7] predicted warm-up lap: reconstruct_s {tr:.3f} "
           f"extract_mesh_s {tm:.3f}", flush=True)
@@ -923,6 +1015,7 @@ def structure_laps(recon, xyz, nrm, counters, splat_n0, adaptive_recon):
         print_lap("phase 7", field, tr, tm, launches, mesh, err, n_inner,
                   PRED_ERR_LIMIT)
     tr, tm = min(t[0] for t in laps), min(t[1] for t in laps)
+    pred_lap = (tr, tm)
     print(f"[phase 7] predicted, {N_POINTS} points: engine "
           f"{recon._last_pred_engine}, reconstruct_s {tr:.3f} extract_mesh_s "
           f"{tm:.3f} pts/s {N_POINTS / (tr + tm):.1f}", flush=True)
@@ -1004,7 +1097,7 @@ def structure_laps(recon, xyz, nrm, counters, splat_n0, adaptive_recon):
         raise AssertionError(f"[phase 7 adaptive] quadrant terrain error "
                              f"mean {q_err.mean()} > "
                              f"{ADAPTIVE_QUADRANT_LIMIT}")
-    return pred_launches
+    return pred_launches, pred_lap
 
 
 def check_trim(tag, field, mesh):
@@ -1624,6 +1717,585 @@ def dual_laps(params, xyz, nrm, counters, spec, cells, kept, gen,
     return dual_launches, pred_launches, mid
 
 
+
+# ------------------------------------------------------ phase 11: training
+def _grads(net):
+    """Each parameter's gradient on the CPU, zeros where no loss reaches
+    it."""
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().cpu() for n, p in net.named_parameters()}
+
+
+def train_grads(cfg, lcfg, params, batch, samples, device):
+    """The port's teacher-forced loss and gradients of one step from the
+    flax-layout ``params`` on ``device``: (losses, grads, forward output
+    moved to the CPU, (forward, backward) solve stats, peak GiB)."""
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.models.network import NKSRNetwork
+    from nksr_tpu_torch.solver.pcg import solve_spd
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import params_to_torch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = NKSRNetwork(cfg)
+    net.load_state_dict(params_to_torch(params), strict=True)
+    net = net.to(device)
+    inp = P.prepare_inputs(cfg, batch, device)
+    losses, _, out = T.loss_and_grads(cfg, lcfg, net, inp, samples)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else 0.0
+    fwd = {"logits": [x.detach().cpu() for x in out.structure_logits],
+           "basis": [x.detach().cpu() for x in out.basis_features]}
+    return ({k: float(v.detach()) for k, v in losses.items()}, _grads(net),
+            fwd, (out.field.cg_stats, solve_spd.last_backward_stats), peak)
+
+
+def compare_train(tag, card, cpu, gate_losses, loss_rtol, leaf_rtol,
+                  unet_tol, struct_rtol, whole_rtol=None):
+    """Card against CPU for one step: the UNet's structure logits and
+    basis features within ``unet_tol`` of their largest magnitude and the
+    structure losses within ``struct_rtol`` (always gated); every loss
+    term within ``loss_rtol``, each gradient leaf within ``leaf_rtol``
+    relative L2 and, where ``whole_rtol`` is given, all leaves at once
+    within it; gated when ``gate_losses``.  Returns the worst of each."""
+    cl, cg, cf, _, _ = card
+    pl, pg, pf, _, _ = cpu
+    unet = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for key in ("logits", "basis")
+               for a, b in zip(cf[key], pf[key]))
+    struct = max(abs(cl[k] - pl[k]) / abs(pl[k]) for k in pl
+                 if k.startswith("struct-"))
+    loss = max((abs(cl[k] - pl[k]) / max(abs(pl[k]), 1e-30), k) for k in pl)
+    grad = max((float(torch.linalg.norm(cg[n] - pg[n]))
+                / max(float(torch.linalg.norm(pg[n])), 1e-30), n)
+               for n in pg if float(torch.linalg.norm(pg[n])) > 0)
+    whole = float(torch.sqrt(sum(((cg[n] - pg[n]) ** 2).sum() for n in pg))
+                  / torch.sqrt(sum((pg[n] ** 2).sum() for n in pg)))
+    print(f"[phase 11] {tag}: card against CPU: UNet outputs {unet:.3e} of "
+          f"max (gate {unet_tol}), structure losses {struct:.3e} rel (gate "
+          f"{struct_rtol}), loss terms worst {loss[0]:.3e} ({loss[1]}), "
+          f"gradient leaves worst {grad[0]:.3e} rel L2 ({grad[1]}), the "
+          f"whole gradient {whole:.3e} rel L2"
+          + ((f" (gates: loss terms {loss_rtol}, each leaf {leaf_rtol}"
+              + ("" if whole_rtol is None
+                 else f", the whole gradient {whole_rtol}") + ")")
+             if gate_losses else " (reported, not gated)"), flush=True)
+    if not (unet <= unet_tol and struct <= struct_rtol):
+        raise AssertionError(f"[phase 11] {tag}: UNet outputs or structure "
+                             "losses differ between card and CPU")
+    if gate_losses and not (loss[0] <= loss_rtol and grad[0] <= leaf_rtol
+                            and (whole_rtol is None
+                                 or whole <= whole_rtol)):
+        raise AssertionError(f"[phase 11] {tag}: loss terms or gradients "
+                             "differ between card and CPU")
+    return {"unet": unet, "struct": struct, "loss": loss[0],
+            "grad": grad[0], "whole_grad": whole}
+
+
+def compare_train_backwards(SEG, gs, inp, f_maps: int, gen):
+    """Phase 11 (a): the two backwards of the training step on the card
+    at its shapes, against their plain versions on CPU copies, bit-equal
+    and bit-equal call to call, timed.  The gather's backward (the depth-0
+    conv gather: n0 x 27 rows of f_maps onto n0 + 1 rows) is the
+    fixed-order segment sum over the order of its index table, sorted on
+    the table's first backward and reused after; the segment sum's
+    backward (the encoder splat: N x 8 rows of 7 from n0 rows) is a row
+    gather."""
+    n0 = inp.n_vox[0]
+    raw = inp.enc_tables.nbr[0][:n0].reshape(-1)
+    idx = torch.where(raw >= 0, raw, n0)
+    cot = torch.randn((idx.numel(), f_maps), device="cuda", generator=gen)
+
+    def gather_bwd(dev):
+        # as gather_conv calls it: absent neighbours read the zero row n0
+        # and drop out of the backward's order
+        src = torch.zeros((n0 + 1, f_maps), device=dev, requires_grad=True)
+        out = gs.gather_rows(src, idx.to(dev), order_idx=raw.to(dev))
+        return torch.autograd.grad(out, src, cot.to(dev))[0][:n0]
+
+    def gather_ref():
+        # autograd of CPU index_select: index_add_ in index order
+        src = torch.zeros((n0 + 1, f_maps), requires_grad=True)
+        out = src.index_select(0, idx.cpu())
+        return torch.autograd.grad(out, src, cot.cpu())[0][:n0]
+
+    got, again = gather_bwd("cuda"), gather_bwd("cuda")
+    ref = gather_ref()
+    if not (torch.equal(got.cpu(), ref) and torch.equal(got, again)):
+        raise AssertionError("[phase 11] the gather's backward differs from "
+                             "CPU index_add_ or between calls")
+    keep = raw >= 0
+    kc, kr = cot[keep].contiguous(), raw[keep]
+    order = SEG.segment_order(raw, n0 + 1)
+
+    def kernel():
+        # the backward's sum as a step runs it, the table sorted already
+        return SEG.segment_sum(cot, gs._backward_order(raw, n0 + 1))
+
+    def plain():
+        return SEG.segment_sum_plain(cot, order)
+
+    def library():
+        return torch.zeros((n0 + 1, f_maps), device="cuda").index_add_(
+            0, kr, kc)
+    k1, p1, l1 = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
+    k2, p2, l2 = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
+    r, rk = idx.numel(), int(keep.sum())
+    gather = {"rows": r, "kept": rk, "cols": f_maps, "targets": n0 + 1,
+              "ms": min(k1, k2), "plain_ms": min(p1, p2),
+              "library_ms": min(l1, l2),
+              "order_ms": cuda_ms(lambda: SEG.segment_order(raw, n0 + 1), 10),
+              "sum_ms": cuda_ms(lambda: SEG.segment_sum(cot, order), 10),
+              "bound": bound_ms(rk * f_maps * 4 + r * 8
+                                + (n0 + 1) * f_maps * 4, rk * f_maps)}
+
+    sidx = inp.splat_idx.reshape(-1)
+    sorder = SEG.segment_order(sidx, n0)
+    corder = SEG.segment_order(sidx.cpu(), n0)
+    vals = torch.randn((sidx.numel(), 7), device="cuda", generator=gen)
+    scot = torch.randn((n0, 7), device="cuda", generator=gen)
+
+    def seg_bwd(v, o, c):
+        v = v.clone().requires_grad_()
+        return torch.autograd.grad(SEG.segment_sum(v, o), v, c)[0]
+    sgot = seg_bwd(vals, sorder, scot)
+    sref = seg_bwd(vals.cpu(), corder, scot.cpu())
+    if not (torch.equal(sgot.cpu(), sref)
+            and torch.equal(sgot, seg_bwd(vals, sorder, scot))):
+        raise AssertionError("[phase 11] the segment sum's backward differs "
+                             "from its CPU run or between calls")
+    sv = vals.clone().requires_grad_()
+    sout = SEG.segment_sum(sv, sorder)
+
+    def seg_backward():
+        return torch.autograd.grad(sout, sv, scot, retain_graph=True)[0]
+    keep = sidx >= 0
+
+    def seg_library():
+        return torch.where(keep[:, None],
+                           scot.index_select(0, sidx.clamp(min=0)), 0.0)
+    rs = sidx.numel()
+    seg = {"rows": rs, "ms": min(cuda_ms(seg_backward, 10),
+                                 cuda_ms(seg_backward, 10)),
+           "plain_ms": min(cuda_ms(seg_library, 10),
+                           cuda_ms(seg_library, 10)),
+           "bound": bound_ms(n0 * 7 * 4 + rs * 8 + rs * 7 * 4, 0)}
+    print(f"[phase 11] (a) the gather's backward at the depth-0 conv "
+          f"({r} rows x {f_maps}, {rk} of them present, onto {n0}): "
+          f"bit-equal to CPU index_add_ and call to call; the backward's "
+          f"sum over its table's kept order {gather['ms']:.4f} ms (the "
+          f"order given {gather['sum_ms']:.4f}; the sort, once a table, "
+          f"{gather['order_ms']:.4f}; plain, the order given, "
+          f"{gather['plain_ms']:.4f}; index_add_ {gather['library_ms']:.4f}"
+          f"; bound {gather['bound'][0]:.4f} by {gather['bound'][1]}); "
+          f"the segment sum's backward at the encoder splat ({rs} rows x 7 "
+          f"from {n0}): bit-equal to its CPU run and call to call, "
+          f"{seg['ms']:.4f} ms (the gather alone {seg['plain_ms']:.4f}; "
+          f"bound {seg['bound'][0]:.4f} by {seg['bound'][1]})", flush=True)
+    return gather, seg
+
+
+def solve_spd_parity(ref):
+    """Phase 11 (b): the implicit solve's gradient on the card against its
+    CPU run.  A small f64 system (x = A(w)^-1 b, gradients of sum(x * r)
+    wrt b and w) within 1e-9; then one teacher-forced step on
+    tests/test_train.py's sphere and configuration with the solve raised
+    to convergence, card against CPU (the port's seeded weights and one
+    set of draws; the CPU side from ``ref``, the CPU reference's
+    results)."""
+    from nksr_tpu_torch.solver.pcg import solve_spd
+    g = np.random.default_rng(3)
+    c, w, b = g.normal(size=(30, 12)), g.uniform(0.5, 2.0, 30), \
+        g.normal(size=12)
+    r = g.normal(size=12)
+    res = []
+    for dev in ("cuda", "cpu"):
+        ct = torch.tensor(c, device=dev)
+        bt = torch.tensor(b, device=dev, requires_grad=True)
+        wt = torch.tensor(w, device=dev, requires_grad=True)
+        x = solve_spd(lambda a, ww: (ct.T @ (ww * (ct @ a[0])) + a[0],),
+                      (bt,), (wt,), tol=1e-14, max_iters=200)[0]
+        (x * torch.tensor(r, device=dev)).sum().backward()
+        res.append(torch.cat([bt.grad, wt.grad]).cpu())
+    small = float((res[0] - res[1]).abs().max() / res[1].abs().max())
+    print(f"[phase 11] (b) solve_spd on an f64 system: card gradients "
+          f"within {small:.3e} of the CPU's (gate 1e-9)", flush=True)
+    if not small <= 1e-9:
+        raise AssertionError("[phase 11] solve_spd's f64 gradients differ")
+    cfg, lcfg, params, batch, samples = sphere_train_setup()
+    if not all(torch.equal(samples[k], ref["sphere_samples"][k])
+               for k in samples):
+        raise AssertionError("[phase 11] the sphere's draws differ from "
+                             "the CPU reference's")
+    runs = {"cuda": train_grads(cfg, lcfg, params, batch, samples, "cuda"),
+            "cpu": ref["sphere"]}
+    for dev, run in runs.items():
+        (fi, fr), (bi, br) = run[3]
+        print(f"[phase 11] (b) sphere step on {dev}: forward solve {fi} "
+              f"iterations rel_res {fr:.3e}, backward {bi} rel_res "
+              f"{br:.3e}", flush=True)
+        if not (fr < cfg.solver_tol and br < cfg.solver_tol):
+            raise AssertionError(f"[phase 11] the sphere's solves did not "
+                                 f"converge on {dev}")
+    return compare_train("(b) sphere step, converged", runs["cuda"],
+                         runs["cpu"], True, TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL,
+                         TRAIN_UNET_TOL, TRAIN_STRUCT_RTOL)
+
+
+def sphere_train_setup():
+    """tests/test_train.py's sphere batch and configuration (the solve
+    raised to convergence), the port's seeded weights and one set of
+    draws (CPU generator seed 1)."""
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.train import losses as L
+    cfg = P.PipelineConfig(**SPHERE_TRAIN_CFG)
+    lcfg = L.LossConfig(
+        spatial_samplers=(L.SamplerConfig("uniform", 2048, 1, 3),
+                          L.SamplerConfig("band", 2048)),
+        udf_samplers=(L.SamplerConfig("uniform", 1024, 1, 3),
+                      L.SamplerConfig("band", 512)),
+        **SPHERE_TRAIN_LOSS)
+    xyz, nrm = sphere_points(800, 0.5, 0)
+    m = torch.from_numpy(np.arange(1024) < 800)
+    pad = lambda a: torch.from_numpy(np.pad(a, ((0, 224), (0, 0))))
+    batch = {"xyz": pad(xyz), "normal": pad(nrm), "mask": m,
+             "gt_xyz": pad(xyz), "gt_normal": pad(nrm), "gt_mask": m}
+    samples = L.draw_samples(torch.Generator().manual_seed(1), cfg, lcfg,
+                             P.prepare_inputs(cfg, batch, "cpu"))
+    return cfg, lcfg, P.init_params(cfg, 0), batch, samples
+
+
+def scene_train_setup():
+    """runs/scene_big/config.yaml's configurations, the corpus' train and
+    val sets, item 0's padded batch and one set of draws for it (CPU
+    generator seed 0)."""
+    from nksr_tpu_torch.data import (DatasetSpec as DS, ShapeNetDataset,
+                                     to_device_batch)
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import losses as L
+    from nksr_tpu_torch.utils.config import load_config
+    yc = load_config(os.path.join(REPO, UDF_CONFIG))
+    cfg = driver.pipeline_config_from_yaml(yc)
+    lcfg = driver.loss_config_from_yaml(yc)
+    spec = [DS.SHAPE_NAME, DS.INPUT_PC, DS.TARGET_NORMAL, DS.GT_DENSE_PC,
+            DS.GT_DENSE_NORMAL, DS.GT_ONET_SAMPLE]
+    args = dict(yc["train_dataset"]["args"], root=os.path.join(REPO,
+                                                                TRAIN_ROOT))
+    ds = ShapeNetDataset(spec=spec, **args)
+    val_ds = ShapeNetDataset(spec=spec, **dict(args, split="val"))
+    batch = to_device_batch(ds[0], yc["point_bucket"], yc["gt_bucket"])
+    inp = P.prepare_inputs(cfg, batch, "cpu")
+    samples = L.draw_samples(torch.Generator().manual_seed(0), cfg, lcfg,
+                             inp)
+    return yc, cfg, lcfg, ds, val_ds, batch, samples, inp
+
+
+def train_cpu_reference(out_path: str) -> int:
+    """Phase 11's CPU side, run in its own process (``python3
+    chip_smoke.py --train-cpu-reference OUT``): the sphere step and the
+    scene step (at 16 iterations and with the solve to convergence) on
+    CPU tensors, saved to ``out_path`` with their draws."""
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > TRAIN_REF_THREADS:
+        os.sched_setaffinity(0, cores[-TRAIN_REF_THREADS:])
+    torch.set_num_threads(TRAIN_REF_THREADS)
+    t0 = time.perf_counter()
+    res = {}
+    cfg, lcfg, sp, batch, samples = sphere_train_setup()
+    res["sphere"] = train_grads(cfg, lcfg, sp, batch, samples, "cpu")
+    res["sphere_samples"] = samples
+    params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
+    _, cfg, lcfg, _, _, batch, samples, _ = scene_train_setup()
+    res["samples"] = samples
+    res["at16"] = train_grads(cfg, lcfg, params, batch, samples, "cpu")
+    res["converged"] = train_grads(
+        dataclasses.replace(cfg, solver_max_iters=TRAIN_CONV_ITERS,
+                            solver_tol=TRAIN_CONV_TOL),
+        lcfg, params, batch, samples, "cpu")
+    res["seconds"] = time.perf_counter() - t0
+    res["cores"] = sorted(os.sched_getaffinity(0))
+    torch.save(res, out_path + ".tmp")
+    os.replace(out_path + ".tmp", out_path)
+    return 0
+
+
+def start_train_reference():
+    """Write the corpus, then start ``train_cpu_reference`` in its own
+    process; it is killed at exit if still running.  Returns (process,
+    output path)."""
+    import atexit
+    root = os.path.join(REPO, TRAIN_ROOT)
+    t0 = time.perf_counter()
+    make_corpus(root)
+    out = os.path.join(root, "cpu_reference.pt")
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--train-cpu-reference", out], cwd=REPO)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    print(f"[phase 11] corpus of {TRAIN_ITEMS} patches under {TRAIN_ROOT} "
+          f"in {time.perf_counter() - t0:.1f} s; the CPU reference started "
+          f"(pid {proc.pid})", flush=True)
+    return proc, out
+
+
+def finish_train_reference(ref) -> dict:
+    proc, out = ref
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=TRAIN_REF_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(f"[phase 11] the CPU reference exited with {rc}")
+    res = torch.load(out, weights_only=False)
+    print(f"[phase 11] the CPU reference on {TRAIN_REF_THREADS} threads "
+          f"(cores {res['cores']}) took {res['seconds']:.1f} s; waited "
+          f"{time.perf_counter() - t0:.1f} s for it", flush=True)
+    return res
+
+
+def make_corpus(root: str):
+    """scripts/make_synth_scenes.py's corpus (5 m terrain patches of 30,000
+    points) under ``root`` inside the checkout (a gitignored directory)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_scenes", os.path.join(REPO, "scripts",
+                                          "make_synth_scenes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(root, TRAIN_ITEMS, 30000, 5.0)
+
+
+def training_laps(params, counters, gen, ref):
+    """Phase 11: training at runs/scene_big's width (see the module
+    docstring); ``ref`` the CPU reference's process.  Returns (launches
+    of one warm step, the backwards' records, the step's record)."""
+    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch.data import to_device_batch
+    from nksr_tpu_torch.fields import support as S
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.ops import gather_scatter as gs
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    from nksr_tpu_torch.ops import window_basis as WB
+    from nksr_tpu_torch.solver.pcg import solve_spd
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.profiling import PhaseTimer
+    from scipy.spatial import cKDTree
+
+    yc, cfg, lcfg, ds, val_ds, batch, samples, inp_cpu = \
+        scene_train_setup()
+    tc = driver.train_config_from_yaml(yc)
+    pb, gb = yc["point_bucket"], yc["gt_bucket"]
+    print(f"[phase 11] {UDF_CONFIG}: {cfg}; {lcfg}; {tc}", flush=True)
+    print(f"[phase 11] item 0: {int(batch['mask'].sum())} input points in "
+          f"{pb}, {int(batch['gt_mask'].sum())} GT points in {gb}; "
+          f"hierarchies: encoder {inp_cpu.n_vox}, GT "
+          f"{[len(g.keys) for g in inp_cpu.gt_grids]}, candidates "
+          f"{[len(lv.cand.keys) for lv in inp_cpu.levels]} voxels; "
+          f"samples {({k: tuple(v.shape) for k, v in samples.items()})}",
+          flush=True)
+    ref = finish_train_reference(ref)
+    if not all(torch.equal(samples[k], ref["samples"][k]) for k in samples):
+        raise AssertionError("[phase 11] the scene's draws differ from the "
+                             "CPU reference's")
+    back = compare_train_backwards(SEG, gs, P.prepare_inputs(cfg, batch,
+                                                             "cuda"),
+                                   cfg.f_maps, gen)
+    sphere = solve_spd_parity(ref)
+
+    # (c) one step at the run's 16 iterations, card against CPU
+    runs = {"cuda": train_grads(cfg, lcfg, params, batch, samples, "cuda"),
+            "cpu": ref["at16"]}
+    for dev, run in runs.items():
+        print(f"[phase 11] (c) step at {cfg.solver_max_iters} iterations on "
+              f"{dev}: losses {json.dumps(run[0])}; solves {run[3]}",
+              flush=True)
+    at16 = compare_train(f"(c) step at {cfg.solver_max_iters} iterations",
+                         runs["cuda"], runs["cpu"], False, TRAIN_LOSS_RTOL,
+                         TRAIN_GRAD_RTOL, TRAIN_UNET_TOL, TRAIN_STRUCT_RTOL)
+    conv_cfg = dataclasses.replace(cfg, solver_max_iters=TRAIN_CONV_ITERS,
+                                   solver_tol=TRAIN_CONV_TOL)
+    t1 = time.perf_counter()
+    runs = {"cuda": train_grads(conv_cfg, lcfg, params, batch, samples,
+                                "cuda"), "cpu": ref["converged"]}
+    print(f"[phase 11] (c) step with the solve to tol {TRAIN_CONV_TOL} on "
+          f"the card in {time.perf_counter() - t1:.1f} s", flush=True)
+    for dev, run in runs.items():
+        (fi, fr), (bi, br) = run[3]
+        print(f"[phase 11] (c) step with the solve to tol {TRAIN_CONV_TOL} "
+              f"on {dev}: forward {fi} iterations rel_res {fr:.3e}, "
+              f"backward {bi} rel_res {br:.3e}; losses "
+              f"{json.dumps(run[0])}", flush=True)
+        if not (fr < TRAIN_CONV_TOL and br < TRAIN_CONV_TOL):
+            raise AssertionError(f"[phase 11] the scene step's solves did "
+                                 f"not converge on {dev}")
+    conv = compare_train(f"(c) step with the solve to tol {TRAIN_CONV_TOL}",
+                         runs["cuda"], runs["cpu"], True, TRAIN_LOSS_RTOL,
+                         TRAIN_SCENE_LEAF_RTOL, TRAIN_UNET_TOL,
+                         TRAIN_STRUCT_RTOL, whole_rtol=TRAIN_GRAD_RTOL)
+    del runs, ref
+
+    # (c) warm steps with the optimizer: seconds, phases, peak, launches;
+    # the first (not timed) keeps each input of the window kernel and
+    # counts the gathers' backwards and the sorts they make
+    state = T.init_state(cfg, tc, params=params, device="cuda")
+    step_s, phases = [], {}
+    win_in, tally = [], {"gathers": 0, "sorts": 0}
+    real_win, real_bo = S.window_and_grad_fused, gs._backward_order
+    real_so = SEG.segment_order
+
+    def keep_win(x):
+        win_in.append(x.detach().clone())
+        return real_win(x)
+
+    def sort(*a):
+        tally["sorts"] += 1
+        return real_so(*a)
+
+    def backward_order(*a):
+        tally["gathers"] += 1
+        SEG.segment_order = sort
+        try:
+            return real_bo(*a)
+        finally:
+            SEG.segment_order = real_so
+    for i in range(3):
+        if i == 0:
+            S.window_and_grad_fused = keep_win
+            gs._backward_order = backward_order
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        times = {}
+        tm = PhaseTimer(torch.device("cuda"), times)
+        t1 = time.perf_counter()
+        state, losses, _ = T.train_step(cfg, tc, lcfg, state, batch, None,
+                                        samples=samples, tm=tm)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        S.window_and_grad_fused, gs._backward_order = real_win, real_bo
+        launches = read_counts(counters)
+        times["train: forward solve"] = solve_spd.last_seconds
+        times["train: backward solve"] = solve_spd.last_backward_seconds
+        phases = times
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[phase 11] (c) warm step {min(step_s[1:]):.4f} s (laps "
+          + ", ".join(f"{s:.4f}" for s in step_s) + f"); phases "
+          + json.dumps({k: round(v, 4) for k, v in phases.items()})
+          + f"; peak memory {peak:.2f} GiB; launches {launches}", flush=True)
+    if launches["segsum"] <= 0 or launches["window"] <= 0:
+        raise AssertionError(f"[phase 11] a training step launched no "
+                             f"segment sum or window kernel: {launches}")
+    print(f"[phase 11] (c) a step's gathers: {tally['gathers']} backwards, "
+          f"{tally['sorts']} sorts of their index tables", flush=True)
+    del state
+    if len(win_in) != launches["window"]:
+        raise AssertionError(f"[phase 11] the step gave the window kernel "
+                             f"{len(win_in)} inputs, launched it "
+                             f"{launches['window']} times")
+    wins = []
+    for x in win_in:
+        w = compare_window(WB, x, timed=True)
+        wins.append(dict(q=x.shape[0], err=w["err"], ms=w["ms"],
+                         plain_ms=w["plain_ms"], bound_ms=w["bound"][0],
+                         bound_by=w["bound"][1]))
+    del win_in
+    print("[phase 11] (c) the window kernel at the step's inputs against "
+          "its plain version (rtol 1e-5, atol 1e-6): " + "; ".join(
+              f"Q {w['q']} err {w['err']:.3e} {w['ms']:.4f} ms (plain "
+              f"{w['plain_ms']:.4f}, bound {w['bound_ms']:.4f} by "
+              f"{w['bound_by']})" for w in wins), flush=True)
+
+    # (d) an overfit from the port's seeded init on one item
+    otc = dataclasses.replace(tc, lr_init=OVERFIT_LR)
+    state = T.init_state(cfg, otc, seed=0, device="cuda")
+    hist = []
+    t1 = time.perf_counter()
+    for i in range(OVERFIT_STEPS):
+        state, losses, _ = T.train_step(cfg, otc, lcfg, state, batch,
+                                        torch.Generator().manual_seed(i))
+        hist.append(losses["sum"])
+    first, last = float(np.mean(hist[:3])), float(np.mean(hist[-3:]))
+    print(f"[phase 11] (d) overfit of item 0 from the seeded init, "
+          f"{OVERFIT_STEPS} steps at lr {OVERFIT_LR} in "
+          f"{time.perf_counter() - t1:.1f} s: sum "
+          + ", ".join(f"{h:.2f}" for h in hist)
+          + f"; last 3 / first 3 = {last / first:.3f} (gate 0.85)",
+          flush=True)
+    if not (np.isfinite(last) and last < 0.85 * first):
+        raise AssertionError("[phase 11] the overfit did not converge")
+    del state
+
+    # (e) two runs of 5 steps from one state, bit-equal
+    finals = []
+    for _ in range(2):
+        state = T.init_state(cfg, tc, params=params, device="cuda")
+        sums = []
+        for i in range(5):
+            state, losses, _ = T.train_step(
+                cfg, tc, lcfg, state, batch, torch.Generator().manual_seed(i))
+            sums.append(losses["sum"])
+        finals.append(([p.detach().clone() for p in state.net.parameters()],
+                       sums))
+        del state
+    same = all(torch.equal(a, b) for a, b in zip(finals[0][0], finals[1][0]))
+    print(f"[phase 11] (e) two runs of 5 steps from one state: params "
+          f"{'bit-equal' if same else 'DIFFER'}; sums {finals[0][1]} / "
+          f"{finals[1][1]}", flush=True)
+    if not (same and finals[0][1] == finals[1][1]):
+        raise AssertionError("[phase 11] two 5-step runs from one state "
+                             "differ")
+    del finals
+
+    # (f) fit with one validation, then best.ckpt meshed by Reconstructor
+    run_dir = os.path.join(REPO, TRAIN_ROOT, "run")
+    train_batches = [to_device_batch(ds[i], pb, gb) for i in range(4)]
+    val_batches = [to_device_batch(val_ds[0], pb, gb)]
+    t1 = time.perf_counter()
+    st = driver.fit(yc, train_batches, val_batches, run_dir, max_steps=4,
+                    val_every=4, seed=0, params=params, device="cuda")
+    print(f"[phase 11] (f) fit of 4 steps and one validation in "
+          f"{time.perf_counter() - t1:.1f} s: step {st.step}; "
+          + open(os.path.join(run_dir, "metrics.csv")).read()
+          .strip().splitlines()[-1][:300], flush=True)
+    del st
+    recon = Reconstructor(config=cfg, params=load_tree(
+        os.path.join(run_dir, "best.ckpt")))
+    m = batch["mask"].numpy()
+    t1 = time.perf_counter()
+    field = recon.reconstruct(batch["xyz"].numpy()[m],
+                              batch["normal"].numpy()[m], detail_level=None,
+                              voxel_size=cfg.voxel_size)
+    mesh = field.extract_dual_mesh(mise_iter=1)
+    gtm = batch["gt_mask"].numpy()
+    d, _ = cKDTree(batch["gt_xyz"].numpy()[gtm]).query(mesh.v)
+    print(f"[phase 11] (f) the fit's best.ckpt through Reconstructor on item "
+          f"0 ({recon._last_pred_engine} engine): {len(mesh.v)} vertices, "
+          f"{len(mesh.f)} faces in {time.perf_counter() - t1:.2f} s; "
+          f"vertex distance to the GT cloud mean {d.mean():.5f} q90 "
+          f"{np.quantile(d, 0.9):.5f} (gate: mean under "
+          f"{FIT_MESH_LIMIT})", flush=True)
+    if not (len(mesh.f) and np.isfinite(mesh.v).all()
+            and d.mean() < FIT_MESH_LIMIT):
+        raise AssertionError("[phase 11] the port-trained checkpoint did "
+                             "not mesh the item")
+    step = {"warm_s": min(step_s[1:]), "peak_gib": peak, "phases": phases,
+            "window": wins, "gathers": tally,
+            "at16": at16, "converged": conv, "sphere": sphere,
+            "overfit_ratio": last / first}
+    return launches, back, step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1670,6 +2342,9 @@ def main() -> int:
         for line in ptxas.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("  " + line.strip())
+
+    # ---- phase 11's CPU reference, in its own process from here on
+    train_ref = start_train_reference()
 
     # ---- phase 1: the probe run (its own path), then each probe kernel
     # against its plain version
@@ -1736,7 +2411,7 @@ def main() -> int:
               f"({seg_small['segments']} segments, longest "
               f"{seg_small['longest']}): bit-equal to the plain version "
               "(dense, compact), two calls bit-equal", flush=True)
-    win_small = compare_window(WB, 1000, gen, timed=False)
+    win_small = compare_window(WB, window_offsets(1000, gen), timed=False)
     print(f"[phase 2] window kernel at Q 1000: max err "
           f"{win_small['err']:.3e}", flush=True)
 
@@ -1839,6 +2514,7 @@ def main() -> int:
                             for k, v in field.phase_times.items()}),
               flush=True)
     tr, tm = min(t[0] for t in laps), min(t[1] for t in laps)
+    splat_lap = (tr, tm)
     err, n_inner = terrain_error(mesh)
     print(f"[phase 3] {N_POINTS} points: reconstruct_s {tr:.3f} "
           f"extract_mesh_s {tm:.3f} pts/s {N_POINTS / (tr + tm):.1f} "
@@ -1904,7 +2580,7 @@ def main() -> int:
                                 field.host_grids[:cfg.adaptive_depth]))
     del field, mesh
     torch.cuda.empty_cache()
-    win = compare_window(WB, q_b, gen, timed=True)
+    win = compare_window(WB, window_offsets(q_b, gen), timed=True)
     print(f"[phase 2] window kernel at route B's Q {q_b}: max err "
           f"{win['err']:.3e}; {win['ms']:.4f} ms (plain {win['plain_ms']:.4f}"
           f", bound {win['bound'][0]:.4f} by {win['bound'][1]})", flush=True)
@@ -1925,10 +2601,10 @@ def main() -> int:
     # ---- phase 7: the predicted structure (the default route) and the
     # adaptive one on the 40 m tile, and the predicted one on its
     # quadrants alone
-    pred_launches = structure_laps(recon, xyz, nrm, counters, splat_n0,
-                                   Reconstructor(config=PipelineConfig(
-                                       conv_dtype="bfloat16",
-                                       adaptive_depth=2), params=params))
+    pred_launches, pred_lap = structure_laps(
+        recon, xyz, nrm, counters, splat_n0,
+        Reconstructor(config=PipelineConfig(conv_dtype="bfloat16",
+                                            adaptive_depth=2), params=params))
     torch.cuda.empty_cache()
 
     # ---- phase 8: the checkpoint under its own config.yaml (UDF mask head
@@ -1958,6 +2634,21 @@ def main() -> int:
         params, xyz, nrm, counters, spec, slot_cells, adj_kept, gen,
         primal_mv_ms)
     print(f"[phase 10] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: training at runs/scene_big's width
+    t_phase = time.perf_counter()
+    train_launches, (train_gather, train_segbwd), train_rec = \
+        training_laps(params, counters, gen, train_ref)
+    # the host laps that ran beside the CPU reference, again after it
+    for structure, before in (("splat", splat_lap), ("predicted", pred_lap)):
+        laps = [main_path_lap(recon, xyz, nrm, structure)[:2]
+                for _ in range(2)]
+        print(f"[phase 11] {structure} lap after the CPU reference (the faster of "
+              f"two): reconstruct_s {min(t[0] for t in laps):.3f} "
+              f"extract_mesh_s {min(t[1] for t in laps):.3f} (beside it: "
+              f"{before[0]:.3f} + {before[1]:.3f})", flush=True)
+    print(f"[phase 11] {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -2030,6 +2721,33 @@ def main() -> int:
         rec["launches_chunked"] = chunked_launches[key]
         rec["launches_dual"] = dual_launches[key]
         rec["launches_dual_predicted"] = dual_pred_launches[key]
+        rec["launches_train"] = train_launches[key]
+    # the training step's backwards at its shapes: the gather's (the
+    # segment sum over an order built in the backward) and the segment
+    # sum's own (a row gather, no kernel)
+    gb_, gby = train_gather["bound"]
+    sb_, sby = train_segbwd["bound"]
+    kernels[4].update(
+        train_gather_backward_ms=train_gather["ms"],
+        train_gather_backward_plain_ms=train_gather["plain_ms"],
+        train_gather_backward_library_ms=train_gather["library_ms"],
+        train_gather_backward_bound_ms=gb_,
+        train_gather_backward_bound_by=gby,
+        train_segment_sum_backward_ms=train_segbwd["ms"],
+        train_segment_sum_backward_gather_ms=train_segbwd["plain_ms"],
+        train_segment_sum_backward_bound_ms=sb_,
+        train_segment_sum_backward_bound_by=sby,
+        train_step_s=train_rec["warm_s"],
+        train_step_peak_gib=train_rec["peak_gib"],
+        train_gather_backwards=train_rec["gathers"]["gathers"],
+        train_gather_sorts=train_rec["gathers"]["sorts"])
+    # the window kernel at each input of one training step
+    kernels[5].update(
+        max_abs_err=max([win["err"]]
+                        + [w["err"] for w in train_rec["window"]]),
+        train=[{k: w[k] for k in ("q", "ms", "plain_ms", "bound_ms",
+                                  "bound_by")} | {"max_abs_err": w["err"]}
+               for w in train_rec["window"]])
     # the dual's middle: the slot-row adjoint (f32) then the slot rows,
     # and the literal chain it stands for, at the main path's slot cells
     kernels[3].update(gram_middle_ms=mid["ms"],
@@ -2074,4 +2792,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-cpu-reference":
+        sys.exit(train_cpu_reference(sys.argv[2]))
     sys.exit(main())

@@ -12,6 +12,13 @@ has SPD normal equations, applied matrix-free from per-row supports
 and solved by Jacobi PCG (``solver/pcg.py``).  ``solve_non_fused`` keeps
 the supports for the whole solve; ``solve_fused`` recomputes them in
 every matvec (memory for compute), the reference's ``fused_mode``.
+
+The field follows PyTorch's grad mode.  Under autograd (the training
+forward) the unfused solve is ``solve_spd``, the implicitly
+differentiated PCG, with the support rows as the operator's inputs, and
+``evaluate_f`` differentiates through the supports and the
+coefficients.  Inference builds no graph: ``Reconstructor`` freezes its
+network and reconstructs under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..models.network import MLP
-from ..solver.pcg import pcg
+from ..solver.pcg import solve_spd
 from . import support as S
 
 
@@ -72,74 +79,102 @@ class KernelField:
                              approx_grad=self.approx_kernel_grad)
 
     # ------------------------------------------------------------- solving
-    @torch.no_grad()
-    def normal_equations(self, pos_xyz, pos_w, normal_xyz, normal_w,
-                         normal_value, reg_weight: float = 1.0,
-                         pos_sup_idx=None, normal_sup_idx=None,
-                         fused: bool = False):
-        """(matvec, rhs, Jacobi diagonal) of the solve's SPD system.
-        ``pos_w`` / ``normal_w`` per-row weights; ``*_sup_idx`` the rows'
-        host support tables.  Unfused, the supports are built once and
-        held; fused, every matvec rebuilds them, so one row block is alive
-        at a time."""
+    def normal_equations(self, *args, **kw):
+        """(matvec, rhs, Jacobi diagonal) of the solve's SPD system (the
+        arguments of ``_system``), ``matvec(a)`` the operator applied."""
+        matvec, op, rhs, diag = self._system(*args, **kw)
+        return (lambda a: matvec(a, *op)), rhs, diag
+
+    def _system(self, pos_xyz, pos_w, normal_xyz, normal_w,
+                normal_value, reg_weight: float = 1.0,
+                pos_sup_idx=None, normal_sup_idx=None,
+                fused: bool = False):
+        """(matvec, op, rhs, Jacobi diagonal) of the solve's SPD system:
+        ``matvec(a, *op)`` is linear in ``a``, and ``op`` the support
+        tensors it reads (each depth's value-row basis, then each depth's
+        gradient-row dbasis), so ``solver.pcg.solve_spd`` differentiates
+        through them.  ``pos_w`` / ``normal_w`` per-row weights;
+        ``*_sup_idx`` the rows' host support tables.  Unfused, the
+        supports are built once and held; fused, every matvec rebuilds
+        them, so one row block is alive at a time (no gradient: the
+        rebuilt supports are not inputs of the solve, so it raises where
+        the supports carry a graph).  The diagonal is a constant."""
         shapes = self._shapes()
+        n = len(shapes)
         sg = self.support(normal_xyz, normal_sup_idx, grad=True)
+        if fused and any(s.dbasis.requires_grad for s in sg):
+            raise ValueError("fused_mode recomputes the supports in every "
+                             "matvec and cannot be differentiated; solve "
+                             "unfused under autograd")
         # the scatters' summation orders follow the host support rows
         # only: built once for the whole solve
         og = S.scatter_orders(sg, shapes)
         rhs = S.scatter_rows(sg, shapes, normal_w[:, None] * normal_value,
                              grad=True, orders=og)
-        dg = S.diag_contrib(sg, shapes, normal_w, grad=True, orders=og)
         sv = self.support(pos_xyz, pos_sup_idx)
         ov = S.scatter_orders(sv, shapes)
-        dv = S.diag_contrib(sv, shapes, pos_w, orders=ov)
-        diag = tuple(a + b + reg_weight for a, b in zip(dv, dg))
-        if fused:
-            del sg, sv
-
-        def matvec(a):
-            sup_v = self.support(pos_xyz, pos_sup_idx) if fused else sv
+        with torch.no_grad():
+            dg = S.diag_contrib(sg, shapes, normal_w, grad=True, orders=og)
+            dv = S.diag_contrib(sv, shapes, pos_w, orders=ov)
+            diag = tuple(a + b + reg_weight for a, b in zip(dv, dg))
+        def apply(a, sup_v, sup_g):
             out = S.scatter_rows(sup_v, shapes, pos_w * S.predict(sup_v, a),
                                  orders=ov)
-            del sup_v
-            sup_g = (self.support(normal_xyz, normal_sup_idx, grad=True)
-                     if fused else sg)
             _, fg = S.predict(sup_g, a, grad=True)
             out_g = S.scatter_rows(sup_g, shapes, normal_w[:, None] * fg,
                                    grad=True, orders=og)
             return tuple(v + g + reg_weight * ai
                          for v, g, ai in zip(out, out_g, a))
 
-        return matvec, rhs, diag
+        if fused:
+            del sg, sv
+
+            def matvec(a):
+                sup_v = self.support(pos_xyz, pos_sup_idx)
+                sup_g = self.support(normal_xyz, normal_sup_idx, grad=True)
+                return apply(a, sup_v, sup_g)
+            return matvec, (), rhs, diag
+
+        k = self.kernel_dim
+        idx_v = tuple(s.idx_k for s in sv)
+        # the gradient rows' basis enters only their (discarded) values
+        fixed_g = tuple((s.idx_k, s.basis.detach()) for s in sg)
+
+        def matvec_op(a, *op):
+            return apply(a, tuple(S.DepthSupport(i, b, None, k)
+                                  for i, b in zip(idx_v, op[:n])),
+                         tuple(S.DepthSupport(i, b, g, k)
+                               for (i, b), g in zip(fixed_g, op[n:])))
+        op = tuple(s.basis for s in sv) + tuple(s.dbasis for s in sg)
+        return matvec_op, op, rhs, diag
 
     def solve_non_fused(self, *args, solver_tol: float = 1e-5,
                         max_iters: int = 128, **kw) -> "KernelField":
         """Fit the coefficients (arguments of ``normal_equations``) with
-        the supports held for the whole solve."""
-        return self._pcg(*self.normal_equations(*args, fused=False, **kw),
-                         solver_tol, max_iters)
+        the supports held for the whole solve; differentiable
+        (``solve_spd``) under autograd."""
+        return self._solve(*self._system(*args, fused=False, **kw),
+                           solver_tol, max_iters)
 
     def solve_fused(self, *args, solver_tol: float = 1e-5,
                     max_iters: int = 128, **kw) -> "KernelField":
         """``solve_non_fused``'s system with the supports recomputed in
-        every matvec (memory for compute)."""
-        return self._pcg(*self.normal_equations(*args, fused=True, **kw),
-                         solver_tol, max_iters)
+        every matvec (memory for compute; no gradient)."""
+        return self._solve(*self._system(*args, fused=True, **kw),
+                           solver_tol, max_iters)
 
-    @torch.no_grad()
-    def _pcg(self, matvec, rhs, diag, tol, max_iters) -> "KernelField":
-        alpha, iters, rel = pcg(
-            matvec, rhs,
-            precond=lambda r: tuple(ri / di for ri, di in zip(r, diag)),
-            tol=tol, max_iters=max_iters)
-        return self._with(alpha, (iters, rel))
+    def _solve(self, matvec, op, rhs, diag, tol, max_iters) -> "KernelField":
+        def precond(r):
+            return tuple(ri / di for ri, di in zip(r, diag))
+        alpha = solve_spd(matvec, rhs, op, precond=precond, tol=tol,
+                          max_iters=max_iters)
+        return self._with(alpha, solve_spd.last_stats)
 
     def solve(self, *args, fused: bool = False, **kw) -> "KernelField":
         return (self.solve_fused if fused else self.solve_non_fused)(
             *args, **kw)
 
     # ----------------------------------------------------------- evaluation
-    @torch.no_grad()
     def evaluate_f(self, x: torch.Tensor, sup_idx, grad: bool = False
                    ) -> FieldEval:
         sup = self.support(x, sup_idx, grad=grad)

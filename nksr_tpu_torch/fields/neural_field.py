@@ -52,9 +52,9 @@ class NeuralField:
             h = h + (w[..., None] * take_rows(self.features[d], idx)).sum(1)
         return h
 
-    @torch.no_grad()
     def evaluate_f(self, x: torch.Tensor, sup_idx) -> torch.Tensor:
-        """(n,) field values."""
+        """(n,) field values; differentiable in the features and the
+        decoder under autograd (the training forward's UDF loss)."""
         return self.decoder(self.pooled(x, sup_idx))[..., 0]
 
     def to(self, device) -> "NeuralField":

@@ -15,6 +15,10 @@ like: ``idx_k (Q, 8K)`` flat-DoF indices, ``basis (Q, 8K)``, ``dbasis
 (Q, 3 * 8K)`` as [d/dx | d/dy | d/dz] blocks, and flat coefficient
 vectors (C_d * K,).
 
+Everything here is differentiable in the basis features and the
+interpolator MLPs (training); the gathers' backwards are fixed-order
+(``ops/gather_scatter.gather_rows``).
+
 Gradient rows take the window and its gradient from
 ``ops/window_basis.window_and_grad_fused``: the CUDA kernel on the card,
 its plain version on the CPU.  Value rows keep the plain ``window``, as
@@ -31,7 +35,7 @@ import torch
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..models.network import MLP, mlp_with_tangents
 from ..ops import segment_sum as SEG
-from ..ops.gather_scatter import take_rows
+from ..ops.gather_scatter import gather_rows, take_rows
 from ..ops.window_basis import window_and_grad_fused
 from ..ops.window_basis import window_and_grad_plain as window_and_grad
 
@@ -119,7 +123,7 @@ def svh_support(voxel_sizes: Sequence[float],
 
 
 def _coeff_rows(a: torch.Tensor, idx_k: torch.Tensor) -> torch.Tensor:
-    av = a.index_select(0, idx_k.clamp(min=0).reshape(-1)).view(idx_k.shape)
+    av = gather_rows(a, idx_k.clamp(min=0), order_idx=idx_k)
     return torch.where(idx_k >= 0, av, 0.0)
 
 

@@ -1,5 +1,6 @@
-"""Static configuration, input features, seeded parameter init, and the
-solve rows of the support-row kernel field.
+"""Static configuration, input features, seeded parameter init, the
+solve rows of the support-row kernel field, and the teacher-forced
+training forward (``prepare_inputs``, ``forward``).
 
 ``PipelineConfig`` has the fields and defaults of
 nksr_tpu/models/pipeline.py so configurations carry over unchanged;
@@ -11,14 +12,18 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import host_build as HB
+from ..core import svh as SVH
 from ..core.grid import get_voxel_centers, point_splat_coords
 from ..fields.kernel_field import KernelField
+from ..fields.neural_field import NeuralField
 from ..ops import segment_sum as SEG
+from ..ops.gather_scatter import stencil_offsets
 from ..utils.checkpoint import torch_to_params
 from .network import NKSRNetwork
 
@@ -141,7 +146,8 @@ def solve_kernel_field(cfg: PipelineConfig, net: NKSRNetwork, grids,
     normal_weight / M * voxel_size^2).  The JAX package also carries
     capacity-padding rows of weight 0 for static shapes; they are
     trimmed here.  ``pos_sup_idx`` / ``grad_sup_idx`` are the rows' host
-    support tables, per depth (rows, 8) int64."""
+    support tables, per depth (rows, 8) int64.  Differentiable under
+    autograd (the training forward; ``fields/kernel_field.py``)."""
     dev = xyz.device
     ad = cfg.adaptive_depth
     vss = [level_voxel_size(cfg, d) for d in range(cfg.tree_depth)]
@@ -172,3 +178,166 @@ def solve_kernel_field(cfg: PipelineConfig, net: NKSRNetwork, grids,
         solver_tol=cfg.solver_tol, max_iters=cfg.solver_max_iters,
         pos_sup_idx=pos_sup_idx, normal_sup_idx=grad_sup_idx,
         fused=cfg.fused_mode)
+
+
+# ------------------------------------------------------- training forward
+class TrainInputs(NamedTuple):
+    """One cloud's inputs to the training forward: the device tensors and
+    the host hierarchies and tables built from them (``prepare_inputs``).
+
+    ``xyz`` (N, 3) the real input points, ``feat`` their input features,
+    ``input_normal`` the normals the prior splats (or None);
+    ``gt_xyz`` / ``gt_normal`` (M, 3) the real GT cloud; ``enc_grids``
+    the input's splat hierarchy, ``enc_tables`` its ``nbr`` / ``child``
+    tables on the device, ``n_vox`` its voxel counts, ``splat_idx`` (N,
+    8) the points' depth-0 splat rows; ``gt_grids`` the GT hierarchy
+    (``build_gt_svh``); ``levels`` the teacher-forced decoder's tables
+    (``core/svh.TeacherLevel``, host), ``levels_t`` the same on the
+    device; ``pt_sup`` / ``grad_sup`` the solve rows' supports in the GT
+    hierarchy; ``onet`` the occupancy samples (points, occupancy) or
+    None."""
+    xyz: torch.Tensor
+    feat: Optional[torch.Tensor]
+    input_normal: Optional[torch.Tensor]
+    gt_xyz: torch.Tensor
+    gt_normal: torch.Tensor
+    enc_grids: Sequence[Any]
+    enc_tables: Any
+    n_vox: Tuple[int, ...]
+    splat_idx: torch.Tensor
+    gt_grids: Sequence[Any]
+    levels: Tuple[Any, ...]
+    levels_t: Tuple[Any, ...]
+    pt_sup: Tuple[torch.Tensor, ...]
+    grad_sup: Tuple[torch.Tensor, ...]
+    onet: Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class ForwardOutput(NamedTuple):
+    """The training forward's result: the solved, differentiable
+    ``field`` on the GT hierarchy, the UDF ``mask_field`` on the
+    candidate hierarchy (None without the UDF head), per depth the
+    structure logits and GT statuses of the candidate rows, and the
+    UNet's basis features on the GT voxels."""
+    field: KernelField
+    mask_field: Any
+    structure_logits: Tuple[torch.Tensor, ...]
+    structure_status: Tuple[torch.Tensor, ...]
+    basis_features: Tuple[torch.Tensor, ...]
+
+
+def build_gt_svh(cfg: PipelineConfig, gt_xyz: np.ndarray,
+                 gt_normal: np.ndarray):
+    """GT hierarchy for supervision (nksr_tpu/models/pipeline.py
+    ``build_gt_svh``): the normal-variation hierarchy of the GT cloud at
+    the configuration's capacities, as host grids."""
+    return SVH.build_adaptive_normal_variation(
+        gt_xyz, gt_normal, cfg.voxel_size, cfg.tree_depth, cfg.capacities,
+        tau=cfg.adaptive_tau, adaptive_depth=cfg.adaptive_depth)
+
+
+def _real(batch: Dict[str, Any], key: str, mask_key: str) -> np.ndarray:
+    """The real rows of a padded batch array, as f32 numpy."""
+    a = batch[key]
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+    m = batch[mask_key]
+    m = m.detach().cpu().numpy() if isinstance(m, torch.Tensor) \
+        else np.asarray(m)
+    return np.ascontiguousarray(a[m.astype(bool)], np.float32)
+
+
+def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
+                   device) -> TrainInputs:
+    """Host hierarchies and tables of one padded train batch (the keys of
+    ``data.loader.to_device_batch``: ``xyz``, ``mask``, ``normal`` or
+    ``sensor``, ``gt_xyz``, ``gt_normal``, ``gt_mask``, optionally
+    ``onet_*``), and its real rows on ``device``."""
+    dev = torch.device(device)
+    caps = tuple(cfg.capacities)
+
+    def up(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
+
+    xyz = _real(batch, "xyz", "mask")
+    normal = _real(batch, "normal", "mask") if "normal" in batch else None
+    sensor = _real(batch, "sensor", "mask") if "sensor" in batch else None
+    gt_xyz = _real(batch, "gt_xyz", "gt_mask")
+    gt_normal = _real(batch, "gt_normal", "gt_mask")
+    xyz_t = up(xyz)
+    feat = point_features(cfg, xyz_t,
+                          normal=None if normal is None else up(normal),
+                          sensor=None if sensor is None else up(sensor))
+    input_normal = feat if cfg.feature == "normal" else None
+
+    enc, orders = SVH.build_point_splatting(xyz, cfg.voxel_size,
+                                            cfg.tree_depth, caps)
+    ut = HB.build_unet_tables(enc, caps, stencil_offsets(3), decoder=False)
+    enc_tables = HB.UNetTables(
+        nbr=tuple(up(t, torch.int64) for t in ut.nbr),
+        child=tuple(up(t, torch.int64) for t in ut.child),
+        parent=(), skip=())
+    splat_idx = up(HB.support_indices(enc[:1], caps[:1], xyz,
+                                      presorted=orders[:1])[0],
+                   torch.int64)
+    gt = build_gt_svh(cfg, gt_xyz, gt_normal)
+    levels = SVH.teacher_hierarchy(enc, gt, caps, stencil_offsets(3))
+    levels_t = tuple(lv._replace(
+        cand=None, status=up(lv.status), nbr=up(lv.nbr),
+        dec_rows=up(lv.dec_rows),
+        parent=None if lv.parent is None else up(lv.parent),
+        octant=None if lv.octant is None else up(lv.octant),
+        skip=None if lv.skip is None else up(lv.skip)) for lv in levels)
+    pt_sup = tuple(up(t, torch.int64)
+                   for t in HB.support_indices(gt, caps, xyz))
+    centers = np.concatenate([
+        get_voxel_centers(gt[d].coords, level_voxel_size(cfg, d))
+        for d in range(cfg.adaptive_depth)], 0)
+    grad_sup = tuple(up(t, torch.int64)
+                     for t in HB.support_indices(gt, caps, centers))
+    onet = None
+    if "onet_xyz" in batch:
+        onet = (up(_real(batch, "onet_xyz", "onet_mask")),
+                up(_real(batch, "onet_occ", "onet_mask")))
+    return TrainInputs(
+        xyz=xyz_t, feat=feat, input_normal=input_normal, gt_xyz=up(gt_xyz),
+        gt_normal=up(gt_normal), enc_grids=enc, enc_tables=enc_tables,
+        n_vox=tuple(len(g.keys) for g in enc), splat_idx=splat_idx,
+        gt_grids=gt, levels=levels, levels_t=levels_t, pt_sup=pt_sup,
+        grad_sup=grad_sup, onet=onet)
+
+
+def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs
+            ) -> ForwardOutput:
+    """The teacher-forced training forward (nksr_tpu/models/pipeline.py
+    ``forward`` with ``use_gt_structure=True``): the UNet's decoder on
+    the GT hierarchy, the differentiable support-row solve on it, and
+    the UDF head's field on the candidate hierarchy.  Differentiable in
+    every parameter the losses reach."""
+    from . import sparse_unet as SU   # it imports this module
+    if cfg.geometry != "kernel":
+        raise NotImplementedError(
+            f"geometry={cfg.geometry!r} is not ported to nksr_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 17)")
+    if cfg.fused_mode:
+        raise NotImplementedError(
+            "fused_mode under training: the fused solve recomputes its "
+            "supports in every matvec and has no gradient (ROADMAP.md "
+            "queue 1, item 14)")
+    caps = tuple(cfg.capacities)
+    gt = inp.gt_grids
+    basis, normal, logits, udf = SU.teacher_forced_unet(
+        cfg, net, inp.enc_tables, inp.n_vox, inp.levels_t,
+        [len(g.keys) for g in gt], caps, inp.xyz, inp.feat, inp.splat_idx)
+    field = solve_kernel_field(cfg, net, gt, caps, inp.xyz,
+                               inp.input_normal, basis, normal, inp.pt_sup,
+                               inp.grad_sup)
+    mask_field = None
+    if cfg.udf_enabled:
+        mask_field = NeuralField(
+            [level_voxel_size(cfg, d) for d in range(cfg.tree_depth)], udf,
+            net.udf_decoder).set_level_set(2.0 * cfg.voxel_size)
+    return ForwardOutput(
+        field=field, mask_field=mask_field, structure_logits=logits,
+        structure_status=tuple(lv.status for lv in inp.levels_t),
+        basis_features=basis)

@@ -197,3 +197,41 @@ def udf_head(up, d: int, rows: torch.Tensor, n: int, cap: int):
     """The depth-d UDF head of the first ``n`` rows, written at (cap, C):
     padding rows as the JAX package computes them (the head's bias)."""
     return getattr(up, f"udf_{d}")(_pad_rows(rows[:n], cap))
+
+
+def teacher_forced_unet(cfg: PipelineConfig, net: NKSRNetwork, enc_tables,
+                        n_vox: Sequence[int], levels, gt_counts: Sequence[int],
+                        caps: Sequence[int], xyz: torch.Tensor, feat,
+                        splat_idx: torch.Tensor):
+    """Encoder + UNet + heads with the decoder teacher-forced onto a GT
+    hierarchy, differentiable (the training forward; nksr_tpu/models/
+    network.py SparseUNet with ``use_gt_structure=True``).
+
+    ``enc_tables`` the splat hierarchy's ``nbr`` and ``child`` tables as
+    int64 device tensors, ``n_vox[d]`` its voxels; ``levels[d]`` the
+    decoder level's tables (``core/svh.TeacherLevel`` fields as int64
+    device tensors: ``nbr``, ``dec_rows``, ``parent``, ``octant``,
+    ``skip``); ``gt_counts[d]`` the GT voxels of level d.  Returns per
+    depth: basis and normal features on the GT voxels at (caps[d], C)
+    (padding rows as the JAX package computes them), the structure
+    logits (n_cand_d, 3) and the UDF features (n_cand_d, udf_dim) on the
+    candidate rows."""
+    depth = cfg.tree_depth
+    cdt = getattr(torch, cfg.conv_dtype)
+    up = net.unet
+    enc_feats = encoder_path(cfg, net, enc_tables.nbr, enc_tables.child,
+                             n_vox, xyz, feat, splat_idx, cdt)
+    basis, normal = [None] * depth, [None] * depth
+    logits, udf = [None] * depth, [None] * depth
+    g = enc_feats[depth - 1]
+    for d in range(depth - 1, -1, -1):
+        lv = levels[d]
+        g = conv_block(getattr(up, f"dec_{d}"), g, lv.nbr, cdt)
+        logits[d] = getattr(up, f"struct_{d}")(g)
+        udf[d] = getattr(up, f"udf_{d}")(g)
+        basis[d], normal[d] = heads(up, d, gs.take_rows(g, lv.dec_rows),
+                                    gt_counts[d], caps[d])
+        if d > 0:
+            h = up_conv(up, d, g, lv.parent, lv.octant)
+            g = h + gs.take_rows(enc_feats[d - 1], lv.skip)
+    return tuple(basis), tuple(normal), tuple(logits), tuple(udf)

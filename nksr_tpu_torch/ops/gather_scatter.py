@@ -4,6 +4,14 @@ stencil neighbours through a host-built table, then a matmul.
 
 The matmuls are ``torch.matmul``: XLA computed them in the JAX package,
 no TPU kernel did.
+
+Every row gather here is ``gather_rows``, whose backward (the scatter of
+the cotangent rows onto the source) sums each source row's entries in
+index order through the fixed-order segment sum (``ops/segment_sum``),
+over an order sorted once per index table.
+Autograd's own backward of ``index_select`` is CUDA ``index_add_``,
+whose f32 atomics add repeated rows in no fixed order, so two training
+steps from one state would differ.
 """
 
 from __future__ import annotations
@@ -12,6 +20,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import segment_sum as SEG
 
 # rows per gather-conv chunk: the (rows, 27 * Cin) f32 gather of a
 # 32-map conv is 3.4 KB a row, so 2^17 rows hold 450 MB of temporaries
@@ -38,12 +48,63 @@ def octant_id(coords: torch.Tensor) -> torch.Tensor:
     return o[..., 0] * 4 + o[..., 1] * 2 + o[..., 2]
 
 
+def _backward_order(order_idx: torch.Tensor, n: int) -> SEG.SegmentOrder:
+    """The summation order of ``order_idx``'s entries onto ``n`` rows,
+    kept on the index table it reads (the root tensor of its views): a
+    batch's tables are fixed, so each part of one is sorted on its first
+    backward and reused while the table lives and is not written to."""
+    root = order_idx if order_idx._base is None else order_idx._base
+    orders = root.__dict__.setdefault("_gather_orders", {})
+    key = (order_idx.storage_offset(), tuple(order_idx.shape),
+           order_idx.stride(), n)
+    hit = orders.get(key)
+    if hit is None or hit[0] != order_idx._version:
+        # sorted over a copy: a view of the table would keep it alive
+        hit = (order_idx._version,
+               SEG.segment_order(order_idx.reshape(-1).clone(), n))
+        orders[key] = hit
+    return hit[1]
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src.index_select(0, idx)``; the backward sums the cotangent rows
+    of each source row in index order (``segment_sum`` over the order of
+    ``order_idx``, ``_backward_order``'s).  ``order_idx`` is ``idx`` with
+    the entries whose cotangent is zero by construction (an absent
+    neighbour reading a zero row) set to -1: dropped from the order, they
+    change no sum, and kept they would make one long segment that a
+    single thread walks."""
+
+    @staticmethod
+    def forward(ctx, src, idx, order_idx):
+        ctx.save_for_backward(order_idx)
+        ctx.src_shape, ctx.src_dtype = src.shape, src.dtype
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (order_idx,) = ctx.saved_tensors
+        n = ctx.src_shape[0]
+        g = grad.reshape(order_idx.shape[0], -1).float().contiguous()
+        out = SEG.segment_sum(g, _backward_order(order_idx, n))
+        return out.to(ctx.src_dtype).reshape(ctx.src_shape), None, None
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                order_idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``src`` at ``idx`` (any shape, every index in range):
+    (*idx.shape, *src.shape[1:]), with the fixed-order backward.
+    ``order_idx`` (idx's shape): the backward's targets, -1 where the
+    gathered row's cotangent is zero or discarded."""
+    out = _GatherRows.apply(src, idx.reshape(-1), order_idx.reshape(-1))
+    return out.reshape(*idx.shape, *src.shape[1:])
+
+
 def take_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of ``feat`` at ``idx``; idx < 0 yields zeros."""
     if feat.shape[0] == 0:          # every index is absent
         return feat.new_zeros((*idx.shape, feat.shape[-1]))
-    out = feat.index_select(0, idx.clamp(min=0).reshape(-1))
-    out = out.reshape(*idx.shape, feat.shape[-1])
+    out = gather_rows(feat, idx.clamp(min=0), order_idx=idx)
     return torch.where((idx >= 0)[..., None], out, 0.0)
 
 
@@ -67,9 +128,9 @@ def gather_conv(feat: torch.Tensor, nbr: torch.Tensor,
     fp = torch.cat([feat, feat.new_zeros((1, cin))], 0)
     out = torch.empty((n, cout), dtype=feat.dtype, device=feat.device)
     for s in range(0, n, _CONV_ROWS):
-        idx = nbr[s:s + _CONV_ROWS]
-        idx = torch.where(idx >= 0, idx, zero_row)
-        g = fp.index_select(0, idx.reshape(-1)).reshape(-1, k * cin)
+        raw = nbr[s:s + _CONV_ROWS]
+        idx = torch.where(raw >= 0, raw, zero_row)
+        g = gather_rows(fp, idx, order_idx=raw).reshape(-1, k * cin)
         o = g.float() @ w
         if bias is not None:
             o = o + bias.float()

@@ -100,11 +100,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def segment_sum(values: torch.Tensor, order: SegmentOrder,
-                compact: bool = False) -> torch.Tensor:
-    """Sum the rows of ``values`` (R, C) or (R,) f32 by ``order``, each
-    segment in ascending entry order from 0.0: dense (n_targets, C) or,
-    with ``compact``, (S, C) rows of ``order.targets``."""
+def _segment_sum(values: torch.Tensor, order: SegmentOrder,
+                 compact: bool = False) -> torch.Tensor:
     if values.device.type == "cpu":
         return segment_sum_plain(values, order, compact)
     r = order.perm.shape[0]
@@ -134,6 +131,43 @@ def segment_sum(values: torch.Tensor, order: SegmentOrder,
         CB.raise_on(rc, "segment_sum launch")
         segment_sum.launches += 1
     return out.view(-1) if values.dim() == 1 else out
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The sum, and its transpose as the backward: each entry reads the
+    cotangent row of its target (zero where dropped), a gather with no
+    repeated writes, so it is the same on every device and call."""
+
+    @staticmethod
+    def forward(ctx, values, order, compact):
+        ctx.order, ctx.compact = order, compact
+        ctx.shape = values.shape
+        return _segment_sum(values, order, compact)
+
+    @staticmethod
+    def backward(ctx, grad):
+        order = ctx.order
+        keep = order.index >= 0
+        tgt = order.index.clamp(min=0)
+        if ctx.compact:
+            tgt = torch.searchsorted(order.targets, tgt).clamp(
+                max=max(order.targets.numel() - 1, 0))
+        g = grad.reshape(grad.shape[0], -1)
+        if g.shape[0] == 0:
+            rows = g.new_zeros((tgt.numel(), g.shape[1]))
+        else:
+            rows = g.index_select(0, tgt)
+        rows = torch.where(keep[:, None], rows, 0.0)
+        return rows.reshape(ctx.shape), None, None
+
+
+def segment_sum(values: torch.Tensor, order: SegmentOrder,
+                compact: bool = False) -> torch.Tensor:
+    """Sum the rows of ``values`` (R, C) or (R,) f32 by ``order``, each
+    segment in ascending entry order from 0.0: dense (n_targets, C) or,
+    with ``compact``, (S, C) rows of ``order.targets``.  Differentiable:
+    the backward gathers the cotangent's rows (``_SegmentSum``)."""
+    return _SegmentSum.apply(values, order, compact)
 
 
 segment_sum.launches = 0

@@ -50,7 +50,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def window_and_grad_fused(x_loc: torch.Tensor):
-    """x_loc (Q, 8, 3) f32 -> (w (Q, 8), dw (Q, 8, 3))."""
+    """x_loc (Q, 8, 3) f32 -> (w (Q, 8), dw (Q, 8, 3)).  The kernel has no
+    backward: ``x_loc`` is data (offsets of points inside their voxels),
+    and an input that requires grad raises rather than lose its
+    gradient."""
+    if x_loc.requires_grad:
+        raise ValueError("window_and_grad_fused: x_loc requires grad, and "
+                         "the window kernel has no backward")
     if x_loc.device.type == "cpu":
         return window_and_grad_plain(x_loc)
     q = x_loc.shape[0]

@@ -132,7 +132,9 @@ class Reconstructor:
             params = P.init_params(self.config, seed)
         net = NKSRNetwork(self.config)
         net.load_state_dict(params_to_torch(params), strict=True)
-        self.network = net.to(self.device).eval()
+        # frozen: fields evaluated after reconstruct (outside its
+        # no_grad) build no graph
+        self.network = net.to(self.device).eval().requires_grad_(False)
         # where chunked mode parks each chunk's field between its solve
         # and the mesh (the reference's attribute)
         self.chunk_tmp_device = torch.device("cpu")
@@ -196,7 +198,7 @@ class Reconstructor:
             return self._reconstruct_predicted(cfg, xyz, normal, sens)
         if cfg.structure_mode == "predicted_ingraph":
             raise _not_ported("structure='predicted_ingraph' (the traced "
-                              "training forward)", "item 14")
+                              "training forward)", "item 14b")
         if cfg.structure_mode not in ("splat", "adaptive"):
             raise ValueError(f"unknown structure {cfg.structure_mode!r}")
         if cfg.structure_mode == "adaptive" and normal is None:

@@ -1,8 +1,10 @@
 """Preconditioned conjugate gradients over tuples of tensors
-(counterpart of ``nksr_tpu.solver.pcg.pcg``)."""
+(counterpart of nksr_tpu/solver/pcg.py): ``pcg`` and the implicitly
+differentiated ``solve_spd``."""
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -45,3 +47,77 @@ def pcg(matvec: Callable, b: Tuple[torch.Tensor, ...],
         rel = float(torch.sqrt(_dot(r, r)) / b_norm)
         iters += 1
     return x, iters, rel
+
+
+class _SolveSPD(torch.autograd.Function):
+    """x = A^-1 b by PCG, differentiated implicitly: the backward solves
+    A lam = x_bar by one more PCG (same preconditioner, tol and
+    iteration cap; A is symmetric), then b_bar = lam and the operator's
+    tensors get -lam^T d(A x)/d(theta), the matvec differentiated at the
+    detached solution.  The preconditioner is a constant."""
+
+    @staticmethod
+    def forward(ctx, matvec, precond, tol, max_iters, n_rhs, *tensors):
+        rhs, op = tensors[:n_rhs], tensors[n_rhs:]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, iters, rel = pcg(lambda a: matvec(a, *op), tuple(rhs),
+                                precond=precond, tol=tol,
+                                max_iters=max_iters)
+        solve_spd.last_seconds = time.perf_counter() - t0
+        ctx.matvec, ctx.precond = matvec, precond
+        ctx.tol, ctx.max_iters, ctx.n = tol, max_iters, len(x)
+        ctx.stats = [(iters, rel)]
+        ctx.save_for_backward(*x, *op)
+        solve_spd.last_stats = (iters, rel)
+        return tuple(x)
+
+    @staticmethod
+    def backward(ctx, *x_bar):
+        saved = ctx.saved_tensors
+        x, op = saved[:ctx.n], saved[ctx.n:]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lam, iters, rel = pcg(lambda a: ctx.matvec(a, *op), tuple(x_bar),
+                                  precond=ctx.precond, tol=ctx.tol,
+                                  max_iters=ctx.max_iters)
+        solve_spd.last_backward_seconds = time.perf_counter() - t0
+        solve_spd.last_backward_stats = (iters, rel)
+        need = [i for i, t in enumerate(op) if ctx.needs_input_grad[5 + ctx.n
+                                                                   + i]]
+        op_bar = [None] * len(op)
+        if need:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(i in need)
+                          for i, t in enumerate(op)]
+                ax = ctx.matvec(tuple(xi.detach() for xi in x), *leaves)
+                grads = torch.autograd.grad(
+                    ax, [leaves[i] for i in need], grad_outputs=lam,
+                    allow_unused=True)
+            for i, g in zip(need, grads):
+                op_bar[i] = None if g is None else -g
+        return (None,) * 5 + tuple(lam) + tuple(op_bar)
+
+
+def solve_spd(matvec: Callable, b: Tuple[torch.Tensor, ...],
+              op: Sequence[torch.Tensor] = (),
+              precond: Optional[Callable] = None, tol: float = 1e-5,
+              max_iters: int = 100) -> Tuple[torch.Tensor, ...]:
+    """Differentiable SPD solve (``nksr_tpu.solver.pcg.solve_spd``, i.e.
+    ``lax.custom_linear_solve(..., symmetric=True)``): forward PCG,
+    backward one more PCG on the cotangent.  ``matvec(a, *op)`` must be
+    linear in ``a``; the tensors ``op`` it reads are the operator's
+    differentiable inputs (e.g. the support rows), so their gradients
+    flow on to whatever built them.  ``solve_spd.last_stats`` holds the
+    forward's (iters, rel_residual), ``last_backward_stats`` the
+    backward's; ``last_seconds`` and ``last_backward_seconds`` the two
+    PCGs' host seconds (each reads its residual on the host every
+    iteration, so the device is drained when it returns)."""
+    return _SolveSPD.apply(matvec, precond, tol, max_iters, len(b), *b,
+                           *op)
+
+
+solve_spd.last_stats = None
+solve_spd.last_backward_stats = None
+solve_spd.last_seconds = None
+solve_spd.last_backward_seconds = None

@@ -1,8 +1,9 @@
 """The port builds and runs from its own tree: its C++ host sources are its
 own copies of the JAX package's, its scene generator is its own copy of
 bench.py's, and no module of the port nor chip_smoke.py imports JAX,
-flax, ``nksr_tpu``, ``bench`` or ``yaml`` (the card's machine has no
-PyYAML; the port reads run configs itself) or reaches into
+flax, optax, msgpack, ``nksr_tpu``, ``bench`` or ``yaml`` (the card's
+machine has none of the first five, nor PyYAML: the port reads run
+configs and reads and writes checkpoints itself) or reaches into
 ``nksr_tpu/``.
 """
 
@@ -22,9 +23,11 @@ from nksr_tpu_torch.utils.scenes import synthetic_scene
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "nksr_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "nksr_tpu", "bench", "yaml"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "nksr_tpu",
+             "bench", "yaml"}
 # the acceptance grep, plus the single-quoted path component
-GREP = re.compile(r"import (jax|flax)|from (jax|flax|nksr_tpu\b|bench)"
+GREP = re.compile(r"import (jax|flax|optax|msgpack)"
+                  r"|from (jax|flax|optax|msgpack|nksr_tpu\b|bench)"
                   r"|import (nksr_tpu\b|bench)|\"nksr_tpu\"|'nksr_tpu'")
 
 
@@ -75,7 +78,8 @@ def test_no_jax_package_imports(path):
 
 def test_port_imports_with_the_jax_package_blocked():
     """Every module of the port, and chip_smoke.py, imports in a process
-    where importing jax, flax, nksr_tpu, bench or yaml fails."""
+    where importing jax, flax, optax, msgpack, nksr_tpu, bench or yaml
+    fails."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"for m in {sorted(FORBIDDEN)!r}:\n"

@@ -210,6 +210,7 @@ def _solve_pair(max_iters, tol):
 
     net = NKSRNetwork(cfg)
     net.load_state_dict(params_to_torch(params), strict=True)
+    net.requires_grad_(False)   # inference, as Reconstructor's network
 
     def t64(a):
         return torch.from_numpy(a.astype(np.int64))

@@ -49,6 +49,7 @@ def setup():
     params = random_params(cfg, 3)
     net = NKSRNetwork(cfg)
     net.load_state_dict(params_to_torch(params), strict=True)
+    net.requires_grad_(False)   # inference, as Reconstructor's network
     xyz, _ = synthetic_scene(2000, seed=9, half_extent=1.5)
     grids, _ = HB.build_splat_grids_ex(xyz, VS, cfg.tree_depth)
     caps = tuple(max(1 << int(np.ceil(np.log2(len(g.keys) * 1.05))), 512)

@@ -161,6 +161,7 @@ def test_neural_field_mask_matches_jax(params):
 
     net = NKSRNetwork(P.PipelineConfig(**CFG))
     net.load_state_dict(CK.params_to_torch(params), strict=True)
+    net.requires_grad_(False)   # inference, as Reconstructor's network
     mf = NeuralField([P.level_voxel_size(P.PipelineConfig(**CFG), d)
                       for d in range(CFG["tree_depth"])],
                      [torch.from_numpy(f) for f in feats],
