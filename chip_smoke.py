@@ -142,7 +142,8 @@ Phases (any failure ends the run with a non-zero exit):
      gains each lattice kernel's launches on the dual splat and
      predicted laps (``launches_dual``, ``launches_dual_predicted``) and
      the middle's times.
- 11. (run after phase 10) training, teacher-forced, at the full width of
+ 11. (run after phase 10) training, teacher-forced and on the predicted
+     structure, at the full width of
      runs/scene_big/config.yaml (UDF head on, f32 convs), on item 0 of
      scripts/make_synth_scenes.py's corpus (5 m terrain patches, 8,000
      input points of 30,000), written under the checkout's data/: (a) the
@@ -169,14 +170,31 @@ Phases (any failure ends the run with a non-zero exit):
      (f) ``train.driver.fit`` for 4 steps with one validation from the
      checkpoint, its best.ckpt through ``Reconstructor`` on the item,
      the mesh's vertices within FIT_MESH_LIMIT of the GT cloud on
-     average.  The CPU side of (b) and (c) runs in a second process
+     average; (g) the predicted structure (``use_gt_structure=False``)
+     from the same checkpoint on the item: one step at the run's 16
+     iterations, card against the same step on CPU tensors with one set
+     of draws (taken from the predicted decoder hierarchy), the
+     candidate and decoder hierarchies gated voxel for voxel (a status
+     that differs only where its top-2 margin is under TRAIN_TIE_FRAC of
+     the level's largest |logit| is a tie, reported, not a fault) with
+     each level's smallest margin printed, the UNet's outputs and the
+     structure losses gated as in (c), every loss term and leaf printed;
+     three predicted steps with the optimizer (seconds a warm step by
+     phase, the status readbacks and host tables among them, peak
+     memory, launches: the segment sum and the window kernel must run);
+     two runs of 5 predicted steps from one state, parameters and
+     losses bit-equal; ``fit`` for 5 steps with the schedule from step 0
+     to 1, whose steps 1-4 draw the predicted structure (step 0's
+     probability is 0).  The CPU side of (b), (c) and (g) runs in a
+     second process
      (``--train-cpu-reference``) on the host's last TRAIN_REF_THREADS
      cores, started after phase 1 so that its minutes overlap phases
      2-10; once it has ended, phase 3's splat lap and phase 7's
      predicted lap run again, and their host times are printed beside
      those taken while it ran.  The kernels line gains each kernel's
-     launches in one training step (``launches_train``), the backwards'
-     times and the window kernel's at the step's inputs.
+     launches in one training step (``launches_train``) and in one
+     predicted step (``launches_train_predicted``), the backwards' times
+     and the window kernel's at the step's inputs.
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -312,7 +330,13 @@ TRAIN_GRAD_RTOL = 1e-2
 TRAIN_SCENE_LEAF_RTOL = 0.3
 TRAIN_CONV_TOL = 1e-4
 TRAIN_CONV_ITERS = 12000
-# the CPU side of phase 11 (b) and (c) runs in its own process, on this
+# phase 11 (g): the predicted step's draws (CPU generator seed), and the
+# top-2 logit margin, as a share of the level's largest |logit|, under
+# which a status that differs between card and CPU is a tie (the UNet's
+# outputs agree within 1.27e-6 relative on an H100 in phase 11 (c))
+TRAIN_PRED_SEED = 0
+TRAIN_TIE_FRAC = 1e-4
+# the CPU side of phase 11 (b), (c) and (g) runs in its own process, on this
 # many threads pinned to the host's last cores, beside phases 2-10 on the
 # card: alone it takes some 400 s, which would bring the script near its
 # time limit; phase 11 waits for it at most TRAIN_REF_TIMEOUT seconds
@@ -1726,14 +1750,20 @@ def _grads(net):
             .detach().cpu() for n, p in net.named_parameters()}
 
 
-def train_grads(cfg, lcfg, params, batch, samples, device):
-    """The port's teacher-forced loss and gradients of one step from the
-    flax-layout ``params`` on ``device``: (losses, grads, forward output
-    moved to the CPU, (forward, backward) solve stats, peak GiB)."""
+def train_grads(cfg, lcfg, params, batch, samples, device,
+                use_gt_structure=True):
+    """The port's loss and gradients of one step from the flax-layout
+    ``params`` on ``device``, teacher-forced or on the predicted
+    structure: (losses, grads, forward output moved to the CPU, (forward,
+    backward) solve stats, peak GiB).  With ``samples`` None the draws
+    come from a CPU generator seeded TRAIN_PRED_SEED on the forward's
+    decoder hierarchy, and the forward output holds them with both
+    hierarchies' keys."""
     from nksr_tpu_torch.models import pipeline as P
     from nksr_tpu_torch.models.network import NKSRNetwork
     from nksr_tpu_torch.solver.pcg import solve_spd
     from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.train import losses as L
     from nksr_tpu_torch.utils.checkpoint import params_to_torch
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1743,12 +1773,21 @@ def train_grads(cfg, lcfg, params, batch, samples, device):
     net = NKSRNetwork(cfg)
     net.load_state_dict(params_to_torch(params), strict=True)
     net = net.to(device)
-    inp = P.prepare_inputs(cfg, batch, device)
-    losses, _, out = T.loss_and_grads(cfg, lcfg, net, inp, samples)
+    inp = P.prepare_inputs(cfg, batch, device, use_gt_structure)
+    gen = torch.Generator().manual_seed(TRAIN_PRED_SEED)
+    losses, _, out = T.loss_and_grads(cfg, lcfg, net, inp, samples,
+                                      use_gt_structure=use_gt_structure,
+                                      gen=gen)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if device == "cuda" else 0.0
     fwd = {"logits": [x.detach().cpu() for x in out.structure_logits],
            "basis": [x.detach().cpu() for x in out.basis_features]}
+    if samples is None:
+        fwd["samples"] = L.draw_samples(
+            torch.Generator().manual_seed(TRAIN_PRED_SEED), cfg, lcfg, inp,
+            out.dec_grids)
+        fwd["cand"] = [g.keys for g in out.cand_grids]
+        fwd["dec"] = [g.keys for g in out.dec_grids]
     return ({k: float(v.detach()) for k, v in losses.items()}, _grads(net),
             fwd, (out.field.cg_stats, solve_spd.last_backward_stats), peak)
 
@@ -1996,9 +2035,10 @@ def scene_train_setup():
 
 def train_cpu_reference(out_path: str) -> int:
     """Phase 11's CPU side, run in its own process (``python3
-    chip_smoke.py --train-cpu-reference OUT``): the sphere step and the
-    scene step (at 16 iterations and with the solve to convergence) on
-    CPU tensors, saved to ``out_path`` with their draws."""
+    chip_smoke.py --train-cpu-reference OUT``): the sphere step, the
+    scene step (at 16 iterations and with the solve to convergence) and
+    the scene's predicted step at 16 iterations on CPU tensors, saved to
+    ``out_path`` with their draws."""
     from nksr_tpu_torch.utils.checkpoint import load_tree
     cores = sorted(os.sched_getaffinity(0))
     if len(cores) > TRAIN_REF_THREADS:
@@ -2017,6 +2057,8 @@ def train_cpu_reference(out_path: str) -> int:
         dataclasses.replace(cfg, solver_max_iters=TRAIN_CONV_ITERS,
                             solver_tol=TRAIN_CONV_TOL),
         lcfg, params, batch, samples, "cpu")
+    res["predicted"] = train_grads(cfg, lcfg, params, batch, None, "cpu",
+                                   use_gt_structure=False)
     res["seconds"] = time.perf_counter() - t0
     res["cores"] = sorted(os.sched_getaffinity(0))
     torch.save(res, out_path + ".tmp")
@@ -2143,6 +2185,7 @@ def training_laps(params, counters, gen, ref):
                          runs["cuda"], runs["cpu"], True, TRAIN_LOSS_RTOL,
                          TRAIN_SCENE_LEAF_RTOL, TRAIN_UNET_TOL,
                          TRAIN_STRUCT_RTOL, whole_rtol=TRAIN_GRAD_RTOL)
+    pred_ref = ref["predicted"]
     del runs, ref
 
     # (c) warm steps with the optimizer: seconds, phases, peak, launches;
@@ -2177,7 +2220,7 @@ def training_laps(params, counters, gen, ref):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(counters.values())
         times = {}
-        tm = PhaseTimer(torch.device("cuda"), times)
+        tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
         t1 = time.perf_counter()
         state, losses, _ = T.train_step(cfg, tc, lcfg, state, batch, None,
                                         samples=samples, tm=tm)
@@ -2289,11 +2332,194 @@ def training_laps(params, counters, gen, ref):
             and d.mean() < FIT_MESH_LIMIT):
         raise AssertionError("[phase 11] the port-trained checkpoint did "
                              "not mesh the item")
+    predicted = predicted_training(cfg, lcfg, tc, yc, params, batch,
+                                   train_batches, run_dir, counters,
+                                   pred_ref)
     step = {"warm_s": min(step_s[1:]), "peak_gib": peak, "phases": phases,
             "window": wins, "gathers": tally,
             "at16": at16, "converged": conv, "sphere": sphere,
-            "overfit_ratio": last / first}
+            "overfit_ratio": last / first, "predicted": predicted}
     return launches, back, step
+
+
+def level_margins(logits):
+    """Per level, the smallest top-2 margin of the structure logits and
+    the largest |logit| (inf and 0 on an empty level)."""
+    out = []
+    for lg in logits:
+        if lg.shape[0] == 0:
+            out.append((float("inf"), 0.0))
+            continue
+        top = lg.topk(2, -1).values
+        out.append((float((top[:, 0] - top[:, 1]).min()),
+                    float(lg.abs().max())))
+    return out
+
+
+def check_predicted_hierarchy(card, cpu) -> bool:
+    """Phase 11 (g): the card's candidate and decoder hierarchies against
+    the CPU's, from the coarsest level.  Returns True when they are
+    equal voxel for voxel; False when the first status that differs is a
+    tie (its margin under TRAIN_TIE_FRAC of the level's largest |logit|
+    on both sides), from which the finer levels follow; raises
+    otherwise."""
+    depth = len(card["cand"])
+    for d in range(depth - 1, -1, -1):
+        if not np.array_equal(card["cand"][d], cpu["cand"][d]):
+            raise AssertionError(f"[phase 11] (g) the candidates of level "
+                                 f"{d} differ between card and CPU")
+        sc, sp = card["logits"][d].argmax(-1), cpu["logits"][d].argmax(-1)
+        diff = torch.nonzero(sc != sp)[:, 0]
+        if diff.numel():
+            ties = []
+            for lg in (card["logits"][d], cpu["logits"][d]):
+                top = lg[diff].topk(2, -1).values
+                ties.append(float((top[:, 0] - top[:, 1]).max())
+                            / float(lg.abs().max()))
+            print(f"[phase 11] (g) level {d}: {diff.numel()} statuses "
+                  f"differ between card and CPU, largest margin there "
+                  f"{max(ties):.3e} of max |logit| (tie under "
+                  f"{TRAIN_TIE_FRAC})", flush=True)
+            if max(ties) >= TRAIN_TIE_FRAC:
+                raise AssertionError("[phase 11] (g) the predicted "
+                                     "hierarchy differs between card and "
+                                     "CPU beyond a tie")
+            return False
+        if not np.array_equal(card["dec"][d], cpu["dec"][d]):
+            raise AssertionError(f"[phase 11] (g) the decoder voxels of "
+                                 f"level {d} differ between card and CPU")
+    return True
+
+
+def predicted_training(cfg, lcfg, tc, yc, params, batch, train_batches,
+                       run_dir, counters, cpu_run):
+    """Phase 11 (g): training on the predicted structure (see the module
+    docstring); ``cpu_run`` the CPU reference's predicted step.  Returns
+    the record: warm step seconds and phases, peak GiB, the launches of
+    one warm step, the card-against-CPU worsts."""
+    from nksr_tpu_torch.solver.pcg import solve_spd
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.profiling import PhaseTimer
+
+    def predicted_step(state, seed, tm=None):
+        return T.train_step(cfg, tc, lcfg, state, batch,
+                            torch.Generator().manual_seed(seed),
+                            use_gt_structure=False, tm=tm)
+
+    # one step at the run's 16 iterations, card against CPU
+    card = train_grads(cfg, lcfg, params, batch, None, "cuda",
+                       use_gt_structure=False)
+    cf, pf = card[2], cpu_run[2]
+    margins = level_margins(cf["logits"])
+    print(f"[phase 11] (g) predicted step at {cfg.solver_max_iters} "
+          f"iterations: candidates {[len(k) for k in cf['cand']]}, decoder "
+          f"{[len(k) for k in cf['dec']]} voxels (CPU: "
+          f"{[len(k) for k in pf['cand']]}, {[len(k) for k in pf['dec']]})"
+          "; smallest top-2 margin by level (of max |logit|): "
+          + ", ".join(f"{m:.3e} ({m / max(x, 1e-30):.3e})"
+                      for m, x in margins), flush=True)
+    same = check_predicted_hierarchy(cf, pf)
+    worst = None
+    if same:
+        if not all(torch.equal(cf["samples"][k], pf["samples"][k])
+                   for k in pf["samples"]):
+            raise AssertionError("[phase 11] (g) the predicted step's draws "
+                                 "differ between card and CPU")
+        worst = compare_train(f"(g) predicted step at "
+                              f"{cfg.solver_max_iters} iterations", card,
+                              cpu_run, False, TRAIN_LOSS_RTOL,
+                              TRAIN_GRAD_RTOL, TRAIN_UNET_TOL,
+                              TRAIN_STRUCT_RTOL)
+        leaves = {n: float(torch.linalg.norm(card[1][n] - g)
+                           / torch.linalg.norm(g))
+                  for n, g in cpu_run[1].items()
+                  if float(torch.linalg.norm(g)) > 0}
+        print("[phase 11] (g) each leaf, card against CPU (rel L2): "
+              + json.dumps({n: float(f"{v:.3e}") for n, v in
+                            leaves.items()}), flush=True)
+    for dev, run in (("cuda", card), ("cpu", cpu_run)):
+        print(f"[phase 11] (g) predicted step on {dev}: losses "
+              f"{json.dumps(run[0])}; solves {run[3]}", flush=True)
+    del card
+
+    # three steps with the optimizer: seconds, phases, peak, launches
+    state = T.init_state(cfg, tc, params=params, device="cuda")
+    step_s, phases = [], {}
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        times = {}
+        tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
+        t1 = time.perf_counter()
+        state, losses, _ = predicted_step(state, i, tm)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        launches = read_counts(counters)
+        times["train: forward solve"] = solve_spd.last_seconds
+        times["train: backward solve"] = solve_spd.last_backward_seconds
+        phases = times
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[phase 11] (g) warm predicted step {min(step_s[1:]):.4f} s "
+          "(laps " + ", ".join(f"{s:.4f}" for s in step_s) + "); phases "
+          + json.dumps({k: round(v, 4) for k, v in phases.items()})
+          + f"; peak memory {peak:.2f} GiB; launches {launches}; sums "
+          f"{losses['sum']:.4f}", flush=True)
+    if launches["segsum"] <= 0 or launches["window"] <= 0:
+        raise AssertionError(f"[phase 11] (g) a predicted step launched no "
+                             f"segment sum or window kernel: {launches}")
+    del state
+
+    # two runs of 5 predicted steps from one state, bit-equal
+    finals = []
+    for _ in range(2):
+        state = T.init_state(cfg, tc, params=params, device="cuda")
+        sums = []
+        for i in range(5):
+            state, losses, _ = predicted_step(state, i)
+            sums.append(losses["sum"])
+        finals.append(([p.detach().clone() for p in state.net.parameters()],
+                       sums))
+        del state
+    bit_equal = all(torch.equal(a, b)
+                    for a, b in zip(finals[0][0], finals[1][0]))
+    print(f"[phase 11] (g) two runs of 5 predicted steps from one state: "
+          f"params {'bit-equal' if bit_equal else 'DIFFER'}; sums "
+          f"{finals[0][1]} / {finals[1][1]}", flush=True)
+    if not (bit_equal and finals[0][1] == finals[1][1]):
+        raise AssertionError("[phase 11] (g) two 5-step predicted runs "
+                             "from one state differ")
+    del finals
+
+    # fit past the schedule's start: steps 1-4 predicted
+    modes = []
+    real_step = T.train_step
+
+    def recording(*a, use_gt_structure=True, **kw):
+        modes.append(use_gt_structure)
+        return real_step(*a, use_gt_structure=use_gt_structure, **kw)
+    fit_cfg = dict(yc, structure_schedule={"start_step": 0, "end_step": 1})
+    T.train_step = recording
+    t1 = time.perf_counter()
+    try:
+        st = driver.fit(fit_cfg, train_batches + train_batches[:1], None,
+                        run_dir + "_predicted", max_steps=5, seed=0,
+                        params=params, device="cuda")
+    finally:
+        T.train_step = real_step
+    print(f"[phase 11] (g) fit of 5 steps from step 0 to 1 of the schedule "
+          f"in {time.perf_counter() - t1:.1f} s: step {st.step}, "
+          f"teacher-forced {modes}", flush=True)
+    if not (st.step == 5 and modes == [True] + [False] * 4
+            and all(bool(torch.isfinite(p).all())
+                    for p in st.net.parameters())):
+        raise AssertionError("[phase 11] (g) the fit did not run 4 "
+                             "predicted steps")
+    del st
+    return {"warm_s": min(step_s[1:]), "peak_gib": peak, "phases": phases,
+            "launches": launches, "hierarchy_equal": same,
+            "margins": margins, "worst": worst}
 
 
 def main() -> int:
@@ -2722,6 +2948,8 @@ def main() -> int:
         rec["launches_dual"] = dual_launches[key]
         rec["launches_dual_predicted"] = dual_pred_launches[key]
         rec["launches_train"] = train_launches[key]
+        rec["launches_train_predicted"] = \
+            train_rec["predicted"]["launches"][key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -2739,6 +2967,8 @@ def main() -> int:
         train_segment_sum_backward_bound_by=sby,
         train_step_s=train_rec["warm_s"],
         train_step_peak_gib=train_rec["peak_gib"],
+        train_predicted_step_s=train_rec["predicted"]["warm_s"],
+        train_predicted_step_peak_gib=train_rec["predicted"]["peak_gib"],
         train_gather_backwards=train_rec["gathers"]["gathers"],
         train_gather_sorts=train_rec["gathers"]["sorts"])
     # the window kernel at each input of one training step

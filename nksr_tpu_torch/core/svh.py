@@ -11,17 +11,21 @@ packed keys sort in the same (i, j, k) order, so a full level keeps the
 same voxels.  A finer adaptive level is refined from its parent as the
 parent was cut, as on the device.
 
-Also the teacher-forced decoder's candidate hierarchy
-(``teacher_hierarchy``): the JAX ``SparseUNet`` with
-``use_gt_structure=True`` starts from the encoder's coarsest grid and,
-level by level, keeps the children of the candidates the GT hierarchy
-refines.  It depends on the data only, so it is built here with every
-table its decoder reads.
+Also the decoder's structure, one level at a time
+(``decoder_step``): the JAX ``SparseUNet`` starts from the encoder's
+coarsest grid and, level by level, prunes the candidates whose status
+is empty and keeps the children of those it refines.  With
+``use_gt_structure=True`` the statuses are the GT hierarchy's, which
+depend on the data only, so ``teacher_hierarchy`` builds every level
+with every table its decoder reads before the forward; with
+``use_gt_structure=False`` they are the argmax of the network's
+structure logits, read back level by level inside the forward
+(``models/sparse_unet.predicted_unet``).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -83,6 +87,55 @@ def evaluate_voxel_status(grids: Sequence[HB.HostGrid], coords: np.ndarray,
                     VOXEL_EMPTY).astype(np.int64)
 
 
+class LevelStep(NamedTuple):
+    """The host step between two decoder levels (numpy): ``dec`` the
+    decoder grid (the candidates whose status is not empty) and
+    ``dec_rows`` their candidate rows; toward level d-1 (None at depth
+    0): ``nxt`` the next candidate grid (the children of the refined
+    candidates, sorted and cut at the next capacity), ``nbr`` (n_nxt, 27)
+    its stencil rows, ``parent`` and ``octant`` of each of its voxels in
+    this level, ``skip`` its encoder row at level d-1 (-1 absent)."""
+    dec: HB.HostGrid
+    dec_rows: np.ndarray
+    nxt: Optional[HB.HostGrid]
+    nbr: Optional[np.ndarray]
+    parent: Optional[np.ndarray]
+    octant: Optional[np.ndarray]
+    skip: Optional[np.ndarray]
+
+
+def stencil_rows(grid: HB.HostGrid, stencil: np.ndarray) -> np.ndarray:
+    """(n, K) stencil rows of a grid's n voxels, int64."""
+    n = len(grid.keys)
+    return HB.nbr_table(grid, max(n, 1), stencil)[:n].astype(np.int64)
+
+
+def decoder_step(cand: HB.HostGrid, status: np.ndarray,
+                 enc_next: Optional[HB.HostGrid], cap_next: int,
+                 stencil: np.ndarray) -> LevelStep:
+    """One level of the decoder's structure (nksr_tpu/models/network.py
+    SparseUNet, either mode): prune the candidates ``cand`` to those whose
+    ``status`` (one class a row, GT or predicted) is not empty; expand the
+    refined ones to their children, sorted and cut at ``cap_next`` (the
+    first keys in (i, j, k) order, as ``SparseGrid.from_coords`` keeps),
+    with their stencil, parent, octant and skip rows into ``enc_next``,
+    the cut encoder grid of the next level (None at depth 0)."""
+    status = np.asarray(status)
+    keep = status > VOXEL_EMPTY
+    dec = HB.prune(cand, keep)
+    dec_rows = np.nonzero(keep)[0].astype(np.int64)
+    if enc_next is None:
+        return LevelStep(dec, dec_rows, None, None, None, None, None)
+    refined = np.nonzero(status == VOXEL_REFINED)[0]
+    nxt, parent, octant = HB.children_of(cand, refined)
+    nxt = truncate(nxt, cap_next)
+    return LevelStep(
+        dec, dec_rows, nxt, stencil_rows(nxt, stencil),
+        parent[:cap_next].astype(np.int64),
+        octant[:cap_next].astype(np.int64),
+        HB.lookup(enc_next, nxt.coords).astype(np.int64))
+
+
 class TeacherLevel(NamedTuple):
     """One decoder level of the teacher-forced UNet (numpy).
 
@@ -109,28 +162,19 @@ def teacher_hierarchy(enc: Sequence[HB.HostGrid],
     """The candidate grids and tables of the teacher-forced decoder, level
     by level from the coarsest (nksr_tpu/models/network.py SparseUNet,
     ``use_gt_structure=True`` with an in-graph GT hierarchy): the
-    coarsest candidates are the encoder's grid; the next candidates are
-    the children of the candidates the GT hierarchy refines, sorted and
-    cut at the next capacity.  Returned finest first."""
+    coarsest candidates are the encoder's grid; each level's
+    ``decoder_step`` runs on the GT statuses of its candidates.  The
+    heads read the GT grid's voxels.  Returned finest first."""
     depth = len(enc)
     levels: List[TeacherLevel] = [None] * depth
     cand = enc[depth - 1]
+    nbr = stencil_rows(cand, stencil)
     for d in range(depth - 1, -1, -1):
-        n = len(cand.keys)
-        nbr = HB.nbr_table(cand, max(n, 1), stencil)[:n].astype(np.int64)
         status = evaluate_voxel_status(gt, cand.coords, d)
+        step = decoder_step(cand, status, enc[d - 1] if d else None,
+                            capacities[d - 1] if d else 0, stencil)
         dec_rows = HB.lookup(cand, gt[d].coords).astype(np.int64)
-        parent = octant = skip = None
-        nxt = None
-        if d > 0:
-            refined = np.nonzero(status == VOXEL_REFINED)[0]
-            nxt, parent, octant = HB.children_of(cand, refined)
-            cap = capacities[d - 1]
-            nxt = truncate(nxt, cap)
-            parent = parent[:cap].astype(np.int64)
-            octant = octant[:cap].astype(np.int64)
-            skip = HB.lookup(enc[d - 1], nxt.coords).astype(np.int64)
-        levels[d] = TeacherLevel(cand, nbr, status, dec_rows, parent,
-                                 octant, skip)
-        cand = nxt
+        levels[d] = TeacherLevel(cand, nbr, status, dec_rows, step.parent,
+                                 step.octant, step.skip)
+        cand, nbr = step.nxt, step.nbr
     return tuple(levels)

@@ -1,6 +1,7 @@
 """Static configuration, input features, seeded parameter init, the
-solve rows of the support-row kernel field, and the teacher-forced
-training forward (``prepare_inputs``, ``forward``).
+solve rows of the support-row kernel field, and the training forward
+(``prepare_inputs``, ``forward``), teacher-forced or on the predicted
+structure.
 
 ``PipelineConfig`` has the fields and defaults of
 nksr_tpu/models/pipeline.py so configurations carry over unchanged;
@@ -185,17 +186,19 @@ class TrainInputs(NamedTuple):
     """One cloud's inputs to the training forward: the device tensors and
     the host hierarchies and tables built from them (``prepare_inputs``).
 
-    ``xyz`` (N, 3) the real input points, ``feat`` their input features,
+    ``xyz`` (N, 3) the real input points (``host_xyz`` the same in
+    numpy), ``feat`` their input features,
     ``input_normal`` the normals the prior splats (or None);
     ``gt_xyz`` / ``gt_normal`` (M, 3) the real GT cloud; ``enc_grids``
     the input's splat hierarchy, ``enc_tables`` its ``nbr`` / ``child``
     tables on the device, ``n_vox`` its voxel counts, ``splat_idx`` (N,
     8) the points' depth-0 splat rows; ``gt_grids`` the GT hierarchy
-    (``build_gt_svh``); ``levels`` the teacher-forced decoder's tables
-    (``core/svh.TeacherLevel``, host), ``levels_t`` the same on the
-    device; ``pt_sup`` / ``grad_sup`` the solve rows' supports in the GT
-    hierarchy; ``onet`` the occupancy samples (points, occupancy) or
-    None."""
+    (``build_gt_svh``); ``onet`` the occupancy samples (points,
+    occupancy) or None.  The teacher-forced decoder's part (None when
+    the inputs were prepared for the predicted structure): ``levels``
+    its tables (``core/svh.TeacherLevel``, host), ``levels_t`` the same
+    on the device, ``pt_sup`` / ``grad_sup`` the solve rows' supports in
+    the GT hierarchy."""
     xyz: torch.Tensor
     feat: Optional[torch.Tensor]
     input_normal: Optional[torch.Tensor]
@@ -206,24 +209,29 @@ class TrainInputs(NamedTuple):
     n_vox: Tuple[int, ...]
     splat_idx: torch.Tensor
     gt_grids: Sequence[Any]
-    levels: Tuple[Any, ...]
-    levels_t: Tuple[Any, ...]
-    pt_sup: Tuple[torch.Tensor, ...]
-    grad_sup: Tuple[torch.Tensor, ...]
+    levels: Optional[Tuple[Any, ...]]
+    levels_t: Optional[Tuple[Any, ...]]
+    pt_sup: Optional[Tuple[torch.Tensor, ...]]
+    grad_sup: Optional[Tuple[torch.Tensor, ...]]
     onet: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    host_xyz: np.ndarray
 
 
 class ForwardOutput(NamedTuple):
     """The training forward's result: the solved, differentiable
-    ``field`` on the GT hierarchy, the UDF ``mask_field`` on the
+    ``field`` on the decoder hierarchy, the UDF ``mask_field`` on the
     candidate hierarchy (None without the UDF head), per depth the
-    structure logits and GT statuses of the candidate rows, and the
-    UNet's basis features on the GT voxels."""
+    structure logits and GT statuses of the candidate rows, the UNet's
+    basis features on the decoder voxels, and the host ``dec_grids``
+    (the GT hierarchy when teacher-forced, else the predicted one) and
+    ``cand_grids`` (the candidates of each level)."""
     field: KernelField
     mask_field: Any
     structure_logits: Tuple[torch.Tensor, ...]
     structure_status: Tuple[torch.Tensor, ...]
     basis_features: Tuple[torch.Tensor, ...]
+    dec_grids: Tuple[Any, ...]
+    cand_grids: Tuple[Any, ...]
 
 
 def build_gt_svh(cfg: PipelineConfig, gt_xyz: np.ndarray,
@@ -247,12 +255,32 @@ def _real(batch: Dict[str, Any], key: str, mask_key: str) -> np.ndarray:
     return np.ascontiguousarray(a[m.astype(bool)], np.float32)
 
 
+def _dev_i64(tables, dev) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(np.asarray(t, np.int64), device=dev)
+                 for t in tables)
+
+
+def solve_supports(cfg: PipelineConfig, grids, xyz: np.ndarray, dev):
+    """The solve rows' host supports in a decoder hierarchy, on ``dev``:
+    the points' at every depth (the value rows; at the adaptive depths
+    also the normal prior's splat) and the gradient rows' (the voxel
+    centers of the adaptive depths)."""
+    caps = tuple(cfg.capacities)
+    centers = np.concatenate([
+        get_voxel_centers(grids[d].coords, level_voxel_size(cfg, d))
+        for d in range(cfg.adaptive_depth)], 0)
+    return (_dev_i64(HB.support_indices(grids, caps, xyz), dev),
+            _dev_i64(HB.support_indices(grids, caps, centers), dev))
+
+
 def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
-                   device) -> TrainInputs:
+                   device, use_gt_structure: bool = True) -> TrainInputs:
     """Host hierarchies and tables of one padded train batch (the keys of
     ``data.loader.to_device_batch``: ``xyz``, ``mask``, ``normal`` or
     ``sensor``, ``gt_xyz``, ``gt_normal``, ``gt_mask``, optionally
-    ``onet_*``), and its real rows on ``device``."""
+    ``onet_*``), and its real rows on ``device``.  The teacher-forced
+    decoder's tables and supports only when ``use_gt_structure``; the
+    predicted forward builds its own level by level."""
     dev = torch.device(device)
     caps = tuple(cfg.capacities)
 
@@ -273,28 +301,23 @@ def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
     enc, orders = SVH.build_point_splatting(xyz, cfg.voxel_size,
                                             cfg.tree_depth, caps)
     ut = HB.build_unet_tables(enc, caps, stencil_offsets(3), decoder=False)
-    enc_tables = HB.UNetTables(
-        nbr=tuple(up(t, torch.int64) for t in ut.nbr),
-        child=tuple(up(t, torch.int64) for t in ut.child),
-        parent=(), skip=())
-    splat_idx = up(HB.support_indices(enc[:1], caps[:1], xyz,
-                                      presorted=orders[:1])[0],
-                   torch.int64)
+    enc_tables = HB.UNetTables(nbr=_dev_i64(ut.nbr, dev),
+                               child=_dev_i64(ut.child, dev),
+                               parent=(), skip=())
+    splat_idx = _dev_i64(HB.support_indices(enc[:1], caps[:1], xyz,
+                                            presorted=orders[:1]), dev)[0]
     gt = build_gt_svh(cfg, gt_xyz, gt_normal)
-    levels = SVH.teacher_hierarchy(enc, gt, caps, stencil_offsets(3))
-    levels_t = tuple(lv._replace(
-        cand=None, status=up(lv.status), nbr=up(lv.nbr),
-        dec_rows=up(lv.dec_rows),
-        parent=None if lv.parent is None else up(lv.parent),
-        octant=None if lv.octant is None else up(lv.octant),
-        skip=None if lv.skip is None else up(lv.skip)) for lv in levels)
-    pt_sup = tuple(up(t, torch.int64)
-                   for t in HB.support_indices(gt, caps, xyz))
-    centers = np.concatenate([
-        get_voxel_centers(gt[d].coords, level_voxel_size(cfg, d))
-        for d in range(cfg.adaptive_depth)], 0)
-    grad_sup = tuple(up(t, torch.int64)
-                     for t in HB.support_indices(gt, caps, centers))
+    levels = levels_t = pt_sup = grad_sup = None
+    if use_gt_structure:
+        levels = SVH.teacher_hierarchy(enc, gt, caps, stencil_offsets(3))
+        levels_t = tuple(lv._replace(
+            cand=None, status=up(lv.status), nbr=up(lv.nbr),
+            dec_rows=up(lv.dec_rows),
+            parent=None if lv.parent is None else up(lv.parent),
+            octant=None if lv.octant is None else up(lv.octant),
+            skip=None if lv.skip is None else up(lv.skip))
+            for lv in levels)
+        pt_sup, grad_sup = solve_supports(cfg, gt, xyz, dev)
     onet = None
     if "onet_xyz" in batch:
         onet = (up(_real(batch, "onet_xyz", "onet_mask")),
@@ -304,16 +327,22 @@ def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
         gt_normal=up(gt_normal), enc_grids=enc, enc_tables=enc_tables,
         n_vox=tuple(len(g.keys) for g in enc), splat_idx=splat_idx,
         gt_grids=gt, levels=levels, levels_t=levels_t, pt_sup=pt_sup,
-        grad_sup=grad_sup, onet=onet)
+        grad_sup=grad_sup, onet=onet, host_xyz=xyz)
 
 
-def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs
-            ) -> ForwardOutput:
-    """The teacher-forced training forward (nksr_tpu/models/pipeline.py
-    ``forward`` with ``use_gt_structure=True``): the UNet's decoder on
-    the GT hierarchy, the differentiable support-row solve on it, and
+def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
+            use_gt_structure: bool = True, tm=None) -> ForwardOutput:
+    """The training forward (nksr_tpu/models/pipeline.py ``forward`` with
+    ``gt_svh`` given): the UNet's decoder teacher-forced onto the GT
+    hierarchy (``use_gt_structure``) or on its own predicted hierarchy,
+    the differentiable support-row solve on that decoder hierarchy, and
     the UDF head's field on the candidate hierarchy.  Differentiable in
-    every parameter the losses reach."""
+    every parameter the losses reach.  In predicted mode the structure
+    losses' targets are the GT statuses of the predicted candidates, and
+    ``tm`` (an accumulating ``PhaseTimer``) gets the level loop's phases
+    (``models/sparse_unet.predicted_unet``); the solve's supports and
+    those statuses, built on the host after the UNet, are summed into
+    "train: structure tables"."""
     from . import sparse_unet as SU   # it imports this module
     if cfg.geometry != "kernel":
         raise NotImplementedError(
@@ -325,13 +354,34 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs
             "supports in every matvec and has no gradient (ROADMAP.md "
             "queue 1, item 14)")
     caps = tuple(cfg.capacities)
-    gt = inp.gt_grids
-    basis, normal, logits, udf = SU.teacher_forced_unet(
-        cfg, net, inp.enc_tables, inp.n_vox, inp.levels_t,
-        [len(g.keys) for g in gt], caps, inp.xyz, inp.feat, inp.splat_idx)
-    field = solve_kernel_field(cfg, net, gt, caps, inp.xyz,
-                               inp.input_normal, basis, normal, inp.pt_sup,
-                               inp.grad_sup)
+    if use_gt_structure:
+        if inp.levels is None:
+            raise ValueError("forward(use_gt_structure=True) needs inputs "
+                             "prepared with use_gt_structure=True")
+        dec_grids = tuple(inp.gt_grids)
+        cand_grids = tuple(lv.cand for lv in inp.levels)
+        basis, normal, logits, udf = SU.teacher_forced_unet(
+            cfg, net, inp.enc_tables, inp.n_vox, inp.levels_t,
+            [len(g.keys) for g in dec_grids], caps, inp.xyz, inp.feat,
+            inp.splat_idx)
+        status = tuple(lv.status for lv in inp.levels_t)
+        pt_sup, grad_sup = inp.pt_sup, inp.grad_sup
+    else:
+        pred = SU.predicted_unet(cfg, net, inp.enc_grids, inp.enc_tables,
+                                 inp.n_vox, caps, inp.xyz, inp.feat,
+                                 inp.splat_idx, tm=tm)
+        basis, normal, logits, udf = pred[:4]
+        dec_grids, cand_grids = pred.dec_grids, pred.cand_grids
+        dev = inp.xyz.device
+        pt_sup, grad_sup = solve_supports(cfg, dec_grids, inp.host_xyz, dev)
+        status = _dev_i64([
+            SVH.evaluate_voxel_status(inp.gt_grids, c.coords, d)
+            for d, c in enumerate(cand_grids)], dev)
+        if tm is not None:
+            tm.lap("train: structure tables")
+    field = solve_kernel_field(cfg, net, dec_grids, caps, inp.xyz,
+                               inp.input_normal, basis, normal, pt_sup,
+                               grad_sup)
     mask_field = None
     if cfg.udf_enabled:
         mask_field = NeuralField(
@@ -339,5 +389,5 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs
             net.udf_decoder).set_level_set(2.0 * cfg.voxel_size)
     return ForwardOutput(
         field=field, mask_field=mask_field, structure_logits=logits,
-        structure_status=tuple(lv.status for lv in inp.levels_t),
-        basis_features=basis)
+        structure_status=status, basis_features=basis,
+        dec_grids=dec_grids, cand_grids=cand_grids)

@@ -22,11 +22,13 @@ the stride-2 convs and GroupNorm stay f32, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import svh as SVH
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..ops import gather_scatter as gs
 from ..ops import segment_sum as SEG
@@ -235,3 +237,89 @@ def teacher_forced_unet(cfg: PipelineConfig, net: NKSRNetwork, enc_tables,
             h = up_conv(up, d, g, lv.parent, lv.octant)
             g = h + gs.take_rows(enc_feats[d - 1], lv.skip)
     return tuple(basis), tuple(normal), tuple(logits), tuple(udf)
+
+
+class PredictedUNet(NamedTuple):
+    """The structure-predicting UNet's outputs: per depth the basis and
+    normal features on the decoder voxels at (caps[d], C), the structure
+    logits (n_cand_d, 3) and UDF features (n_cand_d, udf_dim) on the
+    candidate rows, and the host ``dec_grids`` and ``cand_grids``."""
+    basis: Tuple[torch.Tensor, ...]
+    normal: Tuple[torch.Tensor, ...]
+    logits: Tuple[torch.Tensor, ...]
+    udf: Tuple[torch.Tensor, ...]
+    dec_grids: Tuple
+    cand_grids: Tuple
+
+
+def predicted_unet(cfg: PipelineConfig, net: NKSRNetwork, enc_grids,
+                   enc_tables, n_vox: Sequence[int], caps: Sequence[int],
+                   xyz: torch.Tensor, feat, splat_idx: torch.Tensor,
+                   tm=None) -> PredictedUNet:
+    """Encoder + UNet + heads with the decoder on its own predicted
+    structure, differentiable (nksr_tpu/models/network.py SparseUNet with
+    ``use_gt_structure=False``).
+
+    The coarsest candidates are the encoder's grid.  At each level the
+    ``dec_d`` block runs on the candidates, ``struct_d`` and ``udf_d`` on
+    every candidate row; the statuses (the logits' argmax, the first
+    maximum on a tie as ``jnp.argmax``) are read back to the host, where
+    ``core/svh.decoder_step`` prunes and refines at the configuration's
+    capacities; the heads read the kept rows and the transposed conv
+    ``up_d`` plus the encoder skip feed the next level's candidates.
+    ``enc_grids`` the cut splat hierarchy (host), ``enc_tables`` its
+    ``nbr`` / ``child`` tables as int64 device tensors.  ``tm`` (an
+    accumulating ``PhaseTimer``) adds the device work to "train:
+    forward", the status readbacks to "train: structure readback" and
+    the host steps with their uploads to "train: structure tables", each
+    summed over the levels."""
+    if tm is not None and not tm.accumulate:
+        raise ValueError("predicted_unet: the level loop's phases recur; "
+                         "pass a PhaseTimer(..., accumulate=True)")
+
+    def lap(name):
+        if tm is not None:
+            tm.lap(name)
+    depth = cfg.tree_depth
+    cdt = getattr(torch, cfg.conv_dtype)
+    dev = xyz.device
+    up = net.unet
+    stencil = gs.stencil_offsets(3)
+
+    def dev_i64(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    enc_feats = encoder_path(cfg, net, enc_tables.nbr, enc_tables.child,
+                             n_vox, xyz, feat, splat_idx, cdt)
+    basis, normal = [None] * depth, [None] * depth
+    logits, udf = [None] * depth, [None] * depth
+    dec_grids, cand_grids = [None] * depth, [None] * depth
+    cand = enc_grids[depth - 1]
+    nbr = enc_tables.nbr[depth - 1][:n_vox[depth - 1]]
+    g = enc_feats[depth - 1]
+    for d in range(depth - 1, -1, -1):
+        cand_grids[d] = cand
+        g = conv_block(getattr(up, f"dec_{d}"), g, nbr, cdt)
+        logits[d] = getattr(up, f"struct_{d}")(g)
+        udf[d] = getattr(up, f"udf_{d}")(g)
+        status = logits[d].detach().argmax(-1)
+        lap("train: forward")
+        status = status.cpu().numpy()
+        lap("train: structure readback")
+        step = SVH.decoder_step(cand, status,
+                                enc_grids[d - 1] if d else None,
+                                caps[d - 1] if d else 0, stencil)
+        dec_grids[d] = step.dec
+        dec_rows = dev_i64(step.dec_rows)
+        if d > 0:
+            parent, octant = dev_i64(step.parent), dev_i64(step.octant)
+            skip, nbr = dev_i64(step.skip), dev_i64(step.nbr)
+        lap("train: structure tables")
+        basis[d], normal[d] = heads(up, d, gs.take_rows(g, dec_rows),
+                                    len(step.dec.keys), caps[d])
+        if d > 0:
+            h = up_conv(up, d, g, parent, octant)
+            g = h + gs.take_rows(enc_feats[d - 1], skip)
+            cand = step.nxt
+    lap("train: forward")
+    return PredictedUNet(tuple(basis), tuple(normal), tuple(logits),
+                         tuple(udf), tuple(dec_grids), tuple(cand_grids))

@@ -85,7 +85,8 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         (order_idx,) = ctx.saved_tensors
         n = ctx.src_shape[0]
-        g = grad.reshape(order_idx.shape[0], -1).float().contiguous()
+        g = grad.reshape(order_idx.shape[0], ctx.src_shape[1:].numel())
+        g = g.float().contiguous()
         out = SEG.segment_sum(g, _backward_order(order_idx, n))
         return out.to(ctx.src_dtype).reshape(ctx.src_shape), None, None
 

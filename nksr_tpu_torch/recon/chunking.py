@@ -55,7 +55,7 @@ class ChunkedField:
     def _host_chunks(self):
         if not all(hasattr(ch["field"], "host_grids") for ch in self.chunks):
             raise _not_ported("chunks whose fields carry no host grids (the "
-                              "JAX package's per-chunk meshing)", "item 14b")
+                              "JAX package's per-chunk meshing)", "item 16b")
         return self.chunks
 
     # ------------------------------------------------------------- queries

@@ -10,7 +10,9 @@ cuts:
                      ``models/sparse_unet.py`` over host tables;
   per level (host)   read the statuses back, prune to the decoder grid,
                      expand the children of refined voxels, build their
-                     stencil, parent and skip rows;
+                     stencil, parent and skip rows (``core/svh.
+                     decoder_step``, the training forward's step,
+                     without its capacity cut);
   per level (device) the octant-weighted transposed conv ``up_d``, the
                      encoder skip, the ``dec_{d-1}`` block and its logits;
   final (device)     the heads on the pruned grids (a UDF head on every
@@ -34,9 +36,9 @@ import numpy as np
 import torch
 
 from ..core import host_build as HB
+from ..core import svh as SVH
 from ..fields.lattice import plan_lattice
 from ..models import sparse_unet as SU
-from ..models.dense_predicted import VOXEL_REFINED
 from ..ops import gather_scatter as gs
 from ..utils.profiling import PhaseTimer
 from .host_field import HostField
@@ -100,27 +102,23 @@ def reconstruct_predicted_host(cfg, net, xyz: np.ndarray,
     cand_host, cand_caps = [None] * D, [0] * D
     for d in range(D - 1, -1, -1):
         cand_host[d], cand_caps[d] = cand, cand_cap
-        keep = status > 0
-        dec_host[d] = HB.prune(cand, keep)
-        head_rows[d] = np.nonzero(keep)[0]
+        # no cut: a level keeps every child of its refined voxels
+        step = SVH.decoder_step(cand, status, grids[d - 1] if d else None,
+                                8 * len(cand.keys), stencil)
+        dec_host[d], head_rows[d] = step.dec, step.dec_rows
         if d == 0:
             break
-        kid, pidx, oct_id = HB.children_of(
-            cand, np.nonzero(status == VOXEL_REFINED)[0])
-        cn = len(kid.keys)
-        knbr = HB.nbr_table(kid, _next_pow2(cn), stencil)[:cn]
-        e = HB.keys_lookup(grids[d - 1], kid.keys)
-        eidx = np.where(e < caps[d - 1], e, -1)
         loop.lap("level loop: host tables")
-        h = SU.up_conv(up, d, g, dev_i64(pidx), dev_i64(oct_id))
-        g = h + gs.take_rows(enc_feats[d - 1], dev_i64(eidx))
-        g = SU.conv_block(getattr(up, f"dec_{d - 1}"), g, dev_i64(knbr), cdt)
+        h = SU.up_conv(up, d, g, dev_i64(step.parent), dev_i64(step.octant))
+        g = h + gs.take_rows(enc_feats[d - 1], dev_i64(step.skip))
+        g = SU.conv_block(getattr(up, f"dec_{d - 1}"), g, dev_i64(step.nbr),
+                          cdt)
         g_convs[d - 1] = g
         st_dev = _status(up, d - 1, g)
         loop.lap("level loop: device")
         status = st_dev.cpu().numpy()
         loop.lap("level loop: status readback")
-        cand, cand_cap = kid, _next_pow2(cn)
+        cand, cand_cap = step.nxt, _next_pow2(len(step.nxt.keys))
     del enc_feats
     tm.lap("level loop")
 

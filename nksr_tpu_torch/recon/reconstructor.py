@@ -197,8 +197,9 @@ class Reconstructor:
         if cfg.structure_mode == "predicted":
             return self._reconstruct_predicted(cfg, xyz, normal, sens)
         if cfg.structure_mode == "predicted_ingraph":
-            raise _not_ported("structure='predicted_ingraph' (the traced "
-                              "training forward)", "item 14b")
+            raise _not_ported("structure='predicted_ingraph' (the in-graph "
+                              "KernelField, meshed by the JAX package's "
+                              "dual_mc.py)", "item 16b")
         if cfg.structure_mode not in ("splat", "adaptive"):
             raise ValueError(f"unknown structure {cfg.structure_mode!r}")
         if cfg.structure_mode == "adaptive" and normal is None:

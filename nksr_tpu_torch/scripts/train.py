@@ -1,5 +1,7 @@
 """Train a model from a run config on one GPU (counterpart of the
-repository's train.py; teacher-forced steps only, ROADMAP item 14):
+repository's train.py; past the config's ``structure_schedule.
+start_step`` the teacher-forcing coin sends a growing share of steps
+to the predicted structure):
 
     python -m nksr_tpu_torch.scripts.train runs/scene_big/config.yaml \\
         --run_dir runs/port_scene --max_steps 100 --val_every 50

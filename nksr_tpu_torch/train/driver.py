@@ -1,7 +1,8 @@
 """Run drivers (counterpart of nksr_tpu/train/driver.py): the maps of a
 run config onto ``PipelineConfig``, ``LossConfig`` and ``TrainConfig``,
-the CSV/JSON run logger, and ``fit``, the teacher-forced training loop
-with periodic validation, best/last checkpoints and resume.
+the CSV/JSON run logger, and ``fit``, the training loop (the
+teacher-forcing coin a step) with periodic validation, best/last
+checkpoints and resume.
 
     cfg = pipeline_config_from_yaml(load_config("runs/scene_big/config.yaml"))
 
@@ -175,7 +176,8 @@ def fit(cfg: dict, train_loader: Iterable, val_loader: Optional[Iterable],
     from ``last.ckpt`` (of either package).  ``params``: a flax-layout
     tree to start from (default the port's seeded init).  Runs on
     ``device`` (the card unless asked for the CPU).  A step the coin
-    sends to the predicted structure raises (ROADMAP item 14b);
+    sends to the predicted structure runs the decoder on its own
+    prediction; validation is teacher-forced, as in the JAX package.
     ``batch_size`` > 1 (data parallel) raises (item 15)."""
     if batch_size is not None and batch_size > 1:
         raise _not_ported("data-parallel training (batch_size > 1)",

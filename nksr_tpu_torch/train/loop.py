@@ -1,5 +1,6 @@
-"""Training loop: optimizer, schedules, the teacher-forced train and val
-steps (counterpart of nksr_tpu/train/loop.py).
+"""Training loop: optimizer, schedules, the train and val steps,
+teacher-forced or on the predicted structure (counterpart of
+nksr_tpu/train/loop.py).
 
 The optimizer is the JAX package's optax chain (``make_optimizer``),
 written out as plain functions on tensors, because PyTorch's
@@ -173,20 +174,30 @@ def apply_optimizer(tc: TrainConfig, net: NKSRNetwork, opt_state: Dict
 
 def loss_and_grads(cfg: P.PipelineConfig, lcfg: L.LossConfig,
                    net: NKSRNetwork, inp: P.TrainInputs,
-                   samples: Dict[str, torch.Tensor],
-                   compute_metric: bool = False, tm=None):
-    """The teacher-forced forward, the losses and their backward: leaves
-    the gradients in the parameters' ``.grad``.  Returns (losses with
-    "sum", metrics, forward output), the losses as tensors.  ``tm`` (a
-    ``utils.profiling.PhaseTimer``) splits the time into "train:
-    forward", "train: losses" and "train: backward" (of which the
-    implicit solve's PCG is ``solve_spd.last_backward_seconds``)."""
+                   samples: Optional[Dict[str, torch.Tensor]],
+                   compute_metric: bool = False, tm=None,
+                   use_gt_structure: bool = True,
+                   gen: Optional[torch.Generator] = None):
+    """The forward (teacher-forced, or on the predicted structure), the
+    losses and their backward: leaves the gradients in the parameters'
+    ``.grad``.  ``samples`` the draws, or None to draw them from ``gen``
+    on the forward's decoder hierarchy.  Returns (losses with "sum",
+    metrics, forward output), the losses as tensors.  ``tm`` (a
+    ``utils.profiling.PhaseTimer`` that accumulates, fresh for the step:
+    the predicted forward's level phases recur) splits the time
+    into "train: forward", "train: samples", "train: losses" and "train:
+    backward" (of which the implicit solve's PCG is
+    ``solve_spd.last_backward_seconds``), and in predicted mode "train:
+    structure readback" and "train: structure tables"."""
     def lap(name):
         if tm is not None:
             tm.lap(name)
     net.zero_grad(set_to_none=True)
-    out = P.forward(cfg, net, inp)
+    out = P.forward(cfg, net, inp, use_gt_structure=use_gt_structure, tm=tm)
     lap("train: forward")
+    if samples is None:
+        samples = L.draw_samples(gen, cfg, lcfg, inp, out.dec_grids)
+        lap("train: samples")
     losses, metrics = L.compute_losses(cfg, lcfg, out, inp, samples,
                                        compute_metric=compute_metric)
     total = sum(losses.values())
@@ -198,35 +209,25 @@ def loss_and_grads(cfg: P.PipelineConfig, lcfg: L.LossConfig,
     return losses, metrics, out
 
 
-def _not_ported_structure():
-    return NotImplementedError(
-        "use_gt_structure=False (the predicted-structure in-graph forward) "
-        "is not ported to nksr_tpu_torch yet (ROADMAP.md queue 1, item 14b)")
-
-
 def train_step(cfg: P.PipelineConfig, tc: TrainConfig, lcfg: L.LossConfig,
                state: TrainState, batch: Dict, gen: torch.Generator,
                use_gt_structure: bool = True, compute_metric: bool = False,
                samples: Optional[Dict[str, torch.Tensor]] = None, tm=None):
     """One optimization step on one padded batch (``data.loader.
-    to_device_batch``'s keys).  The random draws come from ``gen`` (a CPU
-    generator) unless ``samples`` are given.  Returns (new state, losses
-    as floats with "sum", metrics as floats).  ``tm`` (a ``PhaseTimer``)
-    adds "train: host build", "train: samples" and "train: optimizer" to
-    ``loss_and_grads``' phases."""
-    if not use_gt_structure:
-        raise _not_ported_structure()
+    to_device_batch``'s keys), teacher-forced or on the predicted
+    structure.  The random draws come from ``gen`` (a CPU generator),
+    on the forward's decoder hierarchy, unless ``samples`` are given.
+    Returns (new state, losses as floats with "sum", metrics as floats).
+    ``tm`` (a ``PhaseTimer``) adds "train: host build" and "train:
+    optimizer" to ``loss_and_grads``' phases."""
     dev = next(state.net.parameters()).device
-    inp = P.prepare_inputs(cfg, batch, dev)
+    inp = P.prepare_inputs(cfg, batch, dev, use_gt_structure)
     if tm is not None:
         tm.lap("train: host build")
-    if samples is None:
-        samples = L.draw_samples(gen, cfg, lcfg, inp)
-    if tm is not None:
-        tm.lap("train: samples")
     state.net.train()
-    losses, metrics, _ = loss_and_grads(cfg, lcfg, state.net, inp, samples,
-                                        compute_metric, tm=tm)
+    losses, metrics, _ = loss_and_grads(
+        cfg, lcfg, state.net, inp, samples, compute_metric, tm=tm,
+        use_gt_structure=use_gt_structure, gen=gen)
     opt_state = apply_optimizer(tc, state.net, state.opt_state)
     if tm is not None:
         tm.lap("train: optimizer")
@@ -240,13 +241,11 @@ def val_step(cfg: P.PipelineConfig, lcfg: L.LossConfig, net: NKSRNetwork,
              batch: Dict, gen: torch.Generator,
              use_gt_structure: bool = True):
     """Losses and metrics without a step; a NaN total reads 0."""
-    if not use_gt_structure:
-        raise _not_ported_structure()
     dev = next(net.parameters()).device
-    inp = P.prepare_inputs(cfg, batch, dev)
-    samples = L.draw_samples(gen, cfg, lcfg, inp)
+    inp = P.prepare_inputs(cfg, batch, dev, use_gt_structure)
     with torch.no_grad():
-        out = P.forward(cfg, net, inp)
+        out = P.forward(cfg, net, inp, use_gt_structure=use_gt_structure)
+        samples = L.draw_samples(gen, cfg, lcfg, inp, out.dec_grids)
         losses, metrics = L.compute_losses(cfg, lcfg, out, inp, samples,
                                            compute_metric=True)
         total = sum(losses.values())

@@ -78,11 +78,16 @@ def svh_uniform_samples(gen: torch.Generator, cfg: PipelineConfig, grids,
     """(n, 3) samples uniform over the (expanded) voxels of every level of
     a host hierarchy (the coarsest level expanded by ``expand_top``):
     a voxel drawn uniformly from all rows, then a point uniform in its
-    cube.  Drawn on the CPU from ``gen``."""
+    cube.  Drawn on the CPU from ``gen``.  An empty hierarchy draws as
+    the JAX package's does: every pick is the first row of its padded
+    depth-0 table, whose coords are 0 (expanded by its first offset)."""
+    empty = all(len(g.keys) == 0 for g in grids)
     base, scale = [], []
     for d, g in enumerate(grids):
         e = expand if d != len(grids) - 1 else expand_top
-        cc = _expand_coords(np.asarray(g.coords, np.int64), e)
+        cc = np.zeros((1, 3), np.int64) if empty and d == 0 \
+            else np.asarray(g.coords, np.int64)
+        cc = _expand_coords(cc, e)
         vs = np.float32(level_voxel_size(cfg, d))
         base.append(cc.astype(np.float32) * vs)
         scale.append(np.full(len(cc), vs, np.float32))
@@ -90,9 +95,9 @@ def svh_uniform_samples(gen: torch.Generator, cfg: PipelineConfig, grids,
     scale = torch.from_numpy(np.concatenate(scale, 0))
     total = base.shape[0]
     u = torch.rand(n, generator=gen)
-    if total == 0:
-        return torch.zeros((n, 3))
     pick = torch.floor(u * total).long().clamp(0, total - 1)
+    if empty:
+        pick = torch.zeros_like(pick)
     local = (torch.rand((n, 3), generator=gen) - 0.5) * scale[pick][:, None]
     return base[pick] + local
 
@@ -132,20 +137,26 @@ def get_samples(gen: torch.Generator, cfg: PipelineConfig,
 
 
 def draw_samples(gen: torch.Generator, cfg: PipelineConfig,
-                 lcfg: LossConfig, inp: TrainInputs) -> Dict[str, torch.Tensor]:
+                 lcfg: LossConfig, inp: TrainInputs, dec_grids=None
+                 ) -> Dict[str, torch.Tensor]:
     """The step's random draws, on the CPU: ``spatial`` and ``udf``
-    sample points (over the GT hierarchy and band) and the ``surface``
-    picks (indices into the GT cloud), each where its loss is on."""
+    sample points (over the decoder hierarchy ``dec_grids`` and the GT
+    band; JAX: ``field.svh``) and the ``surface`` picks (indices into
+    the GT cloud), each where its loss is on.  ``dec_grids`` is the
+    forward's (``ForwardOutput.dec_grids``); None reads the GT
+    hierarchy, the teacher-forced decoder's, which is known before the
+    forward."""
     ref_xyz, ref_normal = inp.gt_xyz.cpu(), inp.gt_normal.cpu()
+    grids = inp.gt_grids if dec_grids is None else dec_grids
     out = {}
     if lcfg.spatial_weight > 0:
         out["spatial"] = get_samples(gen, cfg, lcfg.spatial_samplers,
-                                     inp.gt_grids, ref_xyz, ref_normal)
+                                     grids, ref_xyz, ref_normal)
     if lcfg.gt_surface_value > 0 or lcfg.gt_surface_normal > 0:
         out["surface"] = masked_choice(gen, ref_xyz.shape[0],
                                        lcfg.gt_surface_subsample)
     if cfg.udf_enabled and lcfg.udf_weight > 0:
-        out["udf"] = get_samples(gen, cfg, lcfg.udf_samplers, inp.gt_grids,
+        out["udf"] = get_samples(gen, cfg, lcfg.udf_samplers, grids,
                                  ref_xyz, ref_normal)
     return out
 
@@ -197,7 +208,7 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
 
     if lcfg.spatial_weight > 0:
         chi = samples["spatial"].to(dev)
-        pd_chi = field.evaluate_f(chi, _support(inp.gt_grids, caps,
+        pd_chi = field.evaluate_f(chi, _support(out.dec_grids, caps,
                                                 chi)).value
         with torch.no_grad():
             gt_tsdf = gt_tsdf_from_points(cfg, lcfg, table, chi, ref_xyz,
@@ -214,7 +225,7 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
         pick = samples["surface"].to(dev)
         sx, sn = ref_xyz[pick], ref_normal[pick]
         want_grad = lcfg.gt_surface_normal > 0
-        ev = field.evaluate_f(sx, _support(inp.gt_grids, caps, sx),
+        ev = field.evaluate_f(sx, _support(out.dec_grids, caps, sx),
                               grad=want_grad)
         if want_grad:
             g = ev.gradient
@@ -237,8 +248,8 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
 
     if cfg.udf_enabled and lcfg.udf_weight > 0:
         chi = samples["udf"].to(dev)
-        cand = [lv.cand for lv in inp.levels]
-        pd = out.mask_field.evaluate_f(chi, _support(cand, caps, chi))
+        pd = out.mask_field.evaluate_f(chi, _support(out.cand_grids, caps,
+                                                     chi))
         with torch.no_grad():
             gt_tudf = gt_tsdf_from_points(cfg, lcfg, table, chi, ref_xyz,
                                           ref_normal).abs()
@@ -260,14 +271,14 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
 def evaluate_f_bar(cfg: PipelineConfig, out: ForwardOutput,
                    inp: TrainInputs, x: torch.Tensor) -> torch.Tensor:
     """The mask-combined field at (n, 3) points: f where the mask passes
-    (the UDF head's, or without it the union of the GT hierarchy's
-    supports), ``-voxel_size`` elsewhere."""
+    (the UDF head's on the candidate hierarchy, or without it the union
+    of the decoder hierarchy's supports), ``-voxel_size`` elsewhere."""
     caps = tuple(cfg.capacities)
-    sup = _support(inp.gt_grids, caps, x)
+    sup = _support(out.dec_grids, caps, x)
     f = out.field.evaluate_f(x, sup).value
     if out.mask_field is not None:
-        cand = [lv.cand for lv in inp.levels]
-        m = out.mask_field.evaluate_mask(x, _support(cand, caps, x))
+        m = out.mask_field.evaluate_mask(x, _support(out.cand_grids, caps,
+                                                     x))
     else:
         inside = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         for s in sup:

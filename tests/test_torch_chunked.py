@@ -329,7 +329,7 @@ def test_chunks_without_host_grids_raise():
     cf = CH.ChunkedField([{"cid": np.zeros(3, np.int64), "field": object()}],
                          1.0, 0.1, origin=np.zeros(3), id_lo=np.zeros(3),
                          id_hi=np.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16b"):
         cf.extract_dual_mesh()
 
 
