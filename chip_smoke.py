@@ -195,6 +195,29 @@ Phases (any failure ends the run with a non-zero exit):
      launches in one training step (``launches_train``) and in one
      predicted step (``launches_train_predicted``), the backwards' times
      and the window kernel's at the step's inputs.
+ 12. (run after phase 11) the in-graph route, structure=
+     "predicted_ingraph" (capacities estimated from a subsample as the
+     JAX package estimates them, the inference forward models/pipeline.
+     infer, the support-row solve, the in-graph mesher meshing/dual_mc.py
+     with mise_iter Newton steps) under runs/scene_big/config.yaml (UDF
+     head on, f32 convs): (a) the 5 held-out scenes of a 40-patch
+     scripts/make_synth_scenes.py corpus (written under the checkout's
+     data/), two laps each bit-equal in coefficients and mesh, the
+     predicted hierarchy equal to the inference forward's on CPU tensors
+     voxel for voxel (a tie as in phase 11 (g) reported), MeshEvaluator
+     at 5e6 samples, each scene's chamfer-L1 under 1.1x the JAX
+     package's in-graph figure (scripts/quality_reference_ingraph.py),
+     seconds, vertices, faces, peak memory and launches printed (the
+     window kernel and the segment sum must run); (b) the (-x, -y) 20 m
+     quadrant of the 1M-point tile alone, under 1.5x the JAX package's
+     in-graph terrain error there; (c) the same quadrant with
+     chunk_size=10, four in-graph chunks each meshed alone and welded,
+     under 1.5x (b)'s error; (d) the predicted, splat and adaptive
+     routes on the first scene at 5e6 samples beside QUALITY.md's rows;
+     (e) the window kernel against its plain version on the Newton
+     step's own inputs, timed.  The kernels line gains each kernel's
+     launches on a scene lap (``launches_ingraph``) and the window
+     kernel's record at the Newton step (``ingraph_newton``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -356,6 +379,40 @@ SPHERE_TRAIN_CFG = dict(voxel_size=0.1, tree_depth=3, adaptive_depth=1,
                         capacities=(2048, 1024, 512), solver_max_iters=600,
                         solver_tol=1e-4)
 SPHERE_TRAIN_LOSS = dict(gt_surface_subsample=2048)
+# Phase 12, the in-graph route (structure="predicted_ingraph": capacities
+# estimated from a subsample, the inference forward, the support-row
+# solve, meshed by meshing/dual_mc.py with mise_iter Newton steps) under
+# runs/scene_big/config.yaml (UDF head on, f32 convs), 16 CG iterations at
+# tol 1e-4.  (a) the held-out scenes of scripts/make_synth_scenes.py's
+# corpus of 40 patches (its test split, 5 scenes; 8,000 input points each
+# as the config's test_dataset draws them), MeshEvaluator at 5e6 samples:
+# the JAX package's in-graph chamfer-L1 and f-score per scene
+# (scripts/quality_reference_ingraph.py --scenes, on the CPU); each
+# scene's chamfer-L1 gated at INGRAPH_CHAMFER_GATE x its JAX figure.
+INGRAPH_ROOT = os.path.join("data", "synth_scene_eval")
+INGRAPH_ITEMS = 40
+INGRAPH_KW = dict(detail_level=None, voxel_size=0.1, solver_tol=1e-4,
+                  solver_max_iters=16, structure="predicted_ingraph")
+JAX_INGRAPH_SCENES = {
+    "terrain/terrain_035": (0.008918, 0.444244),
+    "terrain/terrain_036": (0.009477, 0.427907),
+    "terrain/terrain_037": (0.008864, 0.446586),
+    "terrain/terrain_038": (0.009565, 0.411266),
+    "terrain/terrain_039": (0.009834, 0.407954)}
+INGRAPH_CHAMFER_GATE = 1.1
+# (b) the (-x, -y) 20 m quadrant of the 1M-point tile alone, one lap: the
+# JAX package's interior terrain error mean there (the same script's
+# --quadrant; 249,856 points, 113 s and 5.4 GiB on the CPU), gated at
+# 1.5x; (c) the same quadrant with chunk_size=10 (four 10 m chunks, each
+# meshed alone, welded), gated at 1.5x (b)'s own error; the JAX
+# package's figure (--chunked) printed beside it.
+JAX_INGRAPH_QUADRANT_ERR = 0.006218
+INGRAPH_ERR_LIMIT = 1.5 * JAX_INGRAPH_QUADRANT_ERR
+JAX_INGRAPH_CHUNKED_ERR = 0.005573
+# (d) the host routes on one held-out scene at 5e6 samples, beside the JAX
+# package's QUALITY.md rows (the mean over its held-out scenes)
+JAX_QUALITY_SCENE = {"predicted": (0.0094, 0.4275), "splat": (0.0094, 0.4229),
+                     "adaptive": (0.0094, 0.4224)}
 SENSOR_Z = 10.0
 KNN, MAX_ANGLE = 64, 85.0
 KNN_CHECK_QUERIES = 4096
@@ -2104,16 +2161,17 @@ def finish_train_reference(ref) -> dict:
     return res
 
 
-def make_corpus(root: str):
-    """scripts/make_synth_scenes.py's corpus (5 m terrain patches of 30,000
-    points) under ``root`` inside the checkout (a gitignored directory)."""
+def make_corpus(root: str, n_items: int = TRAIN_ITEMS):
+    """scripts/make_synth_scenes.py's corpus (``n_items`` 5 m terrain
+    patches of 30,000 points) under ``root`` inside the checkout (a
+    gitignored directory)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "make_synth_scenes", os.path.join(REPO, "scripts",
                                           "make_synth_scenes.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.main(root, TRAIN_ITEMS, 30000, 5.0)
+    mod.main(root, n_items, 30000, 5.0)
 
 
 def training_laps(params, counters, gen, ref):
@@ -2356,7 +2414,7 @@ def level_margins(logits):
     return out
 
 
-def check_predicted_hierarchy(card, cpu) -> bool:
+def check_predicted_hierarchy(card, cpu, tag="[phase 11] (g)") -> bool:
     """Phase 11 (g): the card's candidate and decoder hierarchies against
     the CPU's, from the coarsest level.  Returns True when they are
     equal voxel for voxel; False when the first status that differs is a
@@ -2366,7 +2424,7 @@ def check_predicted_hierarchy(card, cpu) -> bool:
     depth = len(card["cand"])
     for d in range(depth - 1, -1, -1):
         if not np.array_equal(card["cand"][d], cpu["cand"][d]):
-            raise AssertionError(f"[phase 11] (g) the candidates of level "
+            raise AssertionError(f"{tag} the candidates of level "
                                  f"{d} differ between card and CPU")
         sc, sp = card["logits"][d].argmax(-1), cpu["logits"][d].argmax(-1)
         diff = torch.nonzero(sc != sp)[:, 0]
@@ -2376,19 +2434,247 @@ def check_predicted_hierarchy(card, cpu) -> bool:
                 top = lg[diff].topk(2, -1).values
                 ties.append(float((top[:, 0] - top[:, 1]).max())
                             / float(lg.abs().max()))
-            print(f"[phase 11] (g) level {d}: {diff.numel()} statuses "
+            print(f"{tag} level {d}: {diff.numel()} statuses "
                   f"differ between card and CPU, largest margin there "
                   f"{max(ties):.3e} of max |logit| (tie under "
                   f"{TRAIN_TIE_FRAC})", flush=True)
             if max(ties) >= TRAIN_TIE_FRAC:
-                raise AssertionError("[phase 11] (g) the predicted "
+                raise AssertionError(f"{tag} the predicted "
                                      "hierarchy differs between card and "
                                      "CPU beyond a tie")
             return False
         if not np.array_equal(card["dec"][d], cpu["dec"][d]):
-            raise AssertionError(f"[phase 11] (g) the decoder voxels of "
+            raise AssertionError(f"{tag} the decoder voxels of "
                                  f"level {d} differ between card and CPU")
     return True
+
+
+def quadrant_mm(mesh) -> np.ndarray:
+    """|v_z - h(v_x, v_y)| over the used vertices 1 m inside the (-x, -y)
+    20 m quadrant."""
+    v = mesh.v[np.unique(mesh.f)]
+    v = v[(v[:, 0] < -1) & (v[:, 0] > -19) & (v[:, 1] < -1)
+          & (v[:, 1] > -19)]
+    return np.abs(v[:, 2] - _height(v[:, 0], v[:, 1]))
+
+
+def ingraph_laps(params, counters, WB, S, synthetic_scene):
+    """Phase 12: the in-graph route and its mesher (see the module
+    docstring and the INGRAPH_* constants).  Returns (the launches of one
+    scene lap, a record of the phase's numbers, the window kernel against
+    its plain version on the Newton step's own inputs)."""
+    import dataclasses as dc
+
+    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch.data import DatasetSpec as DS, build_dataset
+    from nksr_tpu_torch.models import pipeline as PP
+    from nksr_tpu_torch.recon.reconstructor import estimate_capacities
+    from nksr_tpu_torch.scripts import time_rows as TR
+    from nksr_tpu_torch.train.driver import pipeline_config_from_yaml
+    from nksr_tpu_torch.utils.config import load_config
+    from nksr_tpu_torch.utils.metrics import MeshEvaluator
+
+    t_phase = time.perf_counter()
+    yc = load_config(os.path.join(REPO, UDF_CONFIG))
+    cfg = pipeline_config_from_yaml(yc)
+    if not cfg.udf_enabled:
+        raise AssertionError(f"[phase 12] {UDF_CONFIG} has no UDF head")
+    recon = Reconstructor(config=cfg, params=params)
+    cpu_recon = Reconstructor(device="cpu", config=cfg, params=params)
+    root = os.path.join(REPO, INGRAPH_ROOT)
+    if not os.path.exists(os.path.join(root, "terrain", "test.lst")):
+        make_corpus(root, INGRAPH_ITEMS)
+    spec = [DS.SHAPE_NAME, DS.INPUT_PC, DS.TARGET_NORMAL, DS.GT_DENSE_PC,
+            DS.GT_DENSE_NORMAL, DS.GT_ONET_SAMPLE]
+    ds = build_dataset("ShapeNet", spec, **dict(
+        yc["test_dataset"]["args"], root=root))
+    if len(ds) != len(JAX_INGRAPH_SCENES):
+        raise AssertionError(f"[phase 12] {len(ds)} held-out scenes, "
+                             f"expected {len(JAX_INGRAPH_SCENES)}")
+    ev = MeshEvaluator(n_points=MeshEvaluator.N_POINTS_SCENE)
+    rec = {"scenes": []}
+    win_x = None
+    launches = None
+
+    def lap(xyz, nrm, capture=False):
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        field = recon.reconstruct(xyz, nrm, **INGRAPH_KW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if capture:
+            mesh, (x,) = TR.capture_first(
+                S, "window_and_grad_fused",
+                lambda: field.extract_dual_mesh(mise_iter=1))
+        else:
+            mesh, x = field.extract_dual_mesh(mise_iter=1), None
+        torch.cuda.synchronize()
+        return (t1 - t0, time.perf_counter() - t1, field, mesh,
+                read_counts(counters), x)
+
+    # ---- (a) the held-out scenes
+    for i in range(len(ds)):
+        item = ds[i]
+        name = item[DS.SHAPE_NAME]
+        xyz = np.asarray(item[DS.INPUT_PC], np.float32)
+        nrm = np.asarray(item[DS.TARGET_NORMAL], np.float32)
+        torch.cuda.reset_peak_memory_stats()
+        tr, tm, field, mesh, ln, x = lap(xyz, nrm, capture=i == 0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if x is not None:
+            win_x = x
+        if ln["window"] <= 0 or ln["segsum"] <= 0:
+            raise AssertionError(f"[phase 12] (a) {name}: the window kernel "
+                                 f"or the segment sum did not run: {ln}")
+        launches = launches or ln
+        tr2, tm2, field2, mesh2, _, _ = lap(xyz, nrm)
+        same = lap_diff(([a.clone() for a in field.alpha], mesh.v, mesh.f),
+                        (field2.alpha, mesh2.v, mesh2.f))
+        if "coefficients bit-equal" not in same or \
+                "mesh bit-equal" not in same:
+            raise AssertionError(f"[phase 12] (a) {name}: two laps differ: "
+                                 + same)
+        # the hierarchy against the port's CPU run (the inference forward
+        # at the route's estimated capacities, with its logits for ties)
+        ecfg = dc.replace(cfg, voxel_size=0.1, solver_tol=1e-4,
+                          solver_max_iters=16,
+                          capacities=estimate_capacities(xyz, 0.1,
+                                                         cfg.tree_depth))
+        outs = []
+        for r in (recon, cpu_recon):
+            o = PP.infer(ecfg, r.network, xyz,
+                         torch.as_tensor(nrm, device=r.device))
+            outs.append({"cand": [g.coords for g in o.cand_grids],
+                         "dec": [g.coords for g in o.dec_grids],
+                         "logits": [lg.cpu() for lg in o.structure_logits]})
+            del o
+        equal = check_predicted_hierarchy(outs[0], outs[1],
+                                          tag=f"[phase 12] (a) {name}")
+        t_ev = time.perf_counter()
+        m = ev.eval_mesh(mesh, item[DS.GT_DENSE_PC], item[DS.GT_DENSE_NORMAL],
+                         onet_samples=item.get(DS.GT_ONET_SAMPLE))
+        t_ev = time.perf_counter() - t_ev
+        jc, jf = JAX_INGRAPH_SCENES[name]
+        print(f"[phase 12] (a) {name}: reconstruct_s {min(tr, tr2):.3f} "
+              f"extract_mesh_s {min(tm, tm2):.3f} metrics_s {t_ev:.3f} "
+              f"capacities {field.capacities} decoder voxels "
+              f"{[len(g.keys) for g in field.host_grids]} verts "
+              f"{len(mesh.v)} faces {len(mesh.f)} peak {peak:.2f} GiB "
+              f"launches {ln}; {same}; hierarchy "
+              f"{'equal to the CPU run' if equal else 'a tie (reported)'}; "
+              f"chamfer-L1 {m['chamfer-L1']:.6f} f-score {m['f-score']:.6f}"
+              f" iou {m.get('iou', float('nan')):.6f} (JAX in-graph "
+              f"{jc} / {jf}; gate {INGRAPH_CHAMFER_GATE * jc:.6f}); phases "
+              + json.dumps({k: round(v, 4)
+                            for k, v in field.phase_times.items()}),
+              flush=True)
+        rec["scenes"].append({"name": name, "reconstruct_s": min(tr, tr2),
+                              "extract_mesh_s": min(tm, tm2),
+                              "metrics_s": t_ev, "verts": len(mesh.v),
+                              "faces": len(mesh.f), "peak_gib": peak,
+                              "chamfer_l1": m["chamfer-L1"],
+                              "f_score": m["f-score"]})
+        if not (np.isfinite(mesh.v).all() and len(mesh.f)):
+            raise AssertionError(f"[phase 12] (a) {name}: empty or "
+                                 "non-finite mesh")
+        if not m["chamfer-L1"] <= INGRAPH_CHAMFER_GATE * jc:
+            raise AssertionError(
+                f"[phase 12] (a) {name}: chamfer-L1 {m['chamfer-L1']} > "
+                f"{INGRAPH_CHAMFER_GATE} x the JAX package's {jc}")
+        del field, field2, mesh, mesh2
+    torch.cuda.empty_cache()
+
+    # ---- (b) one 20 m quadrant of the 1M-point tile
+    xyz, nrm = synthetic_scene(N_POINTS)
+    q = (xyz[:, 0] < 0) & (xyz[:, 1] < 0)
+    xq, nq = xyz[q], nrm[q]
+    del xyz, nrm
+    torch.cuda.reset_peak_memory_stats()
+    tr, tm, field, mesh, ln, _ = lap(xq, nq)
+    err = quadrant_mm(mesh)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[phase 12] (b) the (-x, -y) quadrant, {len(xq)} points: "
+          f"reconstruct_s {tr:.3f} extract_mesh_s {tm:.3f} capacities "
+          f"{field.capacities} decoder voxels "
+          f"{[len(g.keys) for g in field.host_grids]} {field.cg_stats} "
+          f"verts {len(mesh.v)} faces {len(mesh.f)} peak {peak:.2f} GiB "
+          f"launches {ln}; terrain error on {len(err)} interior vertices: "
+          f"mean {err.mean():.6f} q90 {np.quantile(err, 0.9):.6f} max "
+          f"{err.max():.6f} (JAX in-graph {JAX_INGRAPH_QUADRANT_ERR}; "
+          f"limit {INGRAPH_ERR_LIMIT:.6f}); phases "
+          + json.dumps({k: round(v, 4) for k, v in field.phase_times.items()}),
+          flush=True)
+    if not err.mean() <= INGRAPH_ERR_LIMIT:
+        raise AssertionError(f"[phase 12] (b) quadrant error {err.mean()} "
+                             f"> {INGRAPH_ERR_LIMIT}")
+    rec["quadrant"] = {"points": int(len(xq)), "reconstruct_s": tr,
+                       "extract_mesh_s": tm, "err_mean": float(err.mean()),
+                       "peak_gib": peak, "launches": ln}
+    del field, mesh
+    torch.cuda.empty_cache()
+
+    # ---- (c) the same quadrant in four 10 m chunks, meshed chunk by chunk
+    crecon = Reconstructor(config=dc.replace(
+        cfg, structure_mode="predicted_ingraph"), params=params)
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    cf = crecon.reconstruct(xq, nq, chunk_size=10.0, solver_tol=1e-4)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mesh = cf.extract_dual_mesh(mise_iter=1)
+    torch.cuda.synchronize()
+    tcm = time.perf_counter() - t1
+    lc = read_counts(counters)
+    cerr = quadrant_mm(mesh)
+    climit = 1.5 * float(err.mean())
+    print(f"[phase 12] (c) chunk_size 10: {len(cf.chunks)} chunks "
+          f"({[ch['n_points'] for ch in cf.chunks]} points with halos), "
+          f"reconstruct_s {t1 - t0:.3f} extract_mesh_s {tcm:.3f} verts "
+          f"{len(mesh.v)} faces {len(mesh.f)} launches {lc}; terrain error "
+          f"on {len(cerr)} interior vertices: mean {cerr.mean():.6f} q90 "
+          f"{np.quantile(cerr, 0.9):.6f} max {cerr.max():.6f} (JAX in-graph "
+          f"chunked {JAX_INGRAPH_CHUNKED_ERR}; limit 1.5x (b) "
+          f"{climit:.6f}); phases "
+          + json.dumps({k: round(v, 4) for k, v in cf.phase_times.items()}),
+          flush=True)
+    if len(cf.chunks) != 4 or cf._host_chunks():
+        raise AssertionError("[phase 12] (c) expected four in-graph chunks")
+    if not cerr.mean() <= climit:
+        raise AssertionError(f"[phase 12] (c) chunked error {cerr.mean()} "
+                             f"> {climit}")
+    rec["chunked"] = {"reconstruct_s": t1 - t0, "extract_mesh_s": tcm,
+                      "err_mean": float(cerr.mean()), "launches": lc}
+    del cf, mesh, crecon
+    torch.cuda.empty_cache()
+
+    # ---- (d) the host routes on the first held-out scene
+    item = ds[0]
+    rec["host_routes"] = {}
+    for structure in ("predicted", "splat", "adaptive"):
+        field = recon.reconstruct(item[DS.INPUT_PC], item[DS.TARGET_NORMAL],
+                                  **dict(INGRAPH_KW, structure=structure))
+        mesh = field.extract_dual_mesh(mise_iter=1)
+        m = ev.eval_mesh(mesh, item[DS.GT_DENSE_PC], item[DS.GT_DENSE_NORMAL],
+                         onet_samples=item.get(DS.GT_ONET_SAMPLE))
+        jc, jf = JAX_QUALITY_SCENE[structure]
+        print(f"[phase 12] (d) {item[DS.SHAPE_NAME]} {structure}: "
+              f"chamfer-L1 {m['chamfer-L1']:.6f} f-score {m['f-score']:.6f}"
+              f" (JAX QUALITY.md row, mean of its scenes: {jc} / {jf})",
+              flush=True)
+        rec["host_routes"][structure] = (m["chamfer-L1"], m["f-score"])
+        del field, mesh
+    torch.cuda.empty_cache()
+
+    # ---- (e) the window kernel on the Newton step's own inputs
+    win = compare_window(WB, win_x.contiguous(), timed=True)
+    win["q"] = int(win_x.shape[0])
+    print(f"[phase 12] (e) window kernel at the Newton step's Q "
+          f"{win_x.shape[0]}: max err {win['err']:.3e}; {win['ms']:.4f} ms "
+          f"(plain {win['plain_ms']:.4f}, bound {win['bound'][0]:.4f} by "
+          f"{win['bound'][1]})", flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 12] {rec['seconds']:.1f} s", flush=True)
+    return launches, rec, win
 
 
 def predicted_training(cfg, lcfg, tc, yc, params, batch, train_batches,
@@ -2877,6 +3163,12 @@ def main() -> int:
     print(f"[phase 11] {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- phase 12: the in-graph route, its mesher and per-chunk meshing
+    ingraph_launches, ingraph_rec, ingraph_win = ingraph_laps(
+        params, counters, WB, S, synthetic_scene)
+    print("[phase 12] record " + json.dumps(ingraph_rec), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
     reset_counts(scatter_counters)
@@ -2950,6 +3242,7 @@ def main() -> int:
         rec["launches_train"] = train_launches[key]
         rec["launches_train_predicted"] = \
             train_rec["predicted"]["launches"][key]
+        rec["launches_ingraph"] = ingraph_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -2973,8 +3266,14 @@ def main() -> int:
         train_gather_sorts=train_rec["gathers"]["sorts"])
     # the window kernel at each input of one training step
     kernels[5].update(
-        max_abs_err=max([win["err"]]
+        max_abs_err=max([win["err"], ingraph_win["err"]]
                         + [w["err"] for w in train_rec["window"]]),
+        ingraph_newton={"q": ingraph_win["q"],
+                        "ms": ingraph_win["ms"],
+                        "plain_ms": ingraph_win["plain_ms"],
+                        "bound_ms": ingraph_win["bound"][0],
+                        "bound_by": ingraph_win["bound"][1],
+                        "max_abs_err": ingraph_win["err"]},
         train=[{k: w[k] for k in ("q", "ms", "plain_ms", "bound_ms",
                                   "bound_by")} | {"max_abs_err": w["err"]}
                for w in train_rec["window"]])

@@ -255,6 +255,8 @@ _REGISTRY = {c.__name__: c for c in
               BBoxCrop, FixedBBoxCrop, FixedScale, BoundScale, Centralize,
               FixedAxisRotation, UniformDensityFixedSampleScale,
               FixedScaleSample]}
+# the reference's spelling, as configs/mixed/data.yaml names it
+_REGISTRY["UniformDensityFixedScaleSample"] = UniformDensityFixedSampleScale
 
 
 class ComposedTransforms(Transform):

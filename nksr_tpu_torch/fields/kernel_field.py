@@ -13,6 +13,13 @@ and solved by Jacobi PCG (``solver/pcg.py``).  ``solve_non_fused`` keeps
 the supports for the whole solve; ``solve_fused`` recomputes them in
 every matvec (memory for compute), the reference's ``fused_mode``.
 
+A field that carries its decoder hierarchy's host grids (the forward's,
+``host_grids``) joins the supports of arbitrary points itself:
+``evaluate_at`` and the masked ``evaluate_f_bar`` take world points, and
+``extract_dual_mesh`` meshes through ``meshing/dual_mc.py``.  The mask
+is the UDF head's ``NeuralField`` (``mask_field``) or, without one, the
+union of the hierarchy's supports (the JAX package's ``LayerField``).
+
 The field follows PyTorch's grad mode.  Under autograd (the training
 forward) the unfused solve is ``solve_spd``, the implicitly
 differentiated PCG, with the support rows as the operator's inputs, and
@@ -23,10 +30,12 @@ network and reconstructs under ``torch.no_grad()``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..core import host_build as HB
 from ..models.network import MLP
 from ..solver.pcg import solve_spd
 from . import support as S
@@ -40,14 +49,18 @@ class FieldEval(NamedTuple):
 class KernelField:
     """Per-depth voxel sizes, capacities, basis features (cap_d, Cb) and
     interpolator MLPs; ``alpha`` the flat (cap_d * K,) coefficients once
-    solved, ``cg_stats`` (iters, rel_res) of that solve."""
+    solved, ``cg_stats`` (iters, rel_res) of that solve.  Optionally the
+    decoder hierarchy's ``host_grids`` (``core/host_build.HostGrid``s),
+    its ``adaptive_depth`` and the UDF ``mask_field``."""
 
     def __init__(self, voxel_sizes: Sequence[float],
                  capacities: Sequence[int],
                  features: Sequence[torch.Tensor], mlps: Sequence[MLP],
                  kernel_dim: int, approx_kernel_grad: bool = False,
                  alpha: Optional[Tuple[torch.Tensor, ...]] = None,
-                 cg_stats: Optional[Tuple[int, float]] = None):
+                 cg_stats: Optional[Tuple[int, float]] = None,
+                 host_grids: Optional[Sequence[Any]] = None,
+                 adaptive_depth: int = 1, mask_field: Any = None):
         self.voxel_sizes = tuple(float(v) for v in voxel_sizes)
         self.capacities = tuple(int(c) for c in capacities)
         self.features = tuple(features)
@@ -56,6 +69,9 @@ class KernelField:
         self.approx_kernel_grad = bool(approx_kernel_grad)
         self.alpha = alpha
         self.cg_stats = cg_stats
+        self.host_grids = None if host_grids is None else tuple(host_grids)
+        self.adaptive_depth = int(adaptive_depth)
+        self.mask_field = mask_field
 
     def _shapes(self):
         return tuple((c, self.kernel_dim) for c in self.capacities)
@@ -63,14 +79,22 @@ class KernelField:
     def _with(self, alpha, stats) -> "KernelField":
         return KernelField(self.voxel_sizes, self.capacities, self.features,
                            self.mlps, self.kernel_dim,
-                           self.approx_kernel_grad, tuple(alpha), stats)
+                           self.approx_kernel_grad, tuple(alpha), stats,
+                           self.host_grids, self.adaptive_depth,
+                           self.mask_field)
+
+    @property
+    def device(self) -> torch.device:
+        return self.features[0].device
 
     def to(self, device) -> "KernelField":
-        """Move the basis features and coefficients to ``device`` in place
-        (the MLPs stay with the network)."""
+        """Move the basis features, coefficients and mask to ``device`` in
+        place (the MLPs stay with the network)."""
         self.features = tuple(f.to(device) for f in self.features)
         if self.alpha is not None:
             self.alpha = tuple(a.to(device) for a in self.alpha)
+        if self.mask_field is not None:
+            self.mask_field.to(device)
         return self
 
     def support(self, x: torch.Tensor, sup_idx, grad: bool = False):
@@ -182,3 +206,60 @@ class KernelField:
             v, g = S.predict(sup, self.alpha, grad=True)
             return FieldEval(value=v, gradient=g)
         return FieldEval(value=S.predict(sup, self.alpha))
+
+    # ------------------------------------------- points joined on the host
+    def host_supports(self, x: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """Per depth the (n, 8) support rows of world points ``x`` in the
+        field's host grids, on the field's device."""
+        if self.host_grids is None:
+            raise ValueError("this KernelField carries no host grids: pass "
+                             "the support rows to evaluate_f")
+        return tuple(torch.as_tensor(t.astype(np.int64), device=self.device)
+                     for t in HB.support_indices(self.host_grids,
+                                                 self.capacities, x))
+
+    def evaluate_at(self, x, grad: bool = False) -> FieldEval:
+        """``evaluate_f`` at (n, 3) world points (numpy or a tensor),
+        their supports joined on the host."""
+        x = _host_points(x)
+        return self.evaluate_f(torch.as_tensor(x, device=self.device),
+                               self.host_supports(x), grad=grad)
+
+    def evaluate_f_bar(self, x) -> torch.Tensor:
+        """The masked field at (n, 3) world points: ``f`` where the mask
+        passes, ``-voxel_size`` elsewhere; the mask is the UDF head's
+        (``level_set - udf > 0``) or, without one, any support at any
+        depth."""
+        x = _host_points(x)
+        sup = self.host_supports(x)
+        xt = torch.as_tensor(x, device=self.device)
+        f = self.evaluate_f(xt, sup).value
+        if self.mask_field is None:
+            inside = torch.stack([(s >= 0).any(1) for s in sup]).any(0)
+        else:
+            inside = self.mask_field.evaluate_mask(
+                xt, self.mask_field.host_supports(x)) > 0
+        return torch.where(inside, f, -self.voxel_sizes[0])
+
+    @property
+    def mesh_adaptive_depth(self) -> int:
+        """The depths the mesher's lattice spans: the JAX package reads
+        them from the mask (``LayerField.adaptive_depth``); its UDF mask
+        has none, so the lattice is depth 0's alone."""
+        return self.adaptive_depth if self.mask_field is None else 1
+
+    def extract_dual_mesh(self, mise_iter: int = 0, grid_upsample: int = 1,
+                          max_points: Optional[int] = None,
+                          max_quads: Optional[int] = None):
+        """Dual-MC mesh (``meshing/dual_mc.py``; ``mise_iter`` Newton
+        steps)."""
+        from ..meshing.dual_mc import extract_dual_mesh
+        return extract_dual_mesh(self, mise_iter=mise_iter,
+                                 grid_upsample=grid_upsample,
+                                 max_points=max_points, max_quads=max_quads)
+
+
+def _host_points(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x, np.float32)

@@ -18,11 +18,12 @@ JAX package's ``LayerField``.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core import host_build as HB
 from ..core.grid import point_splat_coords
 from ..models.network import MLP
 from ..ops.gather_scatter import take_rows
@@ -31,15 +32,28 @@ from ..ops.gather_scatter import take_rows
 class NeuralField:
     """Per-depth voxel sizes (as the device holds them) and feature rows
     ``features[d]`` (cap_d, C), the ``decoder`` MLP (C -> 1) and a level
-    set (f32)."""
+    set (f32); optionally the host grids the features live on, with
+    which ``host_supports`` joins arbitrary points."""
 
     def __init__(self, voxel_sizes: Sequence[float],
                  features: Sequence[torch.Tensor], decoder: MLP,
-                 level_set: float = 0.0):
+                 level_set: float = 0.0, host_grids=None):
         self.voxel_sizes = tuple(float(v) for v in voxel_sizes)
         self.features = tuple(features)
         self.decoder = decoder
         self.level_set = float(np.float32(level_set))
+        self.host_grids: Optional[tuple] = \
+            None if host_grids is None else tuple(host_grids)
+
+    def host_supports(self, x: np.ndarray):
+        """Per depth the (n, 8) support rows of world points ``x`` (f32
+        numpy) in the host grids, on the features' device."""
+        if self.host_grids is None:
+            raise ValueError("this NeuralField carries no host grids")
+        caps = [len(g.keys) for g in self.host_grids]
+        dev = self.features[0].device
+        return tuple(torch.as_tensor(t.astype(np.int64), device=dev)
+                     for t in HB.support_indices(self.host_grids, caps, x))
 
     def pooled(self, x: torch.Tensor, sup_idx) -> torch.Tensor:
         """(n, C) trilinear pool of the feature rows at (n, 3) points, with
@@ -64,7 +78,8 @@ class NeuralField:
         return self
 
     def set_level_set(self, v: float) -> "NeuralField":
-        return NeuralField(self.voxel_sizes, self.features, self.decoder, v)
+        return NeuralField(self.voxel_sizes, self.features, self.decoder, v,
+                           self.host_grids)
 
     def evaluate_mask(self, x: torch.Tensor, sup_idx) -> torch.Tensor:
         """(n,) ``level_set - f(x)``: positive where the mask passes."""

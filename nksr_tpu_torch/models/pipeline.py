@@ -1,7 +1,7 @@
 """Static configuration, input features, seeded parameter init, the
-solve rows of the support-row kernel field, and the training forward
+solve rows of the support-row kernel field, the training forward
 (``prepare_inputs``, ``forward``), teacher-forced or on the predicted
-structure.
+structure, and the inference forward with no GT (``infer``).
 
 ``PipelineConfig`` has the fields and defaults of
 nksr_tpu/models/pipeline.py so configurations carry over unchanged;
@@ -155,7 +155,8 @@ def solve_kernel_field(cfg: PipelineConfig, net: NKSRNetwork, grids,
     field = KernelField(vss, caps, basis_features,
                         [net.interpolators.level(d)
                          for d in range(cfg.tree_depth)],
-                        cfg.kernel_dim, cfg.approx_kernel_grad)
+                        cfg.kernel_dim, cfg.approx_kernel_grad,
+                        host_grids=grids, adaptive_depth=ad)
     centers, nvals = [], []
     for d in range(ad):
         n = len(grids[d].keys)
@@ -273,6 +274,22 @@ def solve_supports(cfg: PipelineConfig, grids, xyz: np.ndarray, dev):
             _dev_i64(HB.support_indices(grids, caps, centers), dev))
 
 
+def encoder_inputs(cfg: PipelineConfig, xyz: np.ndarray, dev):
+    """The input's splat hierarchy cut at the configuration's capacities
+    (host), its ``nbr`` / ``child`` tables and the points' depth-0 splat
+    rows (N, 8) on ``dev``."""
+    caps = tuple(cfg.capacities)
+    enc, orders = SVH.build_point_splatting(xyz, cfg.voxel_size,
+                                            cfg.tree_depth, caps)
+    ut = HB.build_unet_tables(enc, caps, stencil_offsets(3), decoder=False)
+    enc_tables = HB.UNetTables(nbr=_dev_i64(ut.nbr, dev),
+                               child=_dev_i64(ut.child, dev),
+                               parent=(), skip=())
+    splat_idx = _dev_i64(HB.support_indices(enc[:1], caps[:1], xyz,
+                                            presorted=orders[:1]), dev)[0]
+    return enc, enc_tables, splat_idx
+
+
 def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
                    device, use_gt_structure: bool = True) -> TrainInputs:
     """Host hierarchies and tables of one padded train batch (the keys of
@@ -298,14 +315,7 @@ def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
                           sensor=None if sensor is None else up(sensor))
     input_normal = feat if cfg.feature == "normal" else None
 
-    enc, orders = SVH.build_point_splatting(xyz, cfg.voxel_size,
-                                            cfg.tree_depth, caps)
-    ut = HB.build_unet_tables(enc, caps, stencil_offsets(3), decoder=False)
-    enc_tables = HB.UNetTables(nbr=_dev_i64(ut.nbr, dev),
-                               child=_dev_i64(ut.child, dev),
-                               parent=(), skip=())
-    splat_idx = _dev_i64(HB.support_indices(enc[:1], caps[:1], xyz,
-                                            presorted=orders[:1]), dev)[0]
+    enc, enc_tables, splat_idx = encoder_inputs(cfg, xyz, dev)
     gt = build_gt_svh(cfg, gt_xyz, gt_normal)
     levels = levels_t = pt_sup = grad_sup = None
     if use_gt_structure:
@@ -382,12 +392,81 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
     field = solve_kernel_field(cfg, net, dec_grids, caps, inp.xyz,
                                inp.input_normal, basis, normal, pt_sup,
                                grad_sup)
-    mask_field = None
-    if cfg.udf_enabled:
-        mask_field = NeuralField(
-            [level_voxel_size(cfg, d) for d in range(cfg.tree_depth)], udf,
-            net.udf_decoder).set_level_set(2.0 * cfg.voxel_size)
+    mask_field = udf_mask_field(cfg, net, udf, cand_grids)
+    field.mask_field = mask_field
     return ForwardOutput(
         field=field, mask_field=mask_field, structure_logits=logits,
         structure_status=status, basis_features=basis,
         dec_grids=dec_grids, cand_grids=cand_grids)
+
+
+def udf_mask_field(cfg: PipelineConfig, net: NKSRNetwork, udf, cand_grids
+                   ) -> Optional[NeuralField]:
+    """The UDF head's mask on the candidate hierarchy (level set twice the
+    voxel size), None without the head."""
+    if not cfg.udf_enabled:
+        return None
+    return NeuralField(
+        [level_voxel_size(cfg, d) for d in range(cfg.tree_depth)], udf,
+        net.udf_decoder, host_grids=cand_grids).set_level_set(
+            2.0 * cfg.voxel_size)
+
+
+@torch.no_grad()
+def infer(cfg: PipelineConfig, net: NKSRNetwork, xyz: np.ndarray,
+          feat: Optional[torch.Tensor], tm=None) -> ForwardOutput:
+    """The inference forward with no GT (nksr_tpu/models/pipeline.py
+    ``forward`` with ``gt_svh=None``): the input's splat hierarchy at
+    ``cfg.capacities``, the UNet's decoder on its own predicted
+    structure, or teacher-forced onto the encoder hierarchy when
+    ``cfg.structure_mode == "splat"`` (as the JAX package does without a
+    GT), the support-row solve on the decoder hierarchy and the UDF head's
+    mask.  ``xyz`` (N, 3) f32 numpy, ``feat`` the points' features on the
+    device.  The field carries the host grids, so it meshes itself
+    (``extract_dual_mesh``, the in-graph mesher).  ``structure_status``
+    is empty: no GT, no targets.  ``tm`` an accumulating ``PhaseTimer``
+    (the phases of ``models/sparse_unet.predicted_unet``, then "infer:
+    supports" and "infer: solve")."""
+    from . import sparse_unet as SU   # it imports this module
+    if cfg.geometry != "kernel":
+        raise NotImplementedError(
+            f"geometry={cfg.geometry!r} is not ported to nksr_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 17)")
+    dev = next(net.parameters()).device
+    caps = tuple(cfg.capacities)
+    xyz_t = torch.as_tensor(xyz, device=dev)
+    enc, enc_tables, splat_idx = encoder_inputs(cfg, xyz, dev)
+    n_vox = tuple(len(g.keys) for g in enc)
+    if cfg.structure_mode == "splat":
+        levels = SVH.teacher_hierarchy(enc, enc, caps, stencil_offsets(3))
+
+        def up(a):
+            return None if a is None else _dev_i64([a], dev)[0]
+        levels_t = tuple(lv._replace(
+            cand=None, status=up(lv.status), nbr=up(lv.nbr),
+            dec_rows=up(lv.dec_rows), parent=up(lv.parent),
+            octant=up(lv.octant), skip=up(lv.skip)) for lv in levels)
+        basis, normal, logits, udf = SU.teacher_forced_unet(
+            cfg, net, enc_tables, n_vox, levels_t, n_vox, caps, xyz_t, feat,
+            splat_idx)
+        dec_grids = tuple(enc)
+        cand_grids = tuple(lv.cand for lv in levels)
+    else:
+        pred = SU.predicted_unet(cfg, net, enc, enc_tables, n_vox, caps,
+                                 xyz_t, feat, splat_idx, tm=tm)
+        basis, normal, logits, udf = pred[:4]
+        dec_grids, cand_grids = pred.dec_grids, pred.cand_grids
+    pt_sup, grad_sup = solve_supports(cfg, dec_grids, xyz, dev)
+    if tm is not None:
+        tm.lap("infer: supports")
+    input_normal = feat if cfg.feature == "normal" else None
+    field = solve_kernel_field(cfg, net, dec_grids, caps, xyz_t,
+                               input_normal, basis, normal, pt_sup, grad_sup)
+    mask_field = udf_mask_field(cfg, net, udf, cand_grids)
+    field.mask_field = mask_field
+    if tm is not None:
+        tm.lap("infer: solve")
+    return ForwardOutput(
+        field=field, mask_field=mask_field, structure_logits=logits,
+        structure_status=(), basis_features=basis, dec_grids=dec_grids,
+        cand_grids=cand_grids)

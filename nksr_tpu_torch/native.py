@@ -1,13 +1,14 @@
-"""Host sort, join and lattice-index ops: ctypes over this package's copy
-of the JAX package's C++ host sources, ``host_src/sortops.cpp`` and
-``host_src/kdtree.cpp`` (for its key searches), compiled with ``g++``
-into one library in this package's build directory at first use.  The
-copies are the JAX package's code line for line (a test holds them
-equal), so the port builds from its own tree alone.
+"""Host sort, join and lattice-index ops, the kd-tree of the mesh metrics
+and the ray-cast occupancy test: ctypes over this package's copy of the
+JAX package's C++ host sources, ``host_src/sortops.cpp``,
+``host_src/kdtree.cpp`` and ``host_src/raycast.cpp``, compiled with
+``g++`` into one library in this package's build directory at first
+use.  The copies are the JAX package's code line for line (a test holds
+them equal), so the port builds from its own tree alone.
 
-Every op keeps the numpy fallback the original module has
-(nksr_tpu/native/__init__.py), taken when no C++ toolchain is present;
-results are identical either way.
+Every op keeps the fallback the original module has
+(nksr_tpu/native/__init__.py: numpy, and scipy's cKDTree for the
+kd-tree), taken when no C++ toolchain is present.
 """
 
 from __future__ import annotations
@@ -18,16 +19,18 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "host_src" / "sortops.cpp", _PKG / "host_src" / "kdtree.cpp")
+SOURCES = tuple(_PKG / "host_src" / name
+                for name in ("sortops.cpp", "kdtree.cpp", "raycast.cpp"))
 BUILD_DIR = _PKG / "_build"
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_F32P = ctypes.POINTER(ctypes.c_float)
 
 
 def _build(lib_path: Path) -> None:
@@ -82,6 +85,15 @@ def _load() -> Optional[ctypes.CDLL]:
                                   ctypes.c_int64, _I32P, ctypes.c_int32]
     lib.sorted_join_i64.argtypes = [_I64P, ctypes.c_int64, _I64P,
                                     ctypes.c_int64, _I32P]
+    lib.kdtree_build.restype = ctypes.c_void_p
+    lib.kdtree_build.argtypes = [_F32P, ctypes.c_int64]
+    lib.kdtree_free.argtypes = [ctypes.c_void_p]
+    lib.kdtree_query.argtypes = [ctypes.c_void_p, _F32P, ctypes.c_int64,
+                                 ctypes.c_int32, _F32P, _I32P,
+                                 ctypes.c_int32]
+    lib.raycast_inside.argtypes = [
+        _F32P, ctypes.c_int64, _I32P, ctypes.c_int64, _F32P, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32]
     return lib
 
 
@@ -264,3 +276,83 @@ def flat_cells(coords: np.ndarray, shift: int, origin, dims,
         raise ValueError("flat_cells: out must be a contiguous int32 array")
     lib.flat_cells_i64(_p64(c), n, shift, ox, oy, oz, X, Y, Z, _p32(out))
     return out
+
+
+class KDTree:
+    """CPU kd-tree over (n, 3) points (the C++ tree, or scipy's cKDTree
+    without a toolchain)."""
+
+    def __init__(self, points: np.ndarray):
+        self._pts = np.ascontiguousarray(points, np.float32)
+        self._lib = _load()
+        self._h = None
+        self._scipy = None
+        if self._lib is not None:
+            self._h = self._lib.kdtree_build(self._pts.ctypes.data_as(_F32P),
+                                             self._pts.shape[0])
+        else:
+            from scipy.spatial import cKDTree
+            self._scipy = cKDTree(self._pts)
+
+    def query(self, q: np.ndarray, k: int = 1, n_threads: int = 0
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """(dist (m, k) f32, idx (m, k) int32) of the k nearest points,
+        2-D also for k == 1."""
+        q = np.ascontiguousarray(q, np.float32)
+        m = q.shape[0]
+        if self._lib is not None:
+            d2 = np.empty((m, k), np.float32)
+            idx = np.empty((m, k), np.int32)
+            self._lib.kdtree_query(self._h, q.ctypes.data_as(_F32P), m, k,
+                                   d2.ctypes.data_as(_F32P), _p32(idx),
+                                   n_threads)
+            return np.sqrt(d2), idx
+        d, i = self._scipy.query(q, k=k)
+        return (d.reshape(m, k).astype(np.float32),
+                i.reshape(m, k).astype(np.int32))
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.kdtree_free(self._h)
+            self._h = None
+
+
+def raycast_inside(verts: np.ndarray, faces: np.ndarray,
+                   queries: np.ndarray, n_threads: int = 0) -> np.ndarray:
+    """(n_q,) bool occupancy of query points in a (near-)watertight mesh
+    by +z ray parity, grid-accelerated in C++; the numpy fallback counts
+    the same crossings with the same half-open edge rule."""
+    lib = _load()
+    v = np.ascontiguousarray(verts, np.float32)
+    f = np.ascontiguousarray(faces, np.int32)
+    q = np.ascontiguousarray(queries, np.float32)
+    if lib is not None:
+        out = np.empty(q.shape[0], np.uint8)
+        lib.raycast_inside(v.ctypes.data_as(_F32P), v.shape[0], _p32(f),
+                           f.shape[0], q.ctypes.data_as(_F32P), q.shape[0],
+                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                           n_threads)
+        return out.astype(bool)
+    if f.shape[0] == 0 or q.shape[0] == 0:
+        return np.zeros(q.shape[0], bool)
+    tri = v[f].astype(np.float64)              # (F, 3, 3)
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    inside = np.zeros(q.shape[0], bool)
+    step = max(1, int(2e7 // max(f.shape[0], 1)))
+    for s in range(0, q.shape[0], step):
+        qq = q[s:s + step].astype(np.float64)  # (B, 3)
+        px, py = qq[:, None, 0], qq[:, None, 1]
+        e0 = (b[:, 0] - a[:, 0]) * (py - a[:, 1]) \
+            - (b[:, 1] - a[:, 1]) * (px - a[:, 0])
+        e1 = (c[:, 0] - b[:, 0]) * (py - b[:, 1]) \
+            - (c[:, 1] - b[:, 1]) * (px - b[:, 0])
+        e2 = (a[:, 0] - c[:, 0]) * (py - c[:, 1]) \
+            - (a[:, 1] - c[:, 1]) * (px - c[:, 0])
+        hit = ((e0 > 0) & (e1 > 0) & (e2 > 0)) | \
+              ((e0 < 0) & (e1 < 0) & (e2 < 0))
+        area = e0 + e1 + e2
+        safe = np.where(area == 0, 1.0, area)
+        z = (e1 * a[:, 2] + e2 * b[:, 2] + e0 * c[:, 2]) / safe
+        cross = hit & (area != 0) & (z > qq[:, 2:3])
+        inside[s:s + step] = (cross.sum(1) & 1).astype(bool)
+    return inside

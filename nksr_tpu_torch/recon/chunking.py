@@ -11,6 +11,13 @@ from the chunks' partition-of-unity blend, so the seams need no welding.
 ``extract_dual_mesh`` moves every chunk back to the Reconstructor's
 device first: a chunk left on the CPU would mesh on the CPU.
 
+Chunks of the in-graph route (``structure="predicted_ingraph"``, whose
+fields are ``KernelField``s, not ``HostField``s) mesh one by one instead,
+each by its own ``extract_dual_mesh`` (``meshing/dual_mc.py``): a chunk
+keeps the triangles whose centroid lies in its own cell, and the
+appended meshes are welded at 1e-4 voxel (the JAX package's
+``_extract_per_chunk``); their field is each point's owning chunk's.
+
 The orchestration is numpy, line for line the JAX package's (the rows'
 unique taken through packed keys, the same rows in the same order), so
 the chunk set, halos and point selections are the same.
@@ -28,7 +35,7 @@ from ..core import host_build as HB
 from ..meshing.host_mc import dual_mc_on_lattice, extraction_lattice_host
 from ..meshing.lattice_mc import TriangleMesh
 from ..utils.profiling import PhaseTimer
-from .reconstructor import _not_ported
+from .host_field import HostField
 
 
 class ChunkedField:
@@ -53,17 +60,33 @@ class ChunkedField:
         self.phase_times = {} if phase_times is None else phase_times
 
     def _host_chunks(self):
-        if not all(hasattr(ch["field"], "host_grids") for ch in self.chunks):
-            raise _not_ported("chunks whose fields carry no host grids (the "
-                              "JAX package's per-chunk meshing)", "item 16b")
-        return self.chunks
+        """The chunks whose fields are ``HostField``s (all or none)."""
+        return [ch for ch in self.chunks if isinstance(ch["field"], HostField)]
+
+    def _own_cell(self, pts: np.ndarray) -> np.ndarray:
+        """Chunk cell owning each point, clamped so that geometry at the
+        boundary maps onto an existing cell."""
+        cell = np.floor((pts - self.origin) / self.chunk_size).astype(
+            np.int64)
+        return np.clip(cell, self.id_lo, self.id_hi)
 
     # ------------------------------------------------------------- queries
     def evaluate_f_bar(self, x: np.ndarray) -> np.ndarray:
-        """Partition-of-unity blended field: the same field the mesher
-        extracts."""
-        return self._blend_eval(self._host_chunks(),
-                                np.asarray(x, np.float32))
+        """Partition-of-unity blended field, the same field the mesher
+        extracts; chunks without host grids route each point to its
+        owning chunk's field."""
+        x = np.asarray(x, np.float32)
+        host_chunks = self._host_chunks()
+        if host_chunks:
+            return self._blend_eval(host_chunks, x)
+        out = np.full(x.shape[0], -self.voxel_size, np.float32)
+        cells = self._own_cell(x)
+        for ch in self.chunks:
+            own = np.all(cells == ch["cid"], axis=1)
+            if own.any():
+                f = ch["field"].to(self.device)
+                out[own] = f.evaluate_f_bar(x[own]).cpu().numpy()
+        return out
 
     def _chunk_weight(self, ch, pts, blend):
         """Partition-of-unity weight: linear ramps of width 2*blend at
@@ -115,14 +138,18 @@ class ChunkedField:
         return vals
 
     # ------------------------------------------------------------- meshing
-    def extract_dual_mesh(self, mise_iter: int = 0,
-                          grid_upsample: int = 1) -> TriangleMesh:
+    def extract_dual_mesh(self, mise_iter: int = 0, grid_upsample: int = 1,
+                          max_points: Optional[int] = None) -> TriangleMesh:
         """One GLOBAL dual MC over the union lattice (the host mesher);
         every corner and vertex reads the chunks' blend.  Every chunk is
         moved to ``device`` first; each chunk's evaluator tables are built
         there at its first evaluation.  Seconds per stage go into
-        ``phase_times`` ("mc: ...")."""
+        ``phase_times`` ("mc: ...").  In-graph chunks mesh one by one
+        (``_extract_per_chunk``; ``max_points`` bounds their waves)."""
         host_chunks = self._host_chunks()
+        if not host_chunks:
+            return self._extract_per_chunk(mise_iter, grid_upsample,
+                                           max_points)
         times: dict = {}
         tm = PhaseTimer(self.device, times, accumulate=True)
         for ch in host_chunks:
@@ -144,6 +171,41 @@ class ChunkedField:
             vox, s, lambda p: self._blend_eval(host_chunks, p, tm=tm),
             eval_grad=lambda p: self._blend_eval(host_chunks, p, grad=True),
             mise_iter=mise_iter, tm=tm)
+        self.phase_times.update(times)
+        return mesh
+
+    def _extract_per_chunk(self, mise_iter, grid_upsample, max_points
+                           ) -> TriangleMesh:
+        """Each chunk's own dual mesh on ``device``, cut to the triangles
+        whose centroid its cell owns, appended and welded at 1e-4
+        voxel."""
+        times: dict = {}
+        tm = PhaseTimer(self.device, times, accumulate=True)
+        verts, tris = [], []
+        off = 0
+        for ch in self.chunks:
+            field = ch["field"].to(self.device)
+            tm.lap("mc: chunks to device")
+            mesh = field.extract_dual_mesh(mise_iter=mise_iter,
+                                           grid_upsample=grid_upsample,
+                                           max_points=max_points)
+            tm.lap("mc: chunk meshes")
+            if mesh.v.shape[0] == 0 or mesh.f.shape[0] == 0:
+                continue
+            tri_c = mesh.v[mesh.f].mean(1)
+            own = np.all(self._own_cell(tri_c) == ch["cid"], axis=1)
+            used, inv = np.unique(mesh.f[own], return_inverse=True)
+            verts.append(mesh.v[used])
+            tris.append(inv.reshape(-1, 3) + off)
+            off += used.shape[0]
+        if not verts:
+            return TriangleMesh(v=np.zeros((0, 3), np.float32),
+                                f=np.zeros((0, 3), np.int32), c=None)
+        mesh = weld_vertices(TriangleMesh(
+            v=np.concatenate(verts, 0),
+            f=np.concatenate(tris, 0).astype(np.int32), c=None),
+            eps=1e-4 * self.voxel_size)
+        tm.lap("mc: weld")
         self.phase_times.update(times)
         return mesh
 

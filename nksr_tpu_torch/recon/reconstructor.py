@@ -33,6 +33,13 @@ Three structures, as in the JAX package:
     (``recon/host_predicted.py``); both end in the lattice solve, or in
     the support-row solve for a bounding box the plan refuses.
 
+"predicted_ingraph" is the JAX package's in-graph route: capacities
+estimated from a subsample (``estimate_capacities``), the inference
+forward (``models/pipeline.infer``: the gather-conv UNet on its predicted
+structure, each level cut at its capacity, and the support-row solve),
+and a ``KernelField`` that meshes through ``meshing/dual_mc.py``, where
+``mise_iter`` means Newton steps.
+
 A model with a UDF head (``udf_enabled``, e.g. ``runs/scene_big`` under
 its own config.yaml through ``train.driver.pipeline_config_from_yaml``)
 runs every route above with the head's mask on its field: the head reads
@@ -197,9 +204,7 @@ class Reconstructor:
         if cfg.structure_mode == "predicted":
             return self._reconstruct_predicted(cfg, xyz, normal, sens)
         if cfg.structure_mode == "predicted_ingraph":
-            raise _not_ported("structure='predicted_ingraph' (the in-graph "
-                              "KernelField, meshed by the JAX package's "
-                              "dual_mc.py)", "item 16b")
+            return self._reconstruct_ingraph(cfg, xyz, normal, sens)
         if cfg.structure_mode not in ("splat", "adaptive"):
             raise ValueError(f"unknown structure {cfg.structure_mode!r}")
         if cfg.structure_mode == "adaptive" and normal is None:
@@ -237,6 +242,25 @@ class Reconstructor:
         self._last_unet_engine = "sparse"
         return reconstruct_predicted_host(cfg, self.network, xyz, xyz_t,
                                           feat, splat, tm, times)
+
+    def _reconstruct_ingraph(self, cfg, xyz, normal, sens):
+        """The JAX package's in-graph route: the inference forward
+        (``models/pipeline.infer``) at capacities estimated from a
+        subsample, each level cut at them; the support-row solve on the
+        predicted hierarchy.  Returns its ``KernelField``, which meshes
+        through ``meshing/dual_mc.py`` (``mise_iter`` Newton steps).
+        ``phase_times``: seconds by stage."""
+        times: dict = {}
+        tm = PhaseTimer(self.device, times, accumulate=True)
+        cfg = dataclasses.replace(
+            cfg, capacities=estimate_capacities(xyz, cfg.voxel_size,
+                                                cfg.tree_depth))
+        _, feat = self._inputs(cfg, xyz, normal, sens)
+        tm.lap("infer: upload")
+        field = P.infer(cfg, self.network, xyz, feat, tm=tm).field
+        field.phase_times = times
+        self._last_unet_engine = "sparse"
+        return field
 
     def _reconstruct_host(self, cfg, xyz, normal, sens) -> HostField:
         """Host-built grids, plan and tables, then the device stages of
@@ -352,6 +376,30 @@ class Reconstructor:
             feature=feature, fused_mode=fused_mode,
             solver_compute_dtype=resolve_solver_dtype(
                 self.config.solver_compute_dtype, self.device))
+
+
+def estimate_capacities(xyz: np.ndarray, voxel_size: float, depth: int
+                        ) -> tuple:
+    """Per-level capacities estimated as the JAX package's in-graph route
+    sizes them (nksr_tpu/recon/reconstructor.py ``_runtime_config``):
+    the unique splat corners of every ceil(n / 100,000)-th point, grown
+    by step^0.7 (occupied cells grow sublinearly with the points), x1.3,
+    the next power of two, at least 512."""
+    caps = []
+    step = max(1, xyz.shape[0] // 100000)
+    sub = xyz[::step]
+    offs = np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
+                    -1).reshape(1, 8, 3)
+    for d in range(depth):
+        base = np.floor(sub / (voxel_size * 2.0 ** d)).astype(np.int64)
+        corners = (base[:, None, :] + offs).reshape(-1, 3)
+        key = ((corners[:, 0] + (1 << 20)) << 42) \
+            + ((corners[:, 1] + (1 << 20)) << 21) \
+            + (corners[:, 2] + (1 << 20))
+        n_unique = len(np.unique(key))
+        scale = min(step, max(1.0, step ** 0.7))
+        caps.append(max(_next_pow2(int(n_unique * scale * 1.3)), 512))
+    return tuple(caps)
 
 
 def get_estimate_normal_preprocess_fn(knn: int = 64,

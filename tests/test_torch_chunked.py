@@ -325,14 +325,6 @@ def test_chunk_mode_refuses_detail_tuning():
                 r.reconstruct(xyz, nrm, chunk_size=1.0, **kw)
 
 
-def test_chunks_without_host_grids_raise():
-    cf = CH.ChunkedField([{"cid": np.zeros(3, np.int64), "field": object()}],
-                         1.0, 0.1, origin=np.zeros(3), id_lo=np.zeros(3),
-                         id_hi=np.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        cf.extract_dual_mesh()
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_weld_vertices_matches_jax(seed):
     """Random meshes with near-duplicate vertices: bit-equal to the JAX

@@ -36,10 +36,10 @@ def _code_lines(path: Path):
             if not ln.lstrip().startswith("//")]
 
 
-@pytest.mark.parametrize("name", ["sortops.cpp", "kdtree.cpp"])
+@pytest.mark.parametrize("name", ["sortops.cpp", "kdtree.cpp", "raycast.cpp"])
 def test_host_sources_are_the_jax_packages(name):
     """Line for line the JAX package's code; only comments may differ
-    (one names no host path)."""
+    (two name no host path)."""
     ours = PORT / "host_src" / name
     assert ours in native.SOURCES
     assert _code_lines(ours) == _code_lines(REPO / "nksr_tpu" / "native"

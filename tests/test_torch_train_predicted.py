@@ -351,17 +351,3 @@ def test_fit_runs_predicted_steps_past_the_schedule_start(tmp_path,
     state = driver.fit(cfg, [_sphere_batch(seed=3)], None, tmp_path,
                        max_steps=4, seed=0, resume=True, device="cpu")
     assert state.step == 4 and modes == [True, False, False, False]
-
-
-def test_ingraph_predicted_route_names_item_16b():
-    """The in-graph predicted field waits on the JAX package's mesher
-    (item 16b; chunks without host grids too, tests/test_torch_chunked.py
-    ``test_chunks_without_host_grids_raise``)."""
-    from nksr_tpu_torch import Reconstructor
-    from test_field import sphere_points
-    xyz, nrm = sphere_points(200, r=0.5, seed=0)
-    rec = Reconstructor(device="cpu", config=P.PipelineConfig(
-        tree_depth=2, f_maps=8, capacities=(1024, 512)))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        rec.reconstruct(xyz, nrm, detail_level=None, voxel_size=0.1,
-                        structure="predicted_ingraph")
