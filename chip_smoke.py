@@ -218,6 +218,31 @@ Phases (any failure ends the run with a non-zero exit):
      step's own inputs, timed.  The kernels line gains each kernel's
      launches on a scene lap (``launches_ingraph``) and the window
      kernel's record at the Newton step (``ingraph_newton``).
+ 13. (run after phase 12) texture fields and the neural geometry head
+     (ROADMAP item 17): (a) phase 3's splat tile with a texture field
+     (``PCNNField.build`` over the cloud, colours a fixed function of
+     position) through the dense mesher, its v and f bit-equal to an
+     uncoloured lap's, c (Nv, 3) and finite, each colour equal to the
+     same texture's on CPU tensors but at a distance tie (the count
+     printed), the colour evaluation's seconds and the lap's launches
+     (a lattice lap's); (b) the (-x, -y) quadrant in four 10 m splat
+     chunks, a texture on each, the union lattice's host mesher, the
+     same checks; (c) runs/scene_big/config.yaml with geometry: neural
+     from best.ckpt (its SDF decoder's last bias offset so that the
+     zero set runs through the shell) on the in-graph route over phase
+     12's held-out scenes: two laps bit-equal (mesh and field at the
+     probes), the hierarchy equal to the inference forward's on CPU
+     tensors (a tie reported), the field at seeded probes within 1e-4
+     of the CPU run's largest |f|, the mesh from meshing/dual_mc.py, the
+     segment sum the one kernel launched; (d) the neural head in
+     training on phase 11's item: one step card against CPU under
+     phase 11's gates, two runs of three steps from one state
+     bit-equal.  The CPU side of (c) and (d) runs in phase 11's CPU
+     reference process.  The kernels line gains each kernel's launches
+     on the coloured splat lap (``launches_colored``), the coloured
+     chunked lap (``launches_colored_chunked``), a neural in-graph lap
+     (``launches_neural_ingraph``) and a neural training step
+     (``launches_neural_train``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -413,6 +438,25 @@ JAX_INGRAPH_CHUNKED_ERR = 0.005573
 # package's QUALITY.md rows (the mean over its held-out scenes)
 JAX_QUALITY_SCENE = {"predicted": (0.0094, 0.4275), "splat": (0.0094, 0.4229),
                      "adaptive": (0.0094, 0.4224)}
+# Phase 13, texture fields and the neural geometry head (ROADMAP item 17).
+# (a), (b): colours a fixed function of position (``texture_colours``)
+# through PCNNField.build(cell_size=4 * voxel, capacity=TEXTURE_CAPACITY),
+# as examples/recons_colored_mesh.py builds it; each vertex's colour equal
+# to the same field's on CPU tensors, a difference allowed only at a
+# distance tie (the two picks' squared distances within TEXTURE_TIE_RTOL
+# of each other).  (c), (d): runs/scene_big/config.yaml with geometry:
+# neural; the in-graph route on phase 12's held-out scenes from best.ckpt
+# (a kernel model: its SDF decoder is its init's, the last bias offset by
+# minus the median of the field at the first scene's points, on the CPU,
+# so that the zero set runs through the shell), the field at NEURAL_PROBES
+# seeded probes a scene within NEURAL_FIELD_TOL of the CPU run's largest
+# |f| (PERF.md section 2's UNet gate); NEURAL_STEPS training steps on
+# phase 11's item, card against CPU under phase 11's gates.
+TEXTURE_CAPACITY = 1 << 16
+TEXTURE_TIE_RTOL = 1e-6
+NEURAL_PROBES = 4096
+NEURAL_FIELD_TOL = 1e-4
+NEURAL_STEPS = 3
 SENSOR_Z = 10.0
 KNN, MAX_ANGLE = 64, 85.0
 KNN_CHECK_QUERIES = 4096
@@ -1846,11 +1890,12 @@ def train_grads(cfg, lcfg, params, batch, samples, device,
         fwd["cand"] = [g.keys for g in out.cand_grids]
         fwd["dec"] = [g.keys for g in out.dec_grids]
     return ({k: float(v.detach()) for k, v in losses.items()}, _grads(net),
-            fwd, (out.field.cg_stats, solve_spd.last_backward_stats), peak)
+            fwd, (getattr(out.field, "cg_stats", None),
+                  solve_spd.last_backward_stats), peak)
 
 
 def compare_train(tag, card, cpu, gate_losses, loss_rtol, leaf_rtol,
-                  unet_tol, struct_rtol, whole_rtol=None):
+                  unet_tol, struct_rtol, whole_rtol=None, phase="phase 11"):
     """Card against CPU for one step: the UNet's structure logits and
     basis features within ``unet_tol`` of their largest magnitude and the
     structure losses within ``struct_rtol`` (always gated); every loss
@@ -1870,7 +1915,7 @@ def compare_train(tag, card, cpu, gate_losses, loss_rtol, leaf_rtol,
                for n in pg if float(torch.linalg.norm(pg[n])) > 0)
     whole = float(torch.sqrt(sum(((cg[n] - pg[n]) ** 2).sum() for n in pg))
                   / torch.sqrt(sum((pg[n] ** 2).sum() for n in pg)))
-    print(f"[phase 11] {tag}: card against CPU: UNet outputs {unet:.3e} of "
+    print(f"[{phase}] {tag}: card against CPU: UNet outputs {unet:.3e} of "
           f"max (gate {unet_tol}), structure losses {struct:.3e} rel (gate "
           f"{struct_rtol}), loss terms worst {loss[0]:.3e} ({loss[1]}), "
           f"gradient leaves worst {grad[0]:.3e} rel L2 ({grad[1]}), the "
@@ -1880,12 +1925,12 @@ def compare_train(tag, card, cpu, gate_losses, loss_rtol, leaf_rtol,
                  else f", the whole gradient {whole_rtol}") + ")")
              if gate_losses else " (reported, not gated)"), flush=True)
     if not (unet <= unet_tol and struct <= struct_rtol):
-        raise AssertionError(f"[phase 11] {tag}: UNet outputs or structure "
+        raise AssertionError(f"[{phase}] {tag}: UNet outputs or structure "
                              "losses differ between card and CPU")
     if gate_losses and not (loss[0] <= loss_rtol and grad[0] <= leaf_rtol
                             and (whole_rtol is None
                                  or whole <= whole_rtol)):
-        raise AssertionError(f"[phase 11] {tag}: loss terms or gradients "
+        raise AssertionError(f"[{phase}] {tag}: loss terms or gradients "
                              "differ between card and CPU")
     return {"unet": unet, "struct": struct, "loss": loss[0],
             "grad": grad[0], "whole_grad": whole}
@@ -2094,7 +2139,8 @@ def train_cpu_reference(out_path: str) -> int:
     """Phase 11's CPU side, run in its own process (``python3
     chip_smoke.py --train-cpu-reference OUT``): the sphere step, the
     scene step (at 16 iterations and with the solve to convergence) and
-    the scene's predicted step at 16 iterations on CPU tensors, saved to
+    the scene's predicted step at 16 iterations on CPU tensors, and
+    phase 13's CPU side (``neural_cpu_reference``), saved to
     ``out_path`` with their draws."""
     from nksr_tpu_torch.utils.checkpoint import load_tree
     cores = sorted(os.sched_getaffinity(0))
@@ -2116,6 +2162,7 @@ def train_cpu_reference(out_path: str) -> int:
         lcfg, params, batch, samples, "cpu")
     res["predicted"] = train_grads(cfg, lcfg, params, batch, None, "cpu",
                                    use_gt_structure=False)
+    res["neural"] = neural_cpu_reference(params, batch, samples)
     res["seconds"] = time.perf_counter() - t0
     res["cores"] = sorted(os.sched_getaffinity(0))
     torch.save(res, out_path + ".tmp")
@@ -2205,6 +2252,7 @@ def training_laps(params, counters, gen, ref):
           f"samples {({k: tuple(v.shape) for k, v in samples.items()})}",
           flush=True)
     ref = finish_train_reference(ref)
+    neural_ref = ref["neural"]
     if not all(torch.equal(samples[k], ref["samples"][k]) for k in samples):
         raise AssertionError("[phase 11] the scene's draws differ from the "
                              "CPU reference's")
@@ -2396,7 +2444,8 @@ def training_laps(params, counters, gen, ref):
     step = {"warm_s": min(step_s[1:]), "peak_gib": peak, "phases": phases,
             "window": wins, "gathers": tally,
             "at16": at16, "converged": conv, "sphere": sphere,
-            "overfit_ratio": last / first, "predicted": predicted}
+            "overfit_ratio": last / first, "predicted": predicted,
+            "neural_ref": neural_ref}
     return launches, back, step
 
 
@@ -2808,6 +2857,390 @@ def predicted_training(cfg, lcfg, tc, yc, params, batch, train_batches,
             "margins": margins, "worst": worst}
 
 
+def texture_colours(xyz: np.ndarray) -> np.ndarray:
+    """Phase 13's colours of points: a fixed smooth function of position
+    in [0, 1]^3."""
+    return (0.5 + 0.5 * np.sin(xyz * np.float32([0.3, 0.5, 2.0])
+                               + np.float32([0.0, 1.0, 2.0]))
+            ).astype(np.float32)
+
+
+def texture_of(xyz: np.ndarray, device):
+    """The texture field over a cloud on ``device``, as
+    examples/recons_colored_mesh.py builds it (cell 4 voxels)."""
+    from nksr_tpu_torch.fields.neural_field import PCNNField
+    t = lambda a: torch.as_tensor(a, device=device)
+    return PCNNField.build(t(xyz), t(texture_colours(xyz)),
+                           torch.ones(len(xyz), dtype=torch.bool,
+                                      device=device),
+                           4 * float(np.float32(KW["voxel_size"])),
+                           TEXTURE_CAPACITY)
+
+
+def check_colours(tag, plain, coloured, tex, tex_cpu) -> dict:
+    """Phase 13: the texture moved no geometry (``v``, ``f`` bit-equal to
+    the uncoloured lap's), ``c`` is (Nv, 3) and finite, and equal to the
+    same texture's on CPU tensors at the same vertices except at distance
+    ties (both picks' squared distances, in f64, within TEXTURE_TIE_RTOL
+    of each other).  Returns the vertices, how many differ and the
+    colour evaluation's seconds on the card."""
+    if not (np.array_equal(plain.v, coloured.v)
+            and np.array_equal(plain.f, coloured.f)):
+        raise AssertionError(f"[phase 13] {tag}: the texture moved the "
+                             "mesh")
+    c = coloured.c
+    if c is None or c.shape != (len(coloured.v), 3) or \
+            not np.isfinite(c).all():
+        raise AssertionError(f"[phase 13] {tag}: colours "
+                             f"{None if c is None else c.shape}")
+    v = torch.from_numpy(coloured.v)
+    vc = v.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tex.evaluate_f(vc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diff = np.nonzero((c != tex_cpu.evaluate_f(v).value.numpy()).any(1))[0]
+    worst = 0.0
+    if len(diff):
+        vd = v[diff]
+        picks = (tex.nearest(vc[torch.as_tensor(diff, device="cuda")])
+                 .cpu(), tex_cpu.nearest(vd))
+        if ((picks[0] < 0) != (picks[1] < 0)).any():
+            raise AssertionError(f"[phase 13] {tag}: a vertex has a "
+                                 "nearest point on one side only")
+        x = tex_cpu.xyz.double()
+        d2 = [((x[p] - vd.double()) ** 2).sum(1) for p in picks]
+        rel = (d2[0] - d2[1]).abs() / torch.maximum(
+            torch.maximum(d2[0], d2[1]), torch.tensor(1e-30,
+                                                      dtype=torch.float64))
+        worst = float(rel.max())
+        if worst > TEXTURE_TIE_RTOL:
+            raise AssertionError(f"[phase 13] {tag}: {len(diff)} vertices' "
+                                 f"colours differ from the CPU run's beyond "
+                                 f"a tie ({worst:.3e} relative)")
+    return {"verts": int(len(v)), "differ": int(len(diff)),
+            "tie_worst": worst, "colour_s": seconds}
+
+
+def neural_setup(params, bias=None):
+    """Phase 13's configuration: runs/scene_big/config.yaml with
+    geometry: neural, its loss config, and the checkpoint's parameters
+    with the SDF decoder's last bias replaced by ``bias`` (None: as
+    stored)."""
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.utils.checkpoint import model_params
+    from nksr_tpu_torch.utils.config import load_config
+    yc = load_config(os.path.join(REPO, UDF_CONFIG))
+    cfg = dataclasses.replace(driver.pipeline_config_from_yaml(yc),
+                              geometry="neural")
+    mp = dict(model_params(params))
+    if bias is not None:
+        mp["sdf_decoder"] = dict(mp["sdf_decoder"], Dense_2=dict(
+            mp["sdf_decoder"]["Dense_2"], bias=bias))
+    return cfg, driver.loss_config_from_yaml(yc), {"params": mp}
+
+
+def neural_scenes():
+    """Phase 12's held-out scenes (written if missing): a list of
+    (name, points, normals)."""
+    from nksr_tpu_torch.data import DatasetSpec as DS, build_dataset
+    from nksr_tpu_torch.utils.config import load_config
+    root = os.path.join(REPO, INGRAPH_ROOT)
+    if not os.path.exists(os.path.join(root, "terrain", "test.lst")):
+        make_corpus(root, INGRAPH_ITEMS)
+    yc = load_config(os.path.join(REPO, UDF_CONFIG))
+    ds = build_dataset("ShapeNet", [DS.SHAPE_NAME, DS.INPUT_PC,
+                                    DS.TARGET_NORMAL], **dict(
+        yc["test_dataset"]["args"], root=root))
+    out = []
+    for i in range(len(ds)):
+        item = ds[i]
+        out.append((item[DS.SHAPE_NAME],
+                    np.asarray(item[DS.INPUT_PC], np.float32),
+                    np.asarray(item[DS.TARGET_NORMAL], np.float32)))
+    return out
+
+
+def neural_probes(xyz: np.ndarray, i: int) -> np.ndarray:
+    """NEURAL_PROBES seeded points near scene ``i``'s cloud."""
+    rng = np.random.default_rng(1000 + i)
+    pick = rng.choice(len(xyz), NEURAL_PROBES, replace=False)
+    return (xyz[pick] + 0.05 * rng.standard_normal((NEURAL_PROBES, 3))
+            ).astype(np.float32)
+
+
+def neural_infer(cfg, net, xyz, nrm, device):
+    """The inference forward at the in-graph route's estimated
+    capacities: (candidate and decoder coords and logits on the CPU, the
+    field)."""
+    from nksr_tpu_torch.models import pipeline as PP
+    from nksr_tpu_torch.recon.reconstructor import estimate_capacities
+    ecfg = dataclasses.replace(
+        cfg, voxel_size=0.1, capacities=estimate_capacities(
+            xyz, 0.1, cfg.tree_depth))
+    with torch.no_grad():
+        o = PP.infer(ecfg, net, xyz, torch.as_tensor(nrm, device=device))
+    return ({"cand": [g.coords for g in o.cand_grids],
+             "dec": [g.coords for g in o.dec_grids],
+             "logits": [lg.cpu() for lg in o.structure_logits]}, o.field)
+
+
+def neural_cpu_reference(params, batch, samples) -> dict:
+    """Phase 13's CPU side, in the CPU reference's process: the SDF bias
+    offset, the in-graph route's hierarchy and field at the probes on
+    each held-out scene, and one neural training step on phase 11's item
+    with its draws."""
+    from nksr_tpu_torch.models.network import NKSRNetwork
+    from nksr_tpu_torch.utils.checkpoint import params_to_torch
+    cfg, lcfg, raw = neural_setup(params)
+    scenes = neural_scenes()
+
+    def network(p):
+        net = NKSRNetwork(cfg)
+        net.load_state_dict(params_to_torch(p), strict=True)
+        return net.eval().requires_grad_(False)
+    _, xyz, nrm = scenes[0]
+    _, field = neural_infer(cfg, network(raw), xyz, nrm, "cpu")
+    with torch.no_grad():
+        med = float(field.evaluate_at(xyz).value.median())
+    bias = (raw["params"]["sdf_decoder"]["Dense_2"]["bias"]
+            - np.float32(med)).astype(np.float32)
+    net = network(neural_setup(params, bias)[2])
+    out = {"bias": bias, "median": med, "scenes": []}
+    for i, (name, xyz, nrm) in enumerate(scenes):
+        hier, field = neural_infer(cfg, net, xyz, nrm, "cpu")
+        with torch.no_grad():
+            hier["probe_f"] = field.evaluate_at(neural_probes(xyz, i)).value
+        out["scenes"].append(hier)
+    out["step"] = train_grads(cfg, lcfg, params, batch, samples, "cpu")
+    return out
+
+
+def texture_neural_laps(params, counters, recon, xyz, nrm, neural_ref):
+    """Phase 13: texture fields and the neural geometry head (see the
+    module docstring and the TEXTURE_* and NEURAL_* constants).  Returns
+    (the launches of the coloured splat lap, of the coloured chunked lap,
+    of a neural in-graph lap and of a neural training step, the phase's
+    record)."""
+    from nksr_tpu_torch import PipelineConfig, Reconstructor
+    from nksr_tpu_torch.fields.neural_field import NeuralField
+    from nksr_tpu_torch.models.network import NKSRNetwork
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import params_to_torch
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # ---- (a) the coloured main path: the splat tile, dense mesher
+    laps = {}
+    for tag in ("uncoloured", "coloured"):
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        field = recon.reconstruct(xyz, nrm, structure="splat", **KW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if tag == "coloured":
+            tex = texture_of(xyz, "cuda")
+            field.set_texture_field(tex)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mesh = field.extract_dual_mesh(mise_iter=1)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        check_lattice_launches(f"phase 13 (a) {tag}", launches, field)
+        laps[tag] = {"reconstruct_s": t1 - t0, "texture_build_s": t2 - t1,
+                     "extract_mesh_s": time.perf_counter() - t2,
+                     "mesh": mesh, "launches": launches,
+                     "dual_mc_s": field.phase_times.get("dual mc")}
+        del field
+    tex_cpu = texture_of(xyz, "cpu")
+    col = check_colours("(a)", laps["uncoloured"]["mesh"],
+                        laps["coloured"]["mesh"], tex, tex_cpu)
+    del tex, tex_cpu
+    rec["splat"] = dict(col, **{k: laps["coloured"][k] for k in (
+        "reconstruct_s", "texture_build_s", "extract_mesh_s", "dual_mc_s",
+        "launches")}, uncoloured_extract_mesh_s=laps["uncoloured"][
+            "extract_mesh_s"])
+    colored_launches = laps["coloured"]["launches"]
+    print(f"[phase 13] (a) the coloured splat tile: {col['verts']} "
+          f"vertices, v and f bit-equal to the uncoloured lap's; colours "
+          f"equal to the CPU run's but {col['differ']} (ties, worst "
+          f"{col['tie_worst']:.3e} relative); colour evaluation "
+          f"{col['colour_s']:.4f} s on the card; texture build "
+          f"{laps['coloured']['texture_build_s']:.4f} s; extract_mesh_s "
+          f"{laps['coloured']['extract_mesh_s']:.3f} (uncoloured "
+          f"{laps['uncoloured']['extract_mesh_s']:.3f}); launches "
+          f"{colored_launches}", flush=True)
+    del laps
+    torch.cuda.empty_cache()
+
+    # ---- (b) the coloured host mesher: the (-x, -y) quadrant in 10 m
+    # chunks, the union lattice meshed on the host
+    q = (xyz[:, 0] < 0) & (xyz[:, 1] < 0)
+    xq, nq = xyz[q], nrm[q]
+    crecon = Reconstructor(config=PipelineConfig(
+        conv_dtype="bfloat16", structure_mode="splat", solver_tol=1e-4,
+        solver_max_iters=KW["solver_max_iters"]), params=params)
+    tex = texture_of(xq, "cuda")
+    laps = {}
+    for tag in ("uncoloured", "coloured"):
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        cf = crecon.reconstruct(xq, nq, chunk_size=10.0, solver_tol=1e-4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if tag == "coloured":
+            for ch in cf.chunks:
+                ch["field"].set_texture_field(tex)
+        mesh = cf.extract_dual_mesh(mise_iter=1)
+        torch.cuda.synchronize()
+        if len(cf.chunks) != 4 or len(cf._host_chunks()) != 4:
+            raise AssertionError("[phase 13] (b) expected four host chunks")
+        laps[tag] = {"reconstruct_s": t1 - t0,
+                     "extract_mesh_s": time.perf_counter() - t1,
+                     "mesh": mesh, "launches": read_counts(counters),
+                     "colours_s": cf.phase_times.get("mc: colours")}
+        del cf
+    col = check_colours("(b)", laps["uncoloured"]["mesh"],
+                        laps["coloured"]["mesh"], tex, texture_of(xq, "cpu"))
+    chunked_launches = laps["coloured"]["launches"]
+    rec["chunked"] = dict(col, **{k: laps["coloured"][k] for k in (
+        "reconstruct_s", "extract_mesh_s", "colours_s", "launches")},
+        uncoloured_extract_mesh_s=laps["uncoloured"]["extract_mesh_s"])
+    print(f"[phase 13] (b) the coloured quadrant in four 10 m chunks (host "
+          f"mesher on the union lattice): {col['verts']} vertices, v and f "
+          f"bit-equal to the uncoloured lap's; colours equal to the CPU "
+          f"run's but {col['differ']} (ties, worst {col['tie_worst']:.3e}); "
+          f"colour evaluation {col['colour_s']:.4f} s on the card "
+          f"(\"mc: colours\" {laps['coloured']['colours_s']:.4f} s); "
+          f"reconstruct_s {laps['coloured']['reconstruct_s']:.3f} "
+          f"extract_mesh_s {laps['coloured']['extract_mesh_s']:.3f} "
+          f"(uncoloured {laps['uncoloured']['extract_mesh_s']:.3f}); "
+          f"launches {chunked_launches}", flush=True)
+    del laps, tex, crecon
+    torch.cuda.empty_cache()
+
+    # ---- (c) the neural head on the in-graph route
+    cfg, lcfg, nparams = neural_setup(params, neural_ref["bias"])
+    nrecon = Reconstructor(config=cfg, params=nparams)
+    rec["ingraph"] = []
+    ingraph_launches = None
+    for i, (name, xs, ns) in enumerate(neural_scenes()):
+        runs = []
+        for _ in range(2):
+            reset_counts(counters.values())
+            t0 = time.perf_counter()
+            field = nrecon.reconstruct(xs, ns, **INGRAPH_KW)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mesh = field.extract_dual_mesh(mise_iter=1)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                f = field.evaluate_at(neural_probes(xs, i)).value.cpu()
+            runs.append((t1 - t0, time.perf_counter() - t1, mesh, f,
+                         read_counts(counters), field))
+        (tr, tm, mesh, f, ln, field), second = runs[0], runs[1]
+        if not isinstance(field, NeuralField) or "infer: field" not in \
+                field.phase_times:
+            raise AssertionError(f"[phase 13] (c) {name}: not the neural "
+                                 "head's in-graph field")
+        if not (np.array_equal(mesh.v, second[2].v)
+                and np.array_equal(mesh.f, second[2].f)
+                and torch.equal(f, second[3])):
+            raise AssertionError(f"[phase 13] (c) {name}: two laps differ")
+        if ln["segsum"] <= 0 or any(ln[k] for k in ln if k != "segsum"):
+            raise AssertionError(f"[phase 13] (c) {name}: launches {ln} "
+                                 "(the segment sum alone must run)")
+        ingraph_launches = ingraph_launches or ln
+        cpu = neural_ref["scenes"][i]
+        card, _ = neural_infer(cfg, nrecon.network, xs, ns, "cuda")
+        equal = check_predicted_hierarchy(card, cpu,
+                                          tag=f"[phase 13] (c) {name}")
+        if equal:
+            for d, g in enumerate(field.host_grids):
+                if not np.array_equal(g.coords, cpu["dec"][d]):
+                    raise AssertionError(f"[phase 13] (c) {name}: the "
+                                         "route's decoder grids differ "
+                                         "from the CPU run's")
+        ref_f = cpu["probe_f"]
+        err = float((f - ref_f).abs().max()) / float(ref_f.abs().max())
+        if equal and not err <= NEURAL_FIELD_TOL:
+            raise AssertionError(f"[phase 13] (c) {name}: the field at the "
+                                 f"probes differs from the CPU run's by "
+                                 f"{err:.3e} of its largest |f|")
+        if not (len(mesh.f) and np.isfinite(mesh.v).all()):
+            raise AssertionError(f"[phase 13] (c) {name}: empty or "
+                                 "non-finite mesh")
+        rec["ingraph"].append({"name": name, "reconstruct_s": min(
+            tr, second[0]), "extract_mesh_s": min(tm, second[1]),
+            "verts": len(mesh.v), "faces": len(mesh.f), "field_err": err,
+            "hierarchy_equal": equal})
+        print(f"[phase 13] (c) {name}: reconstruct_s "
+              f"{min(tr, second[0]):.3f} extract_mesh_s "
+              f"{min(tm, second[1]):.3f} (dual_mc.py, no Newton step) verts "
+              f"{len(mesh.v)} faces {len(mesh.f)}; two laps bit-equal; "
+              f"hierarchy {'equal to' if equal else 'a tie against'} the CPU "
+              f"run; field at {NEURAL_PROBES} probes {err:.3e} of the CPU "
+              f"run's largest |f| (gate {NEURAL_FIELD_TOL}"
+              f"{'' if equal else ', not gated: a tie'}); launches {ln}; "
+              "phases " + json.dumps({k: round(v, 4) for k, v in
+                                      field.phase_times.items()}),
+              flush=True)
+        del runs, field, second
+    print(f"[phase 13] (c) SDF decoder bias offset by {-neural_ref['median']:.6f}"
+          " (minus the median of the field at the first scene's points, "
+          "CPU)", flush=True)
+    del nrecon
+    torch.cuda.empty_cache()
+
+    # ---- (d) the neural head in training on phase 11's item
+    _, _, _, _, _, batch, samples, _ = scene_train_setup()
+    card = train_grads(cfg, lcfg, params, batch, samples, "cuda")
+    cmp = compare_train("(d) neural step", card, neural_ref["step"], True,
+                        TRAIN_LOSS_RTOL, TRAIN_SCENE_LEAF_RTOL,
+                        TRAIN_UNET_TOL, TRAIN_STRUCT_RTOL,
+                        whole_rtol=TRAIN_GRAD_RTOL, phase="phase 13")
+    if "gt-surface-normal" not in card[0]:
+        raise AssertionError("[phase 13] (d) no normal loss")
+    tc = T.TrainConfig()
+    finals, step_s, train_launches = [], [], None
+    for _ in range(2):
+        state = T.init_state(cfg, tc, params=params, device="cuda")
+        sums = []
+        for i in range(NEURAL_STEPS):
+            reset_counts(counters.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses, _ = T.train_step(
+                cfg, tc, lcfg, state, batch, torch.Generator().manual_seed(i))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            train_launches = read_counts(counters)
+            sums.append(losses["sum"])
+        finals.append(([p.detach().clone() for p in state.net.parameters()],
+                       sums))
+        del state
+    same = all(torch.equal(a, b) for a, b in zip(finals[0][0], finals[1][0]))
+    if not (same and finals[0][1] == finals[1][1]):
+        raise AssertionError(f"[phase 13] (d) two {NEURAL_STEPS}-step runs "
+                             "from one state differ")
+    if train_launches["segsum"] <= 0 or train_launches["window"]:
+        raise AssertionError(f"[phase 13] (d) a neural step's launches "
+                             f"{train_launches}")
+    rec["train"] = dict(cmp, step_s=step_s, sums=finals[0][1],
+                        launches=train_launches)
+    print(f"[phase 13] (d) two runs of {NEURAL_STEPS} neural steps from one "
+          f"state: params and sums bit-equal ({finals[0][1]}); steps "
+          + ", ".join(f"{t:.4f}" for t in step_s) + f" s; launches a step "
+          f"{train_launches}", flush=True)
+    del finals
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 13] {rec['seconds']:.1f} s", flush=True)
+    return colored_launches, chunked_launches, ingraph_launches, \
+        train_launches, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3169,6 +3602,14 @@ def main() -> int:
     print("[phase 12] record " + json.dumps(ingraph_rec), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- phase 13: texture fields on every mesher, the neural head on
+    # the in-graph route and in training
+    (tex_launches, tex_chunked_launches, neural_launches,
+     neural_train_launches, tn_rec) = texture_neural_laps(
+        params, counters, recon, xyz, nrm, train_rec.pop("neural_ref"))
+    print("[phase 13] record " + json.dumps(tn_rec), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
     reset_counts(scatter_counters)
@@ -3243,6 +3684,10 @@ def main() -> int:
         rec["launches_train_predicted"] = \
             train_rec["predicted"]["launches"][key]
         rec["launches_ingraph"] = ingraph_launches[key]
+        rec["launches_colored"] = tex_launches[key]
+        rec["launches_colored_chunked"] = tex_chunked_launches[key]
+        rec["launches_neural_ingraph"] = neural_launches[key]
+        rec["launches_neural_train"] = neural_train_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)

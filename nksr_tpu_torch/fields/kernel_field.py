@@ -14,11 +14,14 @@ the supports for the whole solve; ``solve_fused`` recomputes them in
 every matvec (memory for compute), the reference's ``fused_mode``.
 
 A field that carries its decoder hierarchy's host grids (the forward's,
-``host_grids``) joins the supports of arbitrary points itself:
-``evaluate_at`` and the masked ``evaluate_f_bar`` take world points, and
-``extract_dual_mesh`` meshes through ``meshing/dual_mc.py``.  The mask
-is the UDF head's ``NeuralField`` (``mask_field``) or, without one, the
-union of the hierarchy's supports (the JAX package's ``LayerField``).
+``host_grids``) joins the supports of arbitrary points itself
+(``HostJoinedField``, shared with the neural geometry head of
+``fields/neural_field.py``): ``evaluate_at`` and the masked
+``evaluate_f_bar`` take world points, and ``extract_dual_mesh`` meshes
+through ``meshing/dual_mc.py``, coloured by ``set_texture_field``'s
+texture.  The mask is the UDF head's ``NeuralField`` (``mask_field``)
+or, without one, the union of the hierarchy's supports (the JAX
+package's ``LayerField``).
 
 The field follows PyTorch's grad mode.  Under autograd (the training
 forward) the unfused solve is ``solve_spd``, the implicitly
@@ -46,7 +49,88 @@ class FieldEval(NamedTuple):
     gradient: Optional[torch.Tensor] = None
 
 
-class KernelField:
+class HostJoinedField:
+    """What a field that carries its decoder hierarchy's host grids
+    (``host_grids``, ``capacities``, ``voxel_sizes``) gives the in-graph
+    mesher (``meshing/dual_mc.py``) and its users, over the field's own
+    ``evaluate_f(x, sup_idx, grad)``: supports of arbitrary points joined
+    on the host, the masked field, the mesh and its texture.  The mask
+    is ``mask_field`` (the UDF head's ``NeuralField``) or, without one,
+    the union of the hierarchy's supports at every depth (the JAX
+    package's ``LayerField``); ``adaptive_depth`` the depths the
+    mesher's lattice spans without a UDF mask.  ``texture_field`` (a
+    ``PCNNField`` or None) colours the mesh's vertices."""
+
+    texture_field = None
+    mask_field = None
+    adaptive_depth = 1
+
+    def host_supports(self, x: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """Per depth the (n, 8) support rows of world points ``x`` (f32
+        numpy) in the field's host grids, on the field's device."""
+        if self.host_grids is None:
+            raise ValueError(f"this {type(self).__name__} carries no host "
+                             "grids: pass the support rows to evaluate_f")
+        caps = self.capacities or [len(g.keys) for g in self.host_grids]
+        return tuple(torch.as_tensor(t.astype(np.int64), device=self.device)
+                     for t in HB.support_indices(self.host_grids, caps, x))
+
+    def evaluate_at(self, x, grad: bool = False) -> FieldEval:
+        """``evaluate_f`` at (n, 3) world points (numpy or a tensor),
+        their supports joined on the host."""
+        x = _host_points(x)
+        return self.evaluate_f(torch.as_tensor(x, device=self.device),
+                               self.host_supports(x), grad=grad)
+
+    def evaluate_f_bar(self, x) -> torch.Tensor:
+        """The masked field at (n, 3) world points: ``f`` where the mask
+        passes, ``-voxel_size`` elsewhere; the mask is the UDF head's
+        (``level_set - udf > 0``) or, without one, any support at any
+        depth."""
+        x = _host_points(x)
+        sup = self.host_supports(x)
+        xt = torch.as_tensor(x, device=self.device)
+        f = self.evaluate_f(xt, sup).value
+        if self.mask_field is None:
+            inside = torch.stack([(s >= 0).any(1) for s in sup]).any(0)
+        else:
+            inside = self.mask_field.evaluate_mask(
+                xt, self.mask_field.host_supports(x)) > 0
+        return torch.where(inside, f, -self.voxel_sizes[0])
+
+    @property
+    def mesh_adaptive_depth(self) -> int:
+        """The depths the mesher's lattice spans: the JAX package reads
+        them from the mask (``LayerField.adaptive_depth``); its UDF mask
+        has none, so the lattice is depth 0's alone."""
+        return self.adaptive_depth if self.mask_field is None else 1
+
+    def set_texture_field(self, field) -> "HostJoinedField":
+        """Colour the mesh with ``field`` (a ``PCNNField``; None: no
+        colours).  Sets it in place and returns the field."""
+        self.texture_field = field
+        return self
+
+    def _move_parts(self, device):
+        """Move the mask and the texture to ``device`` in place."""
+        for part in (self.mask_field, self.texture_field):
+            if part is not None:
+                part.to(device)
+        return self
+
+    def extract_dual_mesh(self, mise_iter: int = 0, grid_upsample: int = 1,
+                          max_points: Optional[int] = None,
+                          max_quads: Optional[int] = None):
+        """Dual-MC mesh (``meshing/dual_mc.py``; ``mise_iter`` Newton
+        steps where the field has coefficients), coloured by the
+        texture field if one is set."""
+        from ..meshing.dual_mc import extract_dual_mesh
+        return extract_dual_mesh(self, mise_iter=mise_iter,
+                                 grid_upsample=grid_upsample,
+                                 max_points=max_points, max_quads=max_quads)
+
+
+class KernelField(HostJoinedField):
     """Per-depth voxel sizes, capacities, basis features (cap_d, Cb) and
     interpolator MLPs; ``alpha`` the flat (cap_d * K,) coefficients once
     solved, ``cg_stats`` (iters, rel_res) of that solve.  Optionally the
@@ -77,25 +161,24 @@ class KernelField:
         return tuple((c, self.kernel_dim) for c in self.capacities)
 
     def _with(self, alpha, stats) -> "KernelField":
-        return KernelField(self.voxel_sizes, self.capacities, self.features,
-                           self.mlps, self.kernel_dim,
-                           self.approx_kernel_grad, tuple(alpha), stats,
-                           self.host_grids, self.adaptive_depth,
-                           self.mask_field)
+        out = KernelField(self.voxel_sizes, self.capacities, self.features,
+                          self.mlps, self.kernel_dim,
+                          self.approx_kernel_grad, tuple(alpha), stats,
+                          self.host_grids, self.adaptive_depth,
+                          self.mask_field)
+        return out.set_texture_field(self.texture_field)
 
     @property
     def device(self) -> torch.device:
         return self.features[0].device
 
     def to(self, device) -> "KernelField":
-        """Move the basis features, coefficients and mask to ``device`` in
-        place (the MLPs stay with the network)."""
+        """Move the basis features, coefficients, mask and texture to
+        ``device`` in place (the MLPs stay with the network)."""
         self.features = tuple(f.to(device) for f in self.features)
         if self.alpha is not None:
             self.alpha = tuple(a.to(device) for a in self.alpha)
-        if self.mask_field is not None:
-            self.mask_field.to(device)
-        return self
+        return self._move_parts(device)
 
     def support(self, x: torch.Tensor, sup_idx, grad: bool = False):
         return S.svh_support(self.voxel_sizes, self.features, self.mlps, x,
@@ -206,57 +289,6 @@ class KernelField:
             v, g = S.predict(sup, self.alpha, grad=True)
             return FieldEval(value=v, gradient=g)
         return FieldEval(value=S.predict(sup, self.alpha))
-
-    # ------------------------------------------- points joined on the host
-    def host_supports(self, x: np.ndarray) -> Tuple[torch.Tensor, ...]:
-        """Per depth the (n, 8) support rows of world points ``x`` in the
-        field's host grids, on the field's device."""
-        if self.host_grids is None:
-            raise ValueError("this KernelField carries no host grids: pass "
-                             "the support rows to evaluate_f")
-        return tuple(torch.as_tensor(t.astype(np.int64), device=self.device)
-                     for t in HB.support_indices(self.host_grids,
-                                                 self.capacities, x))
-
-    def evaluate_at(self, x, grad: bool = False) -> FieldEval:
-        """``evaluate_f`` at (n, 3) world points (numpy or a tensor),
-        their supports joined on the host."""
-        x = _host_points(x)
-        return self.evaluate_f(torch.as_tensor(x, device=self.device),
-                               self.host_supports(x), grad=grad)
-
-    def evaluate_f_bar(self, x) -> torch.Tensor:
-        """The masked field at (n, 3) world points: ``f`` where the mask
-        passes, ``-voxel_size`` elsewhere; the mask is the UDF head's
-        (``level_set - udf > 0``) or, without one, any support at any
-        depth."""
-        x = _host_points(x)
-        sup = self.host_supports(x)
-        xt = torch.as_tensor(x, device=self.device)
-        f = self.evaluate_f(xt, sup).value
-        if self.mask_field is None:
-            inside = torch.stack([(s >= 0).any(1) for s in sup]).any(0)
-        else:
-            inside = self.mask_field.evaluate_mask(
-                xt, self.mask_field.host_supports(x)) > 0
-        return torch.where(inside, f, -self.voxel_sizes[0])
-
-    @property
-    def mesh_adaptive_depth(self) -> int:
-        """The depths the mesher's lattice spans: the JAX package reads
-        them from the mask (``LayerField.adaptive_depth``); its UDF mask
-        has none, so the lattice is depth 0's alone."""
-        return self.adaptive_depth if self.mask_field is None else 1
-
-    def extract_dual_mesh(self, mise_iter: int = 0, grid_upsample: int = 1,
-                          max_points: Optional[int] = None,
-                          max_quads: Optional[int] = None):
-        """Dual-MC mesh (``meshing/dual_mc.py``; ``mise_iter`` Newton
-        steps)."""
-        from ..meshing.dual_mc import extract_dual_mesh
-        return extract_dual_mesh(self, mise_iter=mise_iter,
-                                 grid_upsample=grid_upsample,
-                                 max_points=max_points, max_quads=max_quads)
 
 
 def _host_points(x) -> np.ndarray:

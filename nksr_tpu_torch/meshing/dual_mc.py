@@ -23,12 +23,17 @@ joined on the host (``core/host_build.support_indices``):
   5. one quad per sign-changing corner edge whose four voxels exist,
      wound by the base corner's sign, kept in corner-lattice order up to
      ``max_quads`` (the lattice's capacity by default) and split into two
-     interleaved triangles.
+     interleaved triangles;
+  6. with a texture field (``set_texture_field``), the colour of every
+     extraction vertex (``vertex_colours``; the JAX package colours its
+     whole padded vertex array and trims it with the mesh).
 
 The JAX package's static capacities are part of the output and are kept:
 every extraction voxel has a vertex (``n_vertices`` is the lattice's
 size), the corner and quad cuts are the same.  ``mise_iter`` means Newton
-steps here; in ``meshing/host_mc.py`` it means MISE subdivision.
+steps here, taken only where the field has coefficients (a
+``KernelField``; the neural geometry head has none, as in the JAX
+package); in ``meshing/host_mc.py`` it means MISE subdivision.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 
 from .. import native
 from ..core import host_build as HB
-from .lattice_mc import _CORNER_OFFS, _EDGES, _QUAD_VOX_OFFS, TriangleMesh
+from .lattice_mc import (_CORNER_OFFS, _EDGES, _QUAD_VOX_OFFS, TriangleMesh,
+                         vertex_colours)
 
 # points per field-evaluation wave (its supports are joined on the host)
 WAVE = 1 << 20
@@ -86,17 +92,15 @@ def extract_dual_mesh(field, mise_iter: int = 0, grid_upsample: int = 1,
                       max_quads: Optional[int] = None) -> TriangleMesh:
     """Dual-MC mesh of ``field.evaluate_f_bar == 0``; ``max_points``
     bounds a field-evaluation wave, ``max_quads`` the quads kept."""
-    if getattr(field, "texture_field", None) is not None:
-        raise NotImplementedError(
-            "mesh colours from a texture field are not ported to "
-            "nksr_tpu_torch yet (ROADMAP.md queue 1, item 17)")
+    tex = getattr(field, "texture_field", None)
     wave = int(max_points or WAVE)
     ext_keys, cap_v, s = extraction_lattice(field, grid_upsample)
     vox = HB.unpack64(ext_keys).astype(np.int64)
     n_vox = len(ext_keys)
     if n_vox == 0:
-        return TriangleMesh(np.zeros((0, 3), np.float32),
-                            np.zeros((0, 3), np.int32), None)
+        v = np.zeros((0, 3), np.float32)
+        return TriangleMesh(v, np.zeros((0, 3), np.int32),
+                            vertex_colours(tex, v))
     cap_quad = max_quads or cap_v
 
     # ---- unique corner lattice -------------------------------------------
@@ -155,7 +159,8 @@ def extract_dual_mesh(field, mise_iter: int = 0, grid_upsample: int = 1,
     # two triangles per quad, interleaved
     tris = np.stack([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]],
                     1).reshape(-1, 3).astype(np.int32)
-    return TriangleMesh(v=verts[:n_vox], f=tris, c=None)
+    verts = verts[:n_vox]
+    return TriangleMesh(v=verts, f=tris, c=vertex_colours(tex, verts))
 
 
 def _to_np(t) -> np.ndarray:

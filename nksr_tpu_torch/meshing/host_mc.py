@@ -17,7 +17,8 @@ import numpy as np
 from .. import native
 from ..core import host_build as HB
 from ..utils.profiling import PhaseTimer
-from .lattice_mc import _CORNER_OFFS, _EDGES, _QUAD_VOX_OFFS, TriangleMesh
+from .lattice_mc import (_CORNER_OFFS, _EDGES, _QUAD_VOX_OFFS, TriangleMesh,
+                         vertex_colours)
 
 
 def _ring27_deltas() -> np.ndarray:
@@ -53,7 +54,8 @@ def host_extract_dual_mesh(hf, mise_iter: int = 0, grid_upsample: int = 1,
                            max_points=None) -> TriangleMesh:
     """Dual mesh of ``hf`` (a ``recon.host_field.HostField``) on its
     extraction lattice; ``max_points`` bounds each field-evaluation
-    wave.  Seconds per stage go into ``hf.phase_times`` as "mc: ..."."""
+    wave; ``hf.texture_field`` colours the vertices.  Seconds per stage
+    go into ``hf.phase_times`` as "mc: ..."."""
     times: dict = {}
     tm = PhaseTimer(hf.device, times, accumulate=True)
     u = max(int(grid_upsample), 1)
@@ -76,19 +78,22 @@ def host_extract_dual_mesh(hf, mise_iter: int = 0, grid_upsample: int = 1,
     ) if mise_iter else None
     mesh = dual_mc_on_lattice(
         vox, s, lambda pts: _waves(pts, lambda p: hf.eval_fbar_batched(
-            p, tm=tm)), eval_grad, mise_iter, tm)
+            p, tm=tm)), eval_grad, mise_iter, tm,
+        texture=hf.texture_field)
     hf.phase_times.update(times)
     return mesh
 
 
 def dual_mc_on_lattice(vox: np.ndarray, s: float, eval_fbar,
                        eval_grad=None, mise_iter: int = 0,
-                       tm: Optional[PhaseTimer] = None) -> TriangleMesh:
+                       tm: Optional[PhaseTimer] = None,
+                       texture=None) -> TriangleMesh:
     """Dual MC on an int64 voxel lattice of cell size ``s`` with host
     field evaluators.  ``mise_iter`` rounds keep the sign-crossing voxels
     (27-ring dilated), subdivide them 2x and halve the cell size; a
     single Newton polish toward the zero set follows when gradients are
-    given.  ``tm`` times the stages."""
+    given.  ``texture`` (a ``PCNNField`` or None) colours the vertices
+    the faces keep ("mc: colours").  ``tm`` times the stages."""
     if tm is None:
         tm = PhaseTimer("cpu", {})
     if len(vox) == 0:
@@ -201,7 +206,10 @@ def dual_mc_on_lattice(vox: np.ndarray, s: float, eval_fbar,
     f = np.concatenate(tris, 0).astype(np.int32)
     # drop the dual vertices no face references
     used, inv = np.unique(f.reshape(-1), return_inverse=True)
-    mesh = TriangleMesh(v=verts[used], f=inv.reshape(-1, 3).astype(np.int32),
-                        c=None)
+    verts = verts[used]
+    f = inv.reshape(-1, 3).astype(np.int32)
     tm.lap("mc: quads")
-    return mesh
+    colours = vertex_colours(texture, verts)
+    if texture is not None:
+        tm.lap("mc: colours")
+    return TriangleMesh(v=verts, f=f, c=colours)

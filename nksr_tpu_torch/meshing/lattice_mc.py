@@ -17,7 +17,9 @@ structure op is a shift:
   * UDF trim        = with a UDF mask head, after the Newton step, every
                       quad with a dual vertex outside the mask is
                       dropped (the JAX package's dense-mesher semantics:
-                      open rims where the host mesher would seal).
+                      open rims where the host mesher would seal);
+  * colours         = with a texture field, its values at the vertices
+                      the faces keep, after the compaction.
 
 Compaction is ``torch.nonzero`` (ascending flat ids) and ``cumsum``.
 Everything stays on the device until the one copy of the finished mesh
@@ -53,6 +55,16 @@ class TriangleMesh(NamedTuple):
     v: np.ndarray            # (Nv, 3) float32
     f: np.ndarray            # (Nf, 3) int32
     c: Optional[np.ndarray]  # (Nv, 3) vertex colors or None
+
+
+def vertex_colours(tex, verts) -> Optional[np.ndarray]:
+    """The texture field's (Nv, C) values at the vertices (numpy or a
+    tensor; the field evaluates in waves on its own device), as numpy;
+    None without a texture."""
+    if tex is None:
+        return None
+    c = tex.evaluate_f(torch.as_tensor(verts, device=tex.device)).value
+    return c.cpu().numpy()
 
 
 def _dilate1(a: torch.Tensor) -> torch.Tensor:
@@ -193,14 +205,15 @@ def trim_quads(quads, flips, keep_vertex: torch.Tensor):
 def extract_dual_mesh_dense(ctx, mise_iter: int = 0, grid_upsample: int = 1,
                             max_points: Optional[int] = None,
                             udf_mask: Optional[Callable] = None,
-                            trim_stats: Optional[dict] = None
-                            ) -> Optional[TriangleMesh]:
+                            trim_stats: Optional[dict] = None,
+                            texture=None) -> Optional[TriangleMesh]:
     """Dense-lattice extraction.  ``mise_iter`` rounds double the
     extraction resolution and add a Newton polish; ``max_points`` bounds
     each evaluation wave.  ``udf_mask`` (device vertices -> device bool)
     trims the quads with a vertex it rejects; ``trim_stats`` then gets
     the trim's "seconds" and the triangles before it ("faces") and
-    dropped by it ("dropped").  None when the fine grid is over
+    dropped by it ("dropped").  ``texture`` (a ``PCNNField`` or None)
+    colours the vertices the faces keep.  None when the fine grid is over
     ``DENSE_CELL_BUDGET``: the host mesher (``meshing/host_mc.py``) takes
     over."""
     spec = ctx.spec
@@ -240,5 +253,8 @@ def extract_dual_mesh_dense(ctx, mise_iter: int = 0, grid_upsample: int = 1,
     used = torch.zeros(len(verts), dtype=torch.bool, device=verts.device)
     used[fcs.reshape(-1)] = True
     remap = torch.cumsum(used.long(), 0) - 1
-    return TriangleMesh(v=verts[used].float().cpu().numpy(),
-                        f=remap[fcs].int().cpu().numpy(), c=None)
+    verts = verts[used]
+    # the JAX package colours a mesh with a face, after the compaction
+    return TriangleMesh(
+        v=verts.float().cpu().numpy(), f=remap[fcs].int().cpu().numpy(),
+        c=vertex_colours(texture, verts) if len(verts) else None)

@@ -113,8 +113,9 @@ class UNetParams(nn.Module):
 
 class NKSRNetwork(nn.Module):
     """All parameters of one model.  The UDF decoder is the UDF mask
-    head's (``fields/neural_field.py``); the SDF decoder is held so a
-    checkpoint loads whole (no route of this package reads it yet)."""
+    head's, the SDF decoder the ``geometry="neural"`` head's
+    (``fields/neural_field.py``); a kernel-geometry model holds it
+    unused, so a checkpoint loads whole."""
 
     def __init__(self, cfg: PipelineConfig):
         super().__init__()

@@ -1,7 +1,10 @@
 """Static configuration, input features, seeded parameter init, the
-solve rows of the support-row kernel field, the training forward
-(``prepare_inputs``, ``forward``), teacher-forced or on the predicted
-structure, and the inference forward with no GT (``infer``).
+solve rows of the support-row kernel field, the geometry head
+(``geometry_field``: the solved kernel field, or with
+``geometry="neural"`` the SDF decoder over the basis features), the
+training forward (``prepare_inputs``, ``forward``), teacher-forced or
+on the predicted structure, and the inference forward with no GT
+(``infer``).
 
 ``PipelineConfig`` has the fields and defaults of
 nksr_tpu/models/pipeline.py so configurations carry over unchanged;
@@ -182,6 +185,29 @@ def solve_kernel_field(cfg: PipelineConfig, net: NKSRNetwork, grids,
         fused=cfg.fused_mode)
 
 
+def geometry_field(cfg: PipelineConfig, net: NKSRNetwork, grids,
+                   caps: Sequence[int], xyz: torch.Tensor,
+                   input_normal: Optional[torch.Tensor], basis_features,
+                   normal_features, pos_sup_idx, grad_sup_idx):
+    """The field of ``cfg.geometry`` on the decoder hierarchy ``grids``:
+    "kernel", the solved support-row ``KernelField``
+    (``solve_kernel_field``); "neural", the ``NeuralField`` of the basis
+    features under the network's SDF decoder, with no solve (the solve
+    rows' supports are not read and may be None).  Its mask is set by
+    the caller."""
+    if cfg.geometry == "kernel":
+        return solve_kernel_field(cfg, net, grids, caps, xyz, input_normal,
+                                  basis_features, normal_features,
+                                  pos_sup_idx, grad_sup_idx)
+    if cfg.geometry == "neural":
+        return NeuralField(
+            [level_voxel_size(cfg, d) for d in range(cfg.tree_depth)],
+            basis_features, net.sdf_decoder, host_grids=grids,
+            capacities=caps, adaptive_depth=cfg.adaptive_depth)
+    raise ValueError(f"unknown geometry {cfg.geometry!r}: 'kernel' or "
+                     "'neural'")
+
+
 # ------------------------------------------------------- training forward
 class TrainInputs(NamedTuple):
     """One cloud's inputs to the training forward: the device tensors and
@@ -199,7 +225,7 @@ class TrainInputs(NamedTuple):
     the inputs were prepared for the predicted structure): ``levels``
     its tables (``core/svh.TeacherLevel``, host), ``levels_t`` the same
     on the device, ``pt_sup`` / ``grad_sup`` the solve rows' supports in
-    the GT hierarchy."""
+    the GT hierarchy (None for the neural head, which solves nothing)."""
     xyz: torch.Tensor
     feat: Optional[torch.Tensor]
     input_normal: Optional[torch.Tensor]
@@ -220,13 +246,14 @@ class TrainInputs(NamedTuple):
 
 class ForwardOutput(NamedTuple):
     """The training forward's result: the solved, differentiable
-    ``field`` on the decoder hierarchy, the UDF ``mask_field`` on the
+    ``field`` on the decoder hierarchy (a ``KernelField``, or with
+    ``geometry="neural"`` a ``NeuralField``), the UDF ``mask_field`` on the
     candidate hierarchy (None without the UDF head), per depth the
     structure logits and GT statuses of the candidate rows, the UNet's
     basis features on the decoder voxels, and the host ``dec_grids``
     (the GT hierarchy when teacher-forced, else the predicted one) and
     ``cand_grids`` (the candidates of each level)."""
-    field: KernelField
+    field: Any
     mask_field: Any
     structure_logits: Tuple[torch.Tensor, ...]
     structure_status: Tuple[torch.Tensor, ...]
@@ -327,7 +354,8 @@ def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
             octant=None if lv.octant is None else up(lv.octant),
             skip=None if lv.skip is None else up(lv.skip))
             for lv in levels)
-        pt_sup, grad_sup = solve_supports(cfg, gt, xyz, dev)
+        if cfg.geometry == "kernel":
+            pt_sup, grad_sup = solve_supports(cfg, gt, xyz, dev)
     onet = None
     if "onet_xyz" in batch:
         onet = (up(_real(batch, "onet_xyz", "onet_mask")),
@@ -345,8 +373,9 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
     """The training forward (nksr_tpu/models/pipeline.py ``forward`` with
     ``gt_svh`` given): the UNet's decoder teacher-forced onto the GT
     hierarchy (``use_gt_structure``) or on its own predicted hierarchy,
-    the differentiable support-row solve on that decoder hierarchy, and
-    the UDF head's field on the candidate hierarchy.  Differentiable in
+    the geometry head on that decoder hierarchy (``geometry_field``: the
+    differentiable support-row solve, or the neural field), and the UDF
+    head's field on the candidate hierarchy.  Differentiable in
     every parameter the losses reach.  In predicted mode the structure
     losses' targets are the GT statuses of the predicted candidates, and
     ``tm`` (an accumulating ``PhaseTimer``) gets the level loop's phases
@@ -354,11 +383,7 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
     those statuses, built on the host after the UNet, are summed into
     "train: structure tables"."""
     from . import sparse_unet as SU   # it imports this module
-    if cfg.geometry != "kernel":
-        raise NotImplementedError(
-            f"geometry={cfg.geometry!r} is not ported to nksr_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 17)")
-    if cfg.fused_mode:
+    if cfg.fused_mode and cfg.geometry == "kernel":
         raise NotImplementedError(
             "fused_mode under training: the fused solve recomputes its "
             "supports in every matvec and has no gradient (ROADMAP.md "
@@ -383,15 +408,17 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
         basis, normal, logits, udf = pred[:4]
         dec_grids, cand_grids = pred.dec_grids, pred.cand_grids
         dev = inp.xyz.device
-        pt_sup, grad_sup = solve_supports(cfg, dec_grids, inp.host_xyz, dev)
+        pt_sup = grad_sup = None
+        if cfg.geometry == "kernel":
+            pt_sup, grad_sup = solve_supports(cfg, dec_grids, inp.host_xyz,
+                                              dev)
         status = _dev_i64([
             SVH.evaluate_voxel_status(inp.gt_grids, c.coords, d)
             for d, c in enumerate(cand_grids)], dev)
         if tm is not None:
             tm.lap("train: structure tables")
-    field = solve_kernel_field(cfg, net, dec_grids, caps, inp.xyz,
-                               inp.input_normal, basis, normal, pt_sup,
-                               grad_sup)
+    field = geometry_field(cfg, net, dec_grids, caps, inp.xyz,
+                           inp.input_normal, basis, normal, pt_sup, grad_sup)
     mask_field = udf_mask_field(cfg, net, udf, cand_grids)
     field.mask_field = mask_field
     return ForwardOutput(
@@ -420,18 +447,15 @@ def infer(cfg: PipelineConfig, net: NKSRNetwork, xyz: np.ndarray,
     ``cfg.capacities``, the UNet's decoder on its own predicted
     structure, or teacher-forced onto the encoder hierarchy when
     ``cfg.structure_mode == "splat"`` (as the JAX package does without a
-    GT), the support-row solve on the decoder hierarchy and the UDF head's
-    mask.  ``xyz`` (N, 3) f32 numpy, ``feat`` the points' features on the
+    GT), the geometry head on the decoder hierarchy (``geometry_field``)
+    and the UDF head's mask.  ``xyz`` (N, 3) f32 numpy, ``feat`` the points' features on the
     device.  The field carries the host grids, so it meshes itself
     (``extract_dual_mesh``, the in-graph mesher).  ``structure_status``
     is empty: no GT, no targets.  ``tm`` an accumulating ``PhaseTimer``
     (the phases of ``models/sparse_unet.predicted_unet``, then "infer:
-    supports" and "infer: solve")."""
+    supports" and "infer: solve", or "infer: field" for the neural
+    head)."""
     from . import sparse_unet as SU   # it imports this module
-    if cfg.geometry != "kernel":
-        raise NotImplementedError(
-            f"geometry={cfg.geometry!r} is not ported to nksr_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 17)")
     dev = next(net.parameters()).device
     caps = tuple(cfg.capacities)
     xyz_t = torch.as_tensor(xyz, device=dev)
@@ -456,16 +480,19 @@ def infer(cfg: PipelineConfig, net: NKSRNetwork, xyz: np.ndarray,
                                  xyz_t, feat, splat_idx, tm=tm)
         basis, normal, logits, udf = pred[:4]
         dec_grids, cand_grids = pred.dec_grids, pred.cand_grids
-    pt_sup, grad_sup = solve_supports(cfg, dec_grids, xyz, dev)
+    pt_sup = grad_sup = None
+    if cfg.geometry == "kernel":
+        pt_sup, grad_sup = solve_supports(cfg, dec_grids, xyz, dev)
     if tm is not None:
         tm.lap("infer: supports")
     input_normal = feat if cfg.feature == "normal" else None
-    field = solve_kernel_field(cfg, net, dec_grids, caps, xyz_t,
-                               input_normal, basis, normal, pt_sup, grad_sup)
+    field = geometry_field(cfg, net, dec_grids, caps, xyz_t, input_normal,
+                           basis, normal, pt_sup, grad_sup)
     mask_field = udf_mask_field(cfg, net, udf, cand_grids)
     field.mask_field = mask_field
     if tm is not None:
-        tm.lap("infer: solve")
+        tm.lap("infer: solve" if cfg.geometry == "kernel" else
+               "infer: field")
     return ForwardOutput(
         field=field, mask_field=mask_field, structure_logits=logits,
         structure_status=(), basis_features=basis, dec_grids=dec_grids,

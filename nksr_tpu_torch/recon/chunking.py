@@ -18,6 +18,11 @@ keeps the triangles whose centroid lies in its own cell, and the
 appended meshes are welded at 1e-4 voxel (the JAX package's
 ``_extract_per_chunk``); their field is each point's owning chunk's.
 
+Colours: the union mesh takes the first chunk's texture field (None if
+that chunk has none, as in the JAX package); per-chunk meshing appends
+each chunk's colours over the vertices it keeps (a chunk's texture is
+set on its field, ``chunks[i]["field"].set_texture_field``).
+
 The orchestration is numpy, line for line the JAX package's (the rows'
 unique taken through packed keys, the same rows in the same order), so
 the chunk set, halos and point selections are the same.
@@ -167,10 +172,13 @@ class ChunkedField:
             np.concatenate(vox_parts, 0)))).astype(np.int64)
         tm.lap("mc: extraction lattice")
 
+        # the first chunk's texture, even None (the JAX package's
+        # ``next`` over the chunks yields the first chunk's value)
         mesh = dual_mc_on_lattice(
             vox, s, lambda p: self._blend_eval(host_chunks, p, tm=tm),
             eval_grad=lambda p: self._blend_eval(host_chunks, p, grad=True),
-            mise_iter=mise_iter, tm=tm)
+            mise_iter=mise_iter, tm=tm,
+            texture=host_chunks[0]["field"].texture_field)
         self.phase_times.update(times)
         return mesh
 
@@ -178,10 +186,11 @@ class ChunkedField:
                            ) -> TriangleMesh:
         """Each chunk's own dual mesh on ``device``, cut to the triangles
         whose centroid its cell owns, appended and welded at 1e-4
-        voxel."""
+        voxel; the colours of the chunks that have a texture, appended
+        in the same order (the JAX package's)."""
         times: dict = {}
         tm = PhaseTimer(self.device, times, accumulate=True)
-        verts, tris = [], []
+        verts, tris, cols = [], [], []
         off = 0
         for ch in self.chunks:
             field = ch["field"].to(self.device)
@@ -197,13 +206,19 @@ class ChunkedField:
             used, inv = np.unique(mesh.f[own], return_inverse=True)
             verts.append(mesh.v[used])
             tris.append(inv.reshape(-1, 3) + off)
+            if mesh.c is not None:
+                cols.append(mesh.c[used])
             off += used.shape[0]
         if not verts:
             return TriangleMesh(v=np.zeros((0, 3), np.float32),
                                 f=np.zeros((0, 3), np.int32), c=None)
+        if cols and len(cols) != len(verts):
+            raise ValueError("some chunks have a texture field and some do "
+                             "not: set one on every chunk or on none")
         mesh = weld_vertices(TriangleMesh(
             v=np.concatenate(verts, 0),
-            f=np.concatenate(tris, 0).astype(np.int32), c=None),
+            f=np.concatenate(tris, 0).astype(np.int32),
+            c=np.concatenate(cols, 0) if cols else None),
             eps=1e-4 * self.voxel_size)
         tm.lap("mc: weld")
         self.phase_times.update(times)

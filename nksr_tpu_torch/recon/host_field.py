@@ -21,7 +21,8 @@ mask the two differ as they do in the JAX package: the dense mesher
 TRIMS (faces with a dual vertex outside the mask are dropped after the
 Newton step), the host mesher SEALS (corners outside the mask read
 ``-voxel_size`` through ``eval_fbar_batched``, so the surface closes
-at the mask's edge).
+at the mask's edge).  Either mesher colours the vertices it keeps with
+the texture field (``set_texture_field``).
 """
 
 from __future__ import annotations
@@ -99,6 +100,8 @@ class HostField:
         self.udf_caps = None if udf_caps is None else tuple(udf_caps)
         self.mask_field = mask_field
         self.trim_stats: Optional[dict] = None
+        # colours the meshes (``set_texture_field``)
+        self.texture_field = None
 
     @property
     def device(self) -> torch.device:
@@ -110,12 +113,14 @@ class HostField:
 
     def to(self, device) -> "HostField":
         """Move the field to ``device`` in place: the coefficients, the
-        lattice evaluator's state, the support-row field and the UDF
-        mask's features.  The MLPs are the Reconstructor's network and
-        stay where it lives, so a field parked off the network's device
+        lattice evaluator's state, the support-row field, the UDF
+        mask's features and the texture.  The MLPs are the
+        Reconstructor's network and stay where it lives, so a field
+        parked off the network's device
         cannot be evaluated until it is moved back.  Chunked mode parks
         each chunk on the CPU between its solve and the mesh."""
-        for part in (self.lattice_ctx, self.field, self.mask_field):
+        for part in (self.lattice_ctx, self.field, self.mask_field,
+                     self.texture_field):
             if part is not None:
                 part.to(device)
         # the support-row field's coefficients are this field's
@@ -127,6 +132,14 @@ class HostField:
         """Replace the mask field (e.g. ``mask_field.set_level_set(v)``);
         None falls back to the union-of-support / trusted-cell mask."""
         self.mask_field = mf
+        return self
+
+    def set_texture_field(self, tex) -> "HostField":
+        """Colour the meshes with ``tex`` (a ``fields/neural_field.
+        PCNNField``; None: no colours), on the dense and the host mesher
+        alike.  Sets it in place and returns the field, as the JAX
+        package's ``HostField.set_texture_field``."""
+        self.texture_field = tex
         return self
 
     def udf_mask(self, x: np.ndarray, tm=None) -> torch.Tensor:
@@ -230,8 +243,8 @@ class HostField:
 
     def extract_dual_mesh(self, mise_iter: int = 0, grid_upsample: int = 1,
                           max_points: Optional[int] = None) -> TriangleMesh:
-        """Dual mesh of the zero set; ``max_points`` bounds each
-        field-evaluation wave."""
+        """Dual mesh of the zero set, coloured by the texture field if one
+        is set; ``max_points`` bounds each field-evaluation wave."""
         tm = PhaseTimer(self.device, self.phase_times)
         if self.lattice_ctx is not None:
             self.lattice_ctx.tables()
@@ -241,7 +254,8 @@ class HostField:
                 self.lattice_ctx, mise_iter=mise_iter,
                 grid_upsample=grid_upsample, max_points=max_points,
                 udf_mask=(lambda v: self.udf_mask(v.cpu().numpy()))
-                if trim is not None else None, trim_stats=trim)
+                if trim is not None else None, trim_stats=trim,
+                texture=self.texture_field)
             if mesh is not None:
                 tm.lap("dual mc")
                 if trim is not None:

@@ -38,7 +38,16 @@ estimated from a subsample (``estimate_capacities``), the inference
 forward (``models/pipeline.infer``: the gather-conv UNet on its predicted
 structure, each level cut at its capacity, and the support-row solve),
 and a ``KernelField`` that meshes through ``meshing/dual_mc.py``, where
-``mise_iter`` means Newton steps.
+``mise_iter`` means Newton steps.  It is the one route of
+``geometry="neural"`` (a config's ``geometry: neural``): the field is then
+the ``NeuralField`` of the SDF decoder over the basis features, with no
+solve and no Newton step.  The host routes (splat, adaptive, predicted,
+and chunks of them) raise ``ValueError`` for it, where the JAX package
+builds a kernel field whatever the geometry.
+
+Every field colours its meshes with a texture field
+(``fields/neural_field.PCNNField``, through ``set_texture_field``), on
+the dense, host and in-graph meshers and the chunked meshes.
 
 A model with a UDF head (``udf_enabled``, e.g. ``runs/scene_big`` under
 its own config.yaml through ``train.driver.pipeline_config_from_yaml``)
@@ -102,6 +111,20 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to nksr_tpu_torch yet (ROADMAP.md queue 1, "
         f"{item})")
+
+
+def _check_geometry(cfg) -> None:
+    """A geometry other than the kernel's runs on the in-graph route
+    alone (``models/pipeline.geometry_field`` knows them).  The JAX
+    package's host routes build a kernel field whatever the geometry;
+    the port refuses them rather than answer with another geometry."""
+    if cfg.geometry != "kernel" and \
+            cfg.structure_mode != "predicted_ingraph":
+        raise ValueError(
+            f"geometry={cfg.geometry!r} runs on structure="
+            f"'predicted_ingraph' only, not on structure="
+            f"{cfg.structure_mode!r} (a host route, which solves a kernel "
+            "field)")
 
 
 def _dense_unet_fits(spec, cfg) -> bool:
@@ -184,6 +207,7 @@ class Reconstructor:
             if mesh is not None:
                 raise _not_ported("chunked reconstruction over a device "
                                   "mesh (chunk_size= with mesh=)", "item 15")
+            _check_geometry(self.config)
             from .chunking import reconstruct_chunked
             return reconstruct_chunked(self, xyz, normal, sens, chunk_size,
                                        approx_kernel_grad=approx_kernel_grad,
@@ -191,9 +215,6 @@ class Reconstructor:
         if mesh is not None:
             raise _not_ported("multi-device reconstruction (mesh=)",
                               "item 15")
-        if self.config.geometry != "kernel":
-            raise _not_ported(f"geometry={self.config.geometry!r}",
-                              "item 17")
         cfg = self._runtime_config(
             self._pick_voxel_size(xyz, detail_level, voxel_size),
             approx_kernel_grad, solver_tol, solver_max_iters,
@@ -201,6 +222,7 @@ class Reconstructor:
             fused_mode=fused_mode)
         if structure is not None:
             cfg = dataclasses.replace(cfg, structure_mode=structure)
+        _check_geometry(cfg)
         if cfg.structure_mode == "predicted":
             return self._reconstruct_predicted(cfg, xyz, normal, sens)
         if cfg.structure_mode == "predicted_ingraph":

@@ -145,7 +145,9 @@ class RunLogger:
 def _log_val_mesh(run: Path, step: int, pcfg: P.PipelineConfig, net,
                   val_loader, device) -> None:
     """Reconstruct the first val cloud with the current params (splat
-    structure) and write its mesh as ``artifacts/val_mesh_<step>.ply``."""
+    structure; the in-graph route for the neural geometry head, which
+    runs there alone) and write its mesh as
+    ``artifacts/val_mesh_<step>.ply``."""
     from ..data.io import write_ply
     from ..recon.reconstructor import Reconstructor
     from ..utils.checkpoint import torch_to_params
@@ -157,7 +159,9 @@ def _log_val_mesh(run: Path, step: int, pcfg: P.PipelineConfig, net,
         "params": torch_to_params(net.state_dict())})
     hf = recon.reconstruct(batch["xyz"].numpy()[m],
                            batch["normal"].numpy()[m], detail_level=None,
-                           voxel_size=pcfg.voxel_size, structure="splat",
+                           voxel_size=pcfg.voxel_size,
+                           structure="splat" if pcfg.geometry == "kernel"
+                           else "predicted_ingraph",
                            solver_max_iters=min(pcfg.solver_max_iters, 48))
     mesh = hf.extract_dual_mesh()
     write_ply(run / "artifacts" / f"val_mesh_{step}.ply", mesh.v, mesh.f)

@@ -20,8 +20,9 @@ written out as plain functions on tensors, because PyTorch's
      gradients hold NaN or inf changes neither the parameters nor the
      inner state (it counts the miss), unless more than 100 in a row.
 
-A parameter the losses do not reach (e.g. the SDF decoder) gets a zero
-gradient, as in JAX.  ``accumulate_grad_batches`` reaches ``TrainConfig``
+A parameter the losses do not reach (the SDF decoder of a kernel-geometry
+model, the interpolators of a neural one) gets a zero gradient, as in
+JAX.  ``accumulate_grad_batches`` reaches ``TrainConfig``
 but, as in the JAX package, nothing reads it.
 
 The state mirrors optax's tree (``opt_state``: ``notfinite_count``,

@@ -249,7 +249,7 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
     if cfg.udf_enabled and lcfg.udf_weight > 0:
         chi = samples["udf"].to(dev)
         pd = out.mask_field.evaluate_f(chi, _support(out.cand_grids, caps,
-                                                     chi))
+                                                     chi)).value
         with torch.no_grad():
             gt_tudf = gt_tsdf_from_points(cfg, lcfg, table, chi, ref_xyz,
                                           ref_normal).abs()

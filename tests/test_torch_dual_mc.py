@@ -36,7 +36,7 @@ from nksr_tpu.meshing import dual_mc as JDMC
 from nksr_tpu.models.network import MLP as JMLP, Interpolators
 from nksr_tpu_torch.core import host_build as HB
 from nksr_tpu_torch.fields.kernel_field import KernelField
-from nksr_tpu_torch.fields.neural_field import NeuralField
+from nksr_tpu_torch.fields.neural_field import NeuralField, PCNNField
 from nksr_tpu_torch.meshing import dual_mc as DMC
 from nksr_tpu_torch.models import pipeline as P
 from nksr_tpu_torch.models.network import NKSRNetwork
@@ -86,7 +86,8 @@ def fields():
               for c in CAPS]
     mask = NeuralField(vss, [torch.from_numpy(f) for f in ufeats],
                        net.udf_decoder, host_grids=grids)
-    udf = mask.evaluate_f(torch.from_numpy(xyz), mask.host_supports(xyz))
+    udf = mask.evaluate_f(torch.from_numpy(xyz),
+                          mask.host_supports(xyz)).value
     level = float(np.float32(np.median(udf.numpy())))
     mask = mask.set_level_set(level)
     jmask = JNeuralField(
@@ -143,7 +144,9 @@ def test_dual_mc_matches_jax(fields, mise_iter, upsample, max_quads, udf,
 
 def test_lattice_and_texture_guard(fields):
     """The extraction lattice is the JAX package's (keys, capacity, cell
-    size); a field with a texture raises naming item 17."""
+    size); a field with a texture meshes the same ``v`` and ``f`` with a
+    colour per vertex (held against the JAX package in
+    ``tests/test_torch_texture_chunked.py``)."""
     field = fields["port"]
     field.mask_field = None
     keys, cap, s = DMC.extraction_lattice(field, 2)
@@ -154,7 +157,15 @@ def test_lattice_and_texture_guard(fields):
     np.testing.assert_array_equal(HB.unpack64(keys),
                                   np.asarray(ext.coords)[:n])
 
-    class Textured:
-        texture_field = object()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        DMC.extract_dual_mesh(Textured())
+    plain = field.extract_dual_mesh()
+    xyz = plain.v[::7].copy()
+    tex = PCNNField.build(torch.from_numpy(xyz), torch.from_numpy(xyz),
+                          torch.ones(len(xyz), dtype=torch.bool), 0.1, 4096)
+    try:
+        got = field.set_texture_field(tex).extract_dual_mesh()
+    finally:
+        field.set_texture_field(None)
+    np.testing.assert_array_equal(got.v, plain.v)
+    np.testing.assert_array_equal(got.f, plain.f)
+    assert got.c.shape == got.v.shape
+    np.testing.assert_array_equal(got.c[::7], xyz)

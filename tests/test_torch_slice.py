@@ -241,7 +241,6 @@ def test_host_field_queries(solved):
     ({}, dict(structure="splat", chunk_size=1.0, voxel_size=None,
               mesh=object()), "item 15"),
     ({}, dict(structure="splat", mesh=object()), "item 15"),
-    (dict(geometry="neural"), dict(structure="splat"), "item 17"),
 ])
 def test_unported_routes_raise(cfg_kw, call_kw, item):
     xyz, nrm = _scene(200)
@@ -249,6 +248,25 @@ def test_unported_routes_raise(cfg_kw, call_kw, item):
                           config=P.PipelineConfig(**SMALL, **cfg_kw))
     kw = dict(KW, **call_kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        recon.reconstruct(xyz, nrm, **kw)
+
+
+@pytest.mark.parametrize("structure,chunked", [
+    ("splat", False), ("adaptive", False), ("predicted", False),
+    ("splat", True), ("predicted", True)])
+def test_neural_geometry_refuses_the_host_routes(structure, chunked):
+    """``geometry="neural"`` runs on ``structure="predicted_ingraph"``
+    alone: the host routes (and chunks of them) raise ``ValueError``
+    naming it, where the JAX package would build a kernel field."""
+    xyz, nrm = _scene(200)
+    cfg = P.PipelineConfig(**SMALL, geometry="neural",
+                           structure_mode=structure)
+    recon = Reconstructor(device="cpu", config=cfg)
+    kw = dict(KW, structure=structure)
+    if chunked:
+        kw.update(chunk_size=1.0, voxel_size=None, detail_level=0.0)
+    with pytest.raises(ValueError,
+                       match="structure='predicted_ingraph'"):
         recon.reconstruct(xyz, nrm, **kw)
 
 
