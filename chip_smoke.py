@@ -243,6 +243,33 @@ Phases (any failure ends the run with a non-zero exit):
      chunked lap (``launches_colored_chunked``), a neural in-graph lap
      (``launches_neural_ingraph``) and a neural training step
      (``launches_neural_train``).
+ 14. (run after phase 13) the adaptive structure on the sparse routes
+     (ROADMAP item 8b): the scene_big weights in PipelineConfig(
+     conv_dtype="bfloat16", adaptive_depth=2, adaptive_tau=
+     ADAPTIVE_ROUTE_TAU), reconstruct(structure="adaptive") and
+     extract_dual_mesh(mise_iter=1).  (a) phase 5's 60 m tile on route A
+     (the gather-conv UNet with its heads at the decoder voxels, the
+     lattice solve on the decoder, the host mesher on a hierarchy of
+     adaptive depth 2): the route, a depth-0 decoder above 0 and below
+     the splat's, the lattice launches with the segment sum at the
+     encoder's splat and at each gradient depth's normal prior (1 +
+     adaptive depth), the tile's error under ROUTE_ERR_LIMIT, its host-MC
+     stages beside phase 5's; its four central 20 m sub-tiles alone on
+     route A (the budgets at 0, as phase 8) under 1.5x the JAX package's
+     figure there.  (b) phase 4's 100 m tile on route B (the support-row
+     solve on the decoder): window and segment-sum launches, the tile's
+     error under ROUTE_ERR_LIMIT; its four central 20 m sub-tiles alone,
+     forced onto route B by LATTICE_COEFF_BUDGET = 0, under 1.5x the JAX
+     package's figure.  (b)'s tile lap runs in its own process (``python3
+     chip_smoke.py --route-b-tile OUT``), started after phase 11 on the
+     cores phase 11's CPU reference used, beside phases 12 to 14 (a): its
+     host mesher is the script's longest stage.  (c) one sub-tile on each
+     route twice (its lap among the four and one more): coefficients and
+     mesh bit-equal.  (d) on route A's first sub-tile
+     with f32 convs, the gather-conv UNet's basis and normal heads on the
+     adaptive decoder within ADAPTIVE_CARD_CPU_TOL of the same call on
+     CPU tensors.  The kernels line gains each kernel's launches on the
+     two tile laps (``launches_adaptive_a``, ``launches_adaptive_b``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -453,6 +480,35 @@ JAX_QUALITY_SCENE = {"predicted": (0.0094, 0.4275), "splat": (0.0094, 0.4229),
 # |f| (PERF.md section 2's UNet gate); NEURAL_STEPS training steps on
 # phase 11's item, card against CPU under phase 11's gates.
 TEXTURE_CAPACITY = 1 << 16
+# Phase 14, the adaptive structure on routes A and B (ROADMAP item 8b)
+# under PipelineConfig(conv_dtype="bfloat16", adaptive_depth=2) with
+# adaptive_tau ADAPTIVE_ROUTE_TAU: at the configuration's 0.1 (and at
+# 0.005) no depth-1 voxel of this terrain has normals that vary by tau,
+# so the decoder keeps no depth-0 voxel (the tile's count at 0.1 is
+# printed); at 0.001 it keeps the curved parts' (about 12% of the splat's
+# depth-0 voxels at route A's density, 4% at route B's).  The JAX
+# package's interior terrain error mean there, on the central 20 m
+# sub-tiles of the 60 m tile alone on route A and of the 100 m tile alone
+# on route B (scripts/terrain_reference_adaptive_routes.py --route A|B
+# --tau 0.001, on the CPU: route A 0.005876, 0.005683, 0.005502, 0.007634
+# by sub-tile, q90 0.008902, max 0.829548; route B 0.008597, 0.006943,
+# 0.007176, 0.008054, q90 0.012319, max 0.410895); the sub-tile gates are
+# 1.5x these, the tiles' ROUTE_ERR_LIMIT.  (d)'s tolerance: the UNet card
+# against CPU, as a share of the largest |head| (PERF.md section 2's UNet
+# gate).
+ADAPTIVE_ROUTE_TAU = 0.001
+JAX_ADAPTIVE_ROUTE_A_ERR = 0.006175
+ADAPTIVE_ROUTE_A_LIMIT = 1.5 * JAX_ADAPTIVE_ROUTE_A_ERR
+JAX_ADAPTIVE_ROUTE_B_ERR = 0.007694
+ADAPTIVE_ROUTE_B_LIMIT = 1.5 * JAX_ADAPTIVE_ROUTE_B_ERR
+ADAPTIVE_CARD_CPU_TOL = 1e-4
+# (b)'s tile lap: the whole tile.  Route B's host mesher is phase 14's
+# longest stage (179 s of its 318 s, alone, on an NVIDIA H100 80GB HBM3 at
+# 700 W); at 500k points of the same tile (its route unchanged) it takes
+# 119 s, but the tile's error mean rises to 0.00848 against
+# ROUTE_ERR_LIMIT's 0.0085 (half the density).
+ADAPTIVE_ROUTE_B_POINTS = N_POINTS
+ROUTE_B_TILE_TIMEOUT = 600
 TEXTURE_TIE_RTOL = 1e-6
 NEURAL_PROBES = 4096
 NEURAL_FIELD_TOL = 1e-4
@@ -999,14 +1055,18 @@ def read_counts(counters) -> dict:
     return {key: fn.launches for key, fn in counters.items()}
 
 
-def route_lap(recon, synthetic_scene, counters, half_extent: float):
-    """One lap of a sparse route on 1M points of a terrain tile of side
-    2 * half_extent.  Returns (field, mesh, launches, lap record)."""
-    xyz, nrm = synthetic_scene(N_POINTS, half_extent=half_extent)
+def route_lap(recon, synthetic_scene, counters, half_extent: float,
+              structure="splat", n_points=N_POINTS):
+    """One lap of a sparse route on ``n_points`` of a terrain tile of
+    side 2 * half_extent.  Returns (field, mesh, launches, lap record);
+    the record also holds the route taken (``unet``, ``solve``,
+    ``mesher``), the phases, the solver statistics and the decoder's
+    voxels per depth."""
+    xyz, nrm = synthetic_scene(n_points, half_extent=half_extent)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters.values())
-    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm)
+    tr, tm, field, mesh = main_path_lap(recon, xyz, nrm, structure)
     launches = read_counts(counters)
     err, n_inner = terrain_error(mesh, half_extent - 1.0)
     lap = {"reconstruct_s": tr, "extract_mesh_s": tm,
@@ -1014,20 +1074,28 @@ def route_lap(recon, synthetic_scene, counters, half_extent: float):
            "verts": len(mesh.v), "faces": len(mesh.f),
            "err_mean": float(err.mean()),
            "err_q90": float(np.quantile(err, 0.9)),
-           "err_max": float(err.max()), "n_inner": n_inner}
+           "err_max": float(err.max()), "n_inner": n_inner,
+           "unet": recon._last_unet_engine,
+           "solve": "lattice" if field.lattice_ctx is not None
+           else "support-row",
+           "mesher": "host" if "host dual mc" in field.phase_times
+           else "dense",
+           "phases": dict(field.phase_times),
+           "solver": str(field.solver_stats),
+           "decoder": [len(g.keys) for g in field.host_grids]}
     return field, mesh, launches, lap
 
 
-def print_route(tag, recon, field, launches, lap, limit=ROUTE_ERR_LIMIT):
-    solve = "lattice" if field.lattice_ctx is not None else "support-row"
-    mesher = "host" if "host dual mc" in field.phase_times else "dense"
-    print(f"[{tag}] route: unet {recon._last_unet_engine}, solve {solve}, "
-          f"mesher {mesher}", flush=True)
+def print_route(tag, launches, lap, limit=ROUTE_ERR_LIMIT):
+    """A ``route_lap`` record: its route, phases, launches, memory, mesh
+    and the terrain error, which must be at most ``limit``."""
+    print(f"[{tag}] route: unet {lap['unet']}, solve {lap['solve']}, "
+          f"mesher {lap['mesher']}", flush=True)
     print(f"[{tag}] reconstruct_s {lap['reconstruct_s']:.3f} extract_mesh_s "
           f"{lap['extract_mesh_s']:.3f} phases "
-          + json.dumps({k: round(v, 4) for k, v in field.phase_times.items()}),
+          + json.dumps({k: round(v, 4) for k, v in lap["phases"].items()}),
           flush=True)
-    print(f"[{tag}] {field.solver_stats}  launches {launches}  peak memory "
+    print(f"[{tag}] {lap['solver']}  launches {launches}  peak memory "
           f"{lap['peak_gib']:.2f} GiB  mesh verts {lap['verts']} faces "
           f"{lap['faces']}", flush=True)
     print(f"[{tag}] terrain vertex error on {lap['n_inner']} interior "
@@ -1353,7 +1421,7 @@ def udf_laps(recon, xyz, nrm, counters, synthetic_scene, a_phases, a_lap):
     # route A: the host mesher seals at the mask
     field, mesh, launches, lap = route_lap(recon, synthetic_scene, counters,
                                            30.0)
-    print_route("phase 8 route A", recon, field, launches, lap,
+    print_route("phase 8 route A", launches, lap,
                 UDF_ROUTE_A_ERR_LIMIT)
     print(f"[phase 8 route A] the seal: {lap['verts']} vertices against "
           f"phase 5's {a_lap['verts']} (UDF off), error mean "
@@ -1367,11 +1435,8 @@ def udf_laps(recon, xyz, nrm, counters, synthetic_scene, a_phases, a_lap):
                              "route A, or its host mesher did not seal at "
                              "the UDF mask")
     check_lattice_launches("phase 8 route A", launches, field)
-    mc = sorted(k for k in set(field.phase_times) | set(a_phases)
-                if k.startswith("mc: ") or k == "host dual mc")
-    print("[phase 8 route A] host MC stages, s (UDF on / phase 5, UDF off): "
-          + "; ".join(f"{k} {field.phase_times.get(k, 0.0):.3f} / "
-                      f"{a_phases.get(k, 0.0):.3f}" for k in mc), flush=True)
+    print_mc_stages("phase 8 route A", field.phase_times, a_phases,
+                    "UDF on / phase 5, UDF off")
     del field, mesh
     torch.cuda.empty_cache()
 
@@ -3241,6 +3306,337 @@ def texture_neural_laps(params, counters, recon, xyz, nrm, neural_ref):
         train_launches, rec
 
 
+def print_mc_stages(tag, phases, before, labels):
+    """The host mesher's stages of a lap beside another lap's."""
+    mc = sorted(k for k in set(phases) | set(before)
+                if k.startswith("mc: ") or k == "host dual mc")
+    print(f"[{tag}] host MC stages, s ({labels}): "
+          + "; ".join(f"{k} {phases.get(k, 0.0):.3f} / "
+                      f"{before.get(k, 0.0):.3f}" for k in mc), flush=True)
+
+
+def first_sub_tile(xyz, nrm):
+    """The first of the tile's central 20 m sub-tiles in quadrant_error's
+    order (x, y in (-20, 0)): its (xyz, nrm)."""
+    m = (xyz[:, 0] < 0) & (xyz[:, 1] < 0) & (xyz[:, 0] > -20) \
+        & (xyz[:, 1] > -20)
+    return xyz[m], nrm[m]
+
+
+def adaptive_unet_heads(cfg, net, xyz, nrm, device):
+    """The gather-conv UNet with the adaptive decoder's row tables on
+    ``device``: the basis and normal heads per depth, on the CPU."""
+    from nksr_tpu_torch.core import host_build as HB
+    from nksr_tpu_torch.models import sparse_unet as SU
+    from nksr_tpu_torch.ops.gather_scatter import stencil_offsets
+    from nksr_tpu_torch.recon.reconstructor import _next_pow2
+
+    def caps_of(grids):
+        return tuple(max(_next_pow2(int(len(g.keys) * 1.05)), 512)
+                     for g in grids)
+
+    def up(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int64),
+                               device=device)
+
+    grids, orders = HB.build_splat_grids_ex(xyz, cfg.voxel_size,
+                                            cfg.tree_depth)
+    dec = HB.build_adaptive_grids(xyz, nrm, cfg.voxel_size, cfg.tree_depth,
+                                  tau=cfg.adaptive_tau,
+                                  adaptive_depth=cfg.adaptive_depth,
+                                  splat=(grids, orders))
+    caps, dec_caps = caps_of(grids), caps_of(dec)
+    ut = HB.build_unet_tables(grids, caps, stencil_offsets(3))
+    ut = HB.UNetTables(*(tuple(up(t) for t in part) for part in ut))
+    splat0 = up(HB.support_indices(grids[:1], caps[:1], xyz,
+                                   presorted=orders[:1])[0])
+    rows = tuple(None if r is None else up(r)
+                 for r in SU.decoder_rows(grids, dec))
+    basis, normal, _ = SU.sparse_unet_apply(
+        cfg, net, ut, [len(g.keys) for g in grids], caps,
+        [up(g.coords) for g in grids],
+        torch.as_tensor(xyz, device=device),
+        torch.as_tensor(nrm, device=device), splat0, rows, dec_caps)
+    return [len(g.keys) for g in dec], \
+        [t.cpu() for t in basis], [t.cpu() for t in normal]
+
+
+def adaptive_route_config():
+    """Phase 14's configuration (see ADAPTIVE_ROUTE_TAU)."""
+    from nksr_tpu_torch import PipelineConfig
+    return PipelineConfig(conv_dtype="bfloat16", adaptive_depth=2,
+                          adaptive_tau=ADAPTIVE_ROUTE_TAU)
+
+
+def route_b_tile_lap(out_path: str) -> int:
+    """Phase 14 (b)'s tile lap, run in its own process (``python3
+    chip_smoke.py --route-b-tile OUT``) on the host's last
+    TRAIN_REF_THREADS cores, beside phases 12 to 14 (a): its host mesher
+    is the script's longest stage.  Its launches (the counts set to 0
+    just before the lap and read just after, in that process) and its
+    ``route_lap`` record go to ``out_path`` as JSON."""
+    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.scenes import synthetic_scene
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > TRAIN_REF_THREADS:
+        os.sched_setaffinity(0, cores[-TRAIN_REF_THREADS:])
+    torch.set_num_threads(TRAIN_REF_THREADS)
+    recon = Reconstructor(config=adaptive_route_config(), params=load_tree(
+        os.path.join(REPO, "runs", "scene_big", "best.ckpt")))
+    _, _, launches, lap = route_lap(recon, synthetic_scene,
+                                    kernel_counters(), 50.0, "adaptive",
+                                    ADAPTIVE_ROUTE_B_POINTS)
+    lap["cores"] = sorted(os.sched_getaffinity(0))
+    with open(out_path + ".tmp", "w") as f:
+        json.dump({"launches": launches, "lap": lap}, f)
+    os.replace(out_path + ".tmp", out_path)
+    return 0
+
+
+def start_route_b_tile():
+    """Start ``route_b_tile_lap`` in its own process; it is killed at
+    exit if still running.  Returns (process, output path, start)."""
+    import atexit
+    out = os.path.join(REPO, "data", "chip_smoke_route_b_tile.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--route-b-tile", out], cwd=REPO)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    print(f"[phase 14] (b)'s tile lap started in its own process (pid "
+          f"{proc.pid})", flush=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_route_b_tile(ref):
+    """Wait for ``route_b_tile_lap``: (launches, lap record)."""
+    proc, out, t_start = ref
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=ROUTE_B_TILE_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(f"[phase 14 (b)] the tile lap's process exited "
+                             f"with {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    print(f"[phase 14 (b)] the tile lap ran in its own process on cores "
+          f"{res['lap']['cores']}, beside phases 12 to 14 (a); waited "
+          f"{time.perf_counter() - t0:.1f} s for it, "
+          f"{time.perf_counter() - t_start:.1f} s after its start",
+          flush=True)
+    return res["launches"], res["lap"]
+
+
+def adaptive_route_laps(params, counters, synthetic_scene, a_phases,
+                        a_n0, b_phases, b_n0, b_tile):
+    """Phase 14.  The adaptive structure (adaptive depth 2, tau
+    ADAPTIVE_ROUTE_TAU) on route A (phase 5's 60 m tile) and route B
+    (phase 4's 100 m tile, its lap in the process ``b_tile`` of
+    ``start_route_b_tile``), one lap each, their central 20 m sub-tiles
+    alone under 1.5x the JAX package's figures, one sub-tile of each
+    route twice bit-equal, and the UNet's heads on the adaptive decoder
+    card against CPU (see the module docstring).  ``a_phases``, ``a_n0``
+    (``b_...``): phase 5's (phase 4's) phases and depth-0 voxels.
+    Returns the two tile laps' launches and a record."""
+    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch.core import host_build as HB
+    from nksr_tpu_torch.fields import lattice as LAT
+    from nksr_tpu_torch.meshing import lattice_mc as LMC
+    from nksr_tpu_torch.models.network import NKSRNetwork
+    from nksr_tpu_torch.recon import reconstructor as RC
+    from nksr_tpu_torch.utils.checkpoint import params_to_torch
+    t_phase = time.perf_counter()
+    cfg = adaptive_route_config()
+    ad = cfg.adaptive_depth
+    recon = Reconstructor(config=cfg, params=params)
+    rec = {"tau": ADAPTIVE_ROUTE_TAU}
+
+    def check_route(tag, field, route):
+        if not (recon._last_unet_engine == "sparse"
+                and (field.lattice_ctx is not None) == (route == "A")
+                and "host dual mc" in field.phase_times):
+            raise AssertionError(f"[{tag}] not route {route}: unet "
+                                 f"{recon._last_unet_engine}, phases "
+                                 f"{sorted(field.phase_times)}")
+
+    def check_decoder(tag, decoder, splat_n0):
+        n0 = decoder[0]
+        print(f"[{tag}] decoder voxels {decoder}: {n0} at depth 0 against "
+              f"the splat hierarchy's {splat_n0}", flush=True)
+        if not 0 < n0 < splat_n0:
+            raise AssertionError(f"[{tag}] depth-0 decoder voxels {n0} not "
+                                 f"above 0 and below the splat's "
+                                 f"{splat_n0}")
+        return n0
+
+    # the configuration's own tau keeps no depth-0 voxel on this terrain
+    xyz, nrm = synthetic_scene(N_POINTS, half_extent=30.0)
+    splat = HB.build_splat_grids_ex(xyz, cfg.voxel_size, cfg.tree_depth)
+    n0_default = len(HB.build_adaptive_grids(
+        xyz, nrm, cfg.voxel_size, cfg.tree_depth, tau=0.1,
+        adaptive_depth=ad, splat=splat)[0].keys)
+    print(f"[phase 14] the 60 m tile at adaptive_tau 0.1 (host build): "
+          f"{n0_default} depth-0 decoder voxels; at "
+          f"{ADAPTIVE_ROUTE_TAU}: the laps below", flush=True)
+    del splat
+    rec["tile_a_n0_tau_0.1"] = n0_default
+
+    # (a) route A, the 60 m tile
+    field, mesh, a_launches, lap = route_lap(recon, synthetic_scene,
+                                             counters, 30.0, "adaptive")
+    print_route("phase 14 (a) route A", a_launches, lap)
+    check_route("phase 14 (a)", field, "A")
+    rec["tile_a_n0"] = check_decoder("phase 14 (a)", lap["decoder"], a_n0)
+    # the segment sum at the encoder's splat and at each gradient
+    # depth's normal prior
+    check_lattice_launches("phase 14 (a)", a_launches, field, 1 + ad)
+    print_mc_stages("phase 14 (a)", field.phase_times, a_phases,
+                    "adaptive / phase 5, splat")
+    rec["tile_a"] = lap
+    del field, mesh
+    torch.cuda.empty_cache()
+
+    def sub_tile_laps(tag, xyz, nrm, route, limit, jax_err):
+        """The tile's four central 20 m sub-tiles alone, pooled error;
+        also the first sub-tile's (coefficients, vertices, faces), the
+        first of (c)'s two laps."""
+        first, out0 = [], []
+
+        def lap(x, n):
+            out = main_path_lap(recon, x, n, "adaptive")
+            if not out0:
+                out0.append(([a.clone() for a in out[2].alpha], out[3].v,
+                             out[3].f))
+            return out
+
+        def on_lap(field, tr, tm):
+            print(f"[{tag}] sub-tile: reconstruct_s {tr:.3f} extract_mesh_s "
+                  f"{tm:.3f}", flush=True)
+            check_route(tag, field, route)
+            first.append(len(field.host_grids[0].keys))
+
+        inner = (np.abs(xyz[:, 0]) < 20) & (np.abs(xyz[:, 1]) < 20)
+        err = quadrant_error(recon, xyz[inner], nrm[inner], on_lap=on_lap,
+                             lap=lap)
+        print(f"[{tag}] the four central 20 m sub-tiles alone (depth-0 "
+              f"decoder voxels {first}): terrain vertex error on {len(err)} "
+              f"interior vertices: mean {err.mean():.5f} q90 "
+              f"{np.quantile(err, 0.9):.5f} max {err.max():.5f} (the JAX "
+              f"package, CPU: mean {jax_err}; limit {limit:.5f})",
+              flush=True)
+        if not (min(first) > 0 and err.mean() <= limit):
+            raise AssertionError(f"[{tag}] sub-tile terrain error mean "
+                                 f"{err.mean()} > {limit}, or an empty "
+                                 f"depth-0 decoder ({first})")
+        return {"err_mean": float(err.mean()),
+                "err_q90": float(np.quantile(err, 0.9)),
+                "err_max": float(err.max()), "n0": first}, out0[0]
+
+    def twice(tag, before, x, n):
+        """(c): the first sub-tile once more, coefficients and mesh
+        bit-equal to its lap in ``sub_tile_laps`` (``before``)."""
+        _, _, field, mesh = main_path_lap(recon, x, n, "adaptive")
+        same = lap_diff(before, ([a.clone() for a in field.alpha], mesh.v,
+                                 mesh.f))
+        del field
+        print(f"[{tag}] one sub-tile twice: " + same, flush=True)
+        if "coefficients bit-equal" not in same or "mesh bit-equal" \
+                not in same:
+            raise AssertionError(f"[{tag}] two laps of one sub-tile are not "
+                                 "bit-equal: " + same)
+        return same
+
+    first_tile = first_sub_tile(xyz, nrm)
+    budgets = RC.DENSE_UNET_CELLMAP_BUDGET, LMC.DENSE_CELL_BUDGET
+    RC.DENSE_UNET_CELLMAP_BUDGET = LMC.DENSE_CELL_BUDGET = 0
+    try:
+        rec["sub_tiles_a"], before = sub_tile_laps(
+            "phase 14 (a) route A", xyz, nrm, "A", ADAPTIVE_ROUTE_A_LIMIT,
+            JAX_ADAPTIVE_ROUTE_A_ERR)
+        rec["repeat_a"] = twice("phase 14 (c) route A", before, *first_tile)
+    finally:
+        RC.DENSE_UNET_CELLMAP_BUDGET, LMC.DENSE_CELL_BUDGET = budgets
+    del xyz, nrm
+    torch.cuda.empty_cache()
+
+    # (d) the UNet's heads on the adaptive decoder, card against CPU, on
+    # route A's first sub-tile, f32 convs
+    f32 = dataclasses.replace(cfg, conv_dtype="float32")
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        net = NKSRNetwork(f32)
+        net.load_state_dict(params_to_torch(params), strict=True)
+        nets[dev] = net.to(dev).eval().requires_grad_(False)
+    t0 = time.perf_counter()
+    dec_n, cb, cn = adaptive_unet_heads(f32, nets["cuda"], *first_tile,
+                                        "cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, pb, pn = adaptive_unet_heads(f32, nets["cpu"], *first_tile, "cpu")
+    t_cpu = time.perf_counter() - t0
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(cb + cn, pb + pn))
+    print(f"[phase 14 (d)] gather-conv UNet heads on the adaptive decoder "
+          f"(voxels {dec_n}), f32 convs, card against CPU tensors: max "
+          f"|diff| over the largest |head| {worst:.3e} (limit "
+          f"{ADAPTIVE_CARD_CPU_TOL}); card {t_card:.2f} s, CPU "
+          f"{t_cpu:.2f} s", flush=True)
+    if not (dec_n[0] > 0 and worst <= ADAPTIVE_CARD_CPU_TOL):
+        raise AssertionError(f"[phase 14 (d)] heads differ by {worst} "
+                             f"> {ADAPTIVE_CARD_CPU_TOL}, or no depth-0 "
+                             "decoder voxel")
+    rec["card_cpu_heads"] = worst
+    del nets, cb, cn, pb, pn, first_tile
+    torch.cuda.empty_cache()
+
+    # (b) route B, the 100 m tile: its lap ran in its own process
+    b_launches, lap = finish_route_b_tile(b_tile)
+    print_route("phase 14 (b) route B", b_launches, lap)
+    if (lap["unet"], lap["solve"], lap["mesher"]) != (
+            "sparse", "support-row", "host"):
+        raise AssertionError("[phase 14 (b)] the 100 m tile did not take "
+                             "route B")
+    rec["tile_b_n0"] = check_decoder("phase 14 (b)", lap["decoder"], b_n0)
+    if b_launches["window"] <= 0 or b_launches["segsum"] <= 0:
+        raise AssertionError(f"[phase 14 (b)] the window kernel or the "
+                             f"segment sum did not run: {b_launches}")
+    print_mc_stages("phase 14 (b)", lap["phases"], b_phases,
+                    "adaptive / phase 4, splat")
+    rec["tile_b"] = lap
+    xyz, nrm = synthetic_scene(N_POINTS, half_extent=50.0)
+    budget = LAT.LATTICE_COEFF_BUDGET
+    LAT.LATTICE_COEFF_BUDGET = 0
+    try:
+        rec["sub_tiles_b"], before = sub_tile_laps(
+            "phase 14 (b) route B", xyz, nrm, "B", ADAPTIVE_ROUTE_B_LIMIT,
+            JAX_ADAPTIVE_ROUTE_B_ERR)
+        rec["repeat_b"] = twice("phase 14 (c) route B", before,
+                                *first_sub_tile(xyz, nrm))
+    finally:
+        LAT.LATTICE_COEFF_BUDGET = budget
+    del xyz, nrm
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 14] {rec['seconds']:.1f} s", flush=True)
+    return a_launches, b_launches, rec
+
+
+def kernel_counters() -> dict:
+    """The main path's counted kernel wrappers, by key."""
+    from nksr_tpu_torch.fields import lattice_kernels as LK
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    from nksr_tpu_torch.ops import window_basis as WB
+    return {"fwd": LK.av0_cascade, "adj": LK.av0_adjoint_cascade,
+            "window": WB.window_and_grad_fused, "rows": LK.av0_rows,
+            "adj_rows": LK.av0_adjoint_rows, "segsum": SEG.segment_sum}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3263,9 +3659,7 @@ def main() -> int:
     from nksr_tpu_torch.utils.checkpoint import load_tree
     from nksr_tpu_torch.utils.config import load_config
     from nksr_tpu_torch.utils.scenes import synthetic_scene
-    counters = {"fwd": LK.av0_cascade, "adj": LK.av0_adjoint_cascade,
-                "window": WB.window_and_grad_fused, "rows": LK.av0_rows,
-                "adj_rows": LK.av0_adjoint_rows, "segsum": SEG.segment_sum}
+    counters = kernel_counters()
     scatter_counters = (SS.scatter_rate_write, SS.scatter_rate_read,
                         SS.blocked_sorted_scatter)
 
@@ -3513,7 +3907,7 @@ def main() -> int:
     # ---- phase 4: route B (plan over the lattice budget)
     field, mesh, b_launches, lap = route_lap(recon, synthetic_scene, counters,
                                              50.0)
-    print_route("phase 4", recon, field, b_launches, lap)
+    print_route("phase 4", b_launches, lap)
     if not (recon._last_unet_engine == "sparse" and field.lattice_ctx is None
             and "host dual mc" in field.phase_times):
         raise AssertionError("[phase 4] the 100 m tile did not take route B")
@@ -3523,6 +3917,7 @@ def main() -> int:
     cfg = recon.config
     q_b = min(S._MLP_CHUNK, sum(len(g.keys) for g in
                                 field.host_grids[:cfg.adaptive_depth]))
+    b_phases, b_n0 = dict(field.phase_times), len(field.host_grids[0].keys)
     del field, mesh
     torch.cuda.empty_cache()
     win = compare_window(WB, window_offsets(q_b, gen), timed=True)
@@ -3533,13 +3928,14 @@ def main() -> int:
     # ---- phase 5: route A (feature lattices over the dense UNet budget)
     field, mesh, a_launches, lap = route_lap(recon, synthetic_scene, counters,
                                              30.0)
-    print_route("phase 5", recon, field, a_launches, lap)
+    print_route("phase 5", a_launches, lap)
     if not (recon._last_unet_engine == "sparse"
             and field.lattice_ctx is not None
             and "host dual mc" in field.phase_times):
         raise AssertionError("[phase 5] the 60 m tile did not take route A")
     check_lattice_launches("phase 5", a_launches, field)
     a_phases, a_lap = dict(field.phase_times), lap
+    a_n0 = len(field.host_grids[0].keys)
     del field, mesh
     torch.cuda.empty_cache()
 
@@ -3595,6 +3991,9 @@ def main() -> int:
               f"{before[0]:.3f} + {before[1]:.3f})", flush=True)
     print(f"[phase 11] {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    # phase 14 (b)'s tile lap, beside phases 12 to 14 (a) on the cores
+    # the CPU reference used
+    b_tile = start_route_b_tile()
 
     # ---- phase 12: the in-graph route, its mesher and per-chunk meshing
     ingraph_launches, ingraph_rec, ingraph_win = ingraph_laps(
@@ -3608,6 +4007,13 @@ def main() -> int:
      neural_train_launches, tn_rec) = texture_neural_laps(
         params, counters, recon, xyz, nrm, train_rec.pop("neural_ref"))
     print("[phase 13] record " + json.dumps(tn_rec), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the adaptive structure on routes A and B
+    ad_a_launches, ad_b_launches, ad_rec = adaptive_route_laps(
+        params, counters, synthetic_scene, a_phases, a_n0, b_phases, b_n0,
+        b_tile)
+    print("[phase 14] record " + json.dumps(ad_rec), flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -3688,6 +4094,8 @@ def main() -> int:
         rec["launches_colored_chunked"] = tex_chunked_launches[key]
         rec["launches_neural_ingraph"] = neural_launches[key]
         rec["launches_neural_train"] = neural_train_launches[key]
+        rec["launches_adaptive_a"] = ad_a_launches[key]
+        rec["launches_adaptive_b"] = ad_b_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -3768,4 +4176,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--train-cpu-reference":
         sys.exit(train_cpu_reference(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--route-b-tile":
+        sys.exit(route_b_tile_lap(sys.argv[2]))
     sys.exit(main())

@@ -43,6 +43,11 @@ from ..native import coord_minmax, flat_cells
 from ..solver.pcg import pcg
 from . import lattice_kernels as LK
 
+# dense coefficient lattice cells (all depths) x k that ``plan_lattice``
+# plans (about 2.5 GB of f32 coefficients); beyond it it returns None and
+# the reconstruction takes the support-row solve (route B)
+LATTICE_COEFF_BUDGET = 160_000_000
+
 
 # --------------------------------------------------------------------- spec
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +214,7 @@ def plan_lattice(grids, caps: Sequence[int], xyz: np.ndarray,
         phase.append(origins[0] - o * (1 << d))
         dims.append((int(ext[0]), int(ext[1]), int(ext[2])))
         total += int(ext[0] * ext[1] * ext[2])
-    if total * k > 160_000_000:     # dense coefficient budget (~2.5 GB f32)
+    if total * k > LATTICE_COEFF_BUDGET:
         return None
 
     # ---- point slots: group sorted points by depth-0 cell ----------------

@@ -1,7 +1,9 @@
 """Gather-conv UNet inference over host tables (counterpart of
 nksr_tpu/models/network.py ``PointEncoder``, ``MaskedGroupNorm``,
 ``SparseConv``, ``ConvBlock`` and ``SparseUNet``, the teacher-forced
-branch with host tables: the decoder hierarchy is the splat hierarchy).
+branch with host tables: the decoder's candidates are the splat
+hierarchy at every level, and its heads read the rows of the decoder's
+own voxels, the splat ones or the adaptive structure's subset of them).
 
 It runs where the dense conv3d UNet would not fit (a bounding box over
 the lattice or the feature-lattice budget), on the same parameters as
@@ -22,12 +24,13 @@ the stride-2 convs and GroupNorm stay f32, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import host_build as HB
 from ..core import svh as SVH
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..ops import gather_scatter as gs
@@ -147,23 +150,51 @@ def up_conv(up, d: int, g_parent: torch.Tensor, parent: torch.Tensor,
     return h
 
 
+def decoder_rows(grids, dec_grids) -> Tuple[Optional[np.ndarray], ...]:
+    """Per level, the splat row of each decoder voxel (int64, in the
+    decoder's key order): a host join of ``dec_grids[d].keys`` into
+    ``grids[d].keys``; None where the level is the splat one itself.
+    An adaptive level keeps a subset of the splat corners
+    (``core/host_build.build_adaptive_grids``), so every decoder voxel
+    has a row; a voxel without one raises rather than read a -1."""
+    rows = []
+    for g, dg in zip(grids, dec_grids):
+        if dg is g:
+            rows.append(None)
+            continue
+        r = HB.keys_lookup(g, dg.keys).astype(np.int64)
+        if (r < 0).any():
+            raise ValueError(
+                f"{int((r < 0).sum())} decoder voxels at voxel size "
+                f"{dg.voxel_size} are not voxels of the splat hierarchy")
+        rows.append(r)
+    return tuple(rows)
+
+
 @torch.no_grad()
 def sparse_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, tables,
                       n_vox: Sequence[int], caps: Sequence[int],
                       coords: Sequence[torch.Tensor], xyz: torch.Tensor,
-                      feat, splat_idx: torch.Tensor):
+                      feat, splat_idx: torch.Tensor, dec_rows=None,
+                      dec_caps: Optional[Sequence[int]] = None):
     """Encoder + UNet + heads over the splat hierarchy.
 
     ``tables``: ``core.host_build.UNetTables`` as int64 device tensors;
     ``n_vox[d]`` real voxels and ``caps[d]`` capacity of level d;
     ``coords[d]`` (n_d, 3) int64 voxel coords; ``splat_idx`` (N, 8) the
-    points' depth-0 splat rows.  Returns per-depth (basis_features,
-    normal_features, udf_features) at (cap_d, C), the layout of the JAX
-    package; the UDF head (None unless ``cfg.udf_enabled``) at the
-    decoder's candidate rows, which are the splat hierarchy's here."""
+    points' depth-0 splat rows.  ``dec_rows[d]``: the decoder voxels'
+    splat rows as an int64 device tensor (``decoder_rows``), None where
+    the decoder level is the splat one; the basis and normal heads of
+    such a level read those rows and are written at ``(dec_caps[d],
+    C)``.  Returns per-depth (basis_features, normal_features,
+    udf_features) at (cap_d, C), the layout of the JAX package; the UDF
+    head (None unless ``cfg.udf_enabled``) at the decoder's candidate
+    rows, which are the splat hierarchy's here."""
     depth = cfg.tree_depth
     cdt = getattr(torch, cfg.conv_dtype)
     up = net.unet
+    if dec_rows is None:
+        dec_rows = (None,) * depth
     enc_feats = encoder_path(cfg, net, tables.nbr, tables.child, n_vox, xyz,
                              feat, splat_idx, cdt)
     basis, normal, udf = [None] * depth, [None] * depth, [None] * depth
@@ -171,7 +202,11 @@ def sparse_unet_apply(cfg: PipelineConfig, net: NKSRNetwork, tables,
     for d in range(depth - 1, -1, -1):
         g = conv_block(getattr(up, f"dec_{d}"), g, tables.nbr[d][:n_vox[d]],
                        cdt)
-        basis[d], normal[d] = heads(up, d, g, n_vox[d], caps[d])
+        if dec_rows[d] is None:
+            basis[d], normal[d] = heads(up, d, g, n_vox[d], caps[d])
+        else:
+            basis[d], normal[d] = heads(up, d, gs.take_rows(g, dec_rows[d]),
+                                        len(dec_rows[d]), dec_caps[d])
         if cfg.udf_enabled:
             udf[d] = udf_head(up, d, g, n_vox[d], caps[d])
         if d > 0:

@@ -24,8 +24,11 @@ Three structures, as in the JAX package:
         dense coefficients would exceed its budget): the gather-conv
         UNet, the support-row kernel solve and the host dual MC.
 
-    "adaptive" runs on the lattice route only; routes A and B would need
-    the gather-conv UNet taught a decoder hierarchy and raise.
+    With "adaptive" the gather-conv UNet of routes A and B keeps the
+    splat hierarchy as its decoder's candidates (the JAX package's
+    teacher-forced run over host tables) and writes its basis and
+    normal heads at the decoder voxels' rows; the solve's rows and the
+    field live on the decoder hierarchy, the UDF head on the splat one.
   * "predicted" (the default: the UNet predicts the decoder hierarchy):
     the one-pass dense engine (``recon/predicted_dense.py``) where its
     child-cover lattice fits ``DENSE_PRED_CELLMAP_BUDGET`` and the
@@ -314,11 +317,6 @@ class Reconstructor:
                             else dec_caps)
         dense_unet = plan is not None and _dense_unet_fits(plan.spec, cfg)
         self._last_unet_engine = "dense" if dense_unet else "sparse"
-        if dec_grids is not grids and not dense_unet:
-            raise _not_ported(
-                "structure='adaptive' on the gather-conv UNet (routes A "
-                "and B: a bounding box over the dense UNet's budget)",
-                "item 8b")
 
         def up(a, dtype=None):
             return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
@@ -344,30 +342,39 @@ class Reconstructor:
                                  udf=None if udf_f is None else
                                  UdfHead(grids, caps, udf_f))
 
-        # the points' splat rows: the encoder's depth-0 table, the normal
-        # prior's (adaptive depths) and route B's value rows (every depth)
+        # the points' splat rows into the decoder voxels: the normal
+        # prior's (adaptive depths) and route B's value rows (every
+        # depth); the encoder's depth-0 table is the first of them unless
+        # the decoder is the adaptive one
         n_sup = cfg.tree_depth if plan is None else cfg.adaptive_depth
         pt_sup = tuple(up(t, i64) for t in HB.support_indices(
-            grids[:n_sup], caps[:n_sup], xyz, presorted=orders[:n_sup]))
+            dec_grids[:n_sup], dec_caps[:n_sup], xyz,
+            presorted=orders[:n_sup]))
+        splat0 = pt_sup[0] if dec_grids[0] is grids[0] else up(
+            HB.support_indices(grids[:1], caps[:1], xyz,
+                               presorted=orders[:1])[0], i64)
         ut = HB.build_unet_tables(grids, caps, stencil_offsets(3))
         ut = HB.UNetTables(*(tuple(up(t, i64) for t in part)
                              for part in ut))
         coords = tuple(up(g.coords, i64) for g in grids)
+        dec_rows = tuple(None if r is None else up(r)
+                         for r in SU.decoder_rows(grids, dec_grids))
         tm.lap("unet tables")
         basis_f, normal_f, udf_f = SU.sparse_unet_apply(
             cfg, self.network, ut, [len(g.keys) for g in grids], caps,
-            coords, xyz_t, feat, pt_sup[0])
-        del ut, coords
+            coords, xyz_t, feat, splat0, dec_rows, dec_caps)
+        del ut, coords, dec_rows, splat0
         tm.lap("sparse unet")
+        # the UDF head lives on the encoder's splat hierarchy
         udf = None if udf_f is None else UdfHead(grids, caps, udf_f)
         if plan is None:
-            return support_row_field(cfg, self.network, grids, caps, xyz_t,
-                                     input_normal, basis_f, normal_f,
+            return support_row_field(cfg, self.network, dec_grids, dec_caps,
+                                     xyz_t, input_normal, basis_f, normal_f,
                                      pt_sup, tm, times, udf=udf)
-        return lattice_field(cfg, self.network, plan, grids, xyz, xyz_t,
+        return lattice_field(cfg, self.network, plan, dec_grids, xyz, xyz_t,
                              input_normal, basis_f, normal_f, tm, times,
                              dense_prior=False, pt_sup=pt_sup,
-                             dec_caps=caps, udf=udf)
+                             dec_caps=dec_caps, udf=udf)
 
     # -------------------------------------------------------------- helpers
     def _pick_voxel_size(self, xyz: np.ndarray,

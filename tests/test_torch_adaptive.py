@@ -31,7 +31,6 @@ from nksr_tpu_torch.fields import lattice as LAT
 from nksr_tpu_torch.models import dense_unet as DU
 from nksr_tpu_torch.models import pipeline as P
 from nksr_tpu_torch.models.network import NKSRNetwork
-from nksr_tpu_torch.recon import reconstructor as R
 from nksr_tpu_torch.utils.checkpoint import params_to_torch
 
 from test_field import sphere_points
@@ -241,28 +240,3 @@ def test_adaptive_meshes_agree(case):
     assert 0.5 * (d_tj.mean() + d_jt.mean()) < 0.05 * VS
     r = np.linalg.norm(tv[np.unique(tm.f)], axis=1)
     assert np.median(np.abs(r - 0.5)) < 0.5 * VS
-
-
-def _two_patches():
-    a, na = synthetic_scene(800, seed=3, half_extent=1.25)
-    b, nb = synthetic_scene(800, seed=4, half_extent=1.25)
-    b = b + np.array([200.0, 200.0, 0.0], np.float32)
-    return np.concatenate([a, b]), np.concatenate([na, nb])
-
-
-@pytest.mark.parametrize("route", ["A", "B"])
-def test_adaptive_sparse_routes_raise(case, route, monkeypatch):
-    """On routes A (feature lattices over the dense UNet's budget) and B
-    (no lattice plan) the gather-conv UNet would need a decoder
-    hierarchy: the port raises, naming the ROADMAP item, and runs
-    nothing else."""
-    xyz, nrm = case["xyz"], case["nrm"]
-    if route == "A":
-        monkeypatch.setattr(R, "DENSE_UNET_CELLMAP_BUDGET", 0)
-    else:
-        xyz, nrm = _two_patches()
-    rec = Reconstructor(device="cpu", config=P.PipelineConfig(**CFG),
-                        params=case["params"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8b"):
-        rec.reconstruct(xyz, nrm, **KW)
-    assert rec._last_unet_engine == "sparse"
