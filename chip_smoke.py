@@ -270,6 +270,26 @@ Phases (any failure ends the run with a non-zero exit):
      adaptive decoder within ADAPTIVE_CARD_CPU_TOL of the same call on
      CPU tensors.  The kernels line gains each kernel's launches on the
      two tile laps (``launches_adaptive_a``, ``launches_adaptive_b``).
+ 15. (run after phase 14) the public API (ROADMAP item 1): (a) the
+     reference recipe, the scene_big weights as a reference-wheel
+     ``ks.pth`` (interpolator and decoder MLPs as ``nn.Sequential``
+     layers, the backbone under other names) in a temporary
+     ``NKSR_TPU_CKPT_DIR``, ``configs.load_checkpoint_from_url("ks")``,
+     then ``Reconstructor().network.load_state_dict`` into a network
+     that holds scene_big's backbone with its interpolators and decoders
+     scrambled (the import report printed); every tensor then equal to
+     the load_tree weights, and the (-x, -y) 20 m quadrant's lap with
+     phase 3's settings bit-equal (coefficients and mesh) to the same
+     lap under load_tree weights, with phase 3's launch counts; (b)
+     ``svh.SparseFeatureHierarchy.build_point_splatting`` and
+     ``build_adaptive_normal_variation`` (adaptive depth 2, tau
+     ADAPTIVE_ROUTE_TAU) from the quadrant's points as CUDA tensors,
+     built on the host and placed on the card, level by level equal to
+     the lap's host grids and to the host builder's;
+     ``evaluate_voxel_status`` on the card equal to the host's; (c) the JAX package's canonical export of scene_big
+     (``utils/checkpoint.params_to_torch_state_dict``) loaded whole into
+     a seeded network.  Under API_PHASE_LIMIT_S seconds.  The kernels
+     line gains each kernel's launches on (a)'s lap (``launches_api``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -509,6 +529,9 @@ ADAPTIVE_CARD_CPU_TOL = 1e-4
 # ROUTE_ERR_LIMIT's 0.0085 (half the density).
 ADAPTIVE_ROUTE_B_POINTS = N_POINTS
 ROUTE_B_TILE_TIMEOUT = 600
+# Phase 15, the public API: its time limit, so that the script stays
+# within its own
+API_PHASE_LIMIT_S = 30.0
 TEXTURE_TIE_RTOL = 1e-6
 NEURAL_PROBES = 4096
 NEURAL_FIELD_TOL = 1e-4
@@ -3627,6 +3650,195 @@ def adaptive_route_laps(params, counters, synthetic_scene, a_phases,
     return a_launches, b_launches, rec
 
 
+def wheel_state_dict(net) -> dict:
+    """``net``'s weights in a reference-wheel layout: each interpolator
+    and decoder MLP as an ``nn.Sequential`` of Linear layers with SiLU
+    between (``<family>[.<d>].net.<2i>.weight`` / ``.bias``), the
+    encoder's and the UNet's tensors under other module names (the
+    wheel's backbone is another architecture)."""
+    sd = {}
+    depth = len(list(net.interpolators.children()))
+    mlps = [(f"interpolators.{d}", net.interpolators.level(d))
+            for d in range(depth)]
+    mlps += [(fam, getattr(net, fam)) for fam in ("sdf_decoder",
+                                                  "udf_decoder")]
+    for prefix, mlp in mlps:
+        for i, layer in enumerate(mlp.layers()):
+            sd[f"{prefix}.net.{2 * i}.weight"] = layer.weight.detach().cpu()
+            sd[f"{prefix}.net.{2 * i}.bias"] = layer.bias.detach().cpu()
+    for j, (k, v) in enumerate(net.state_dict().items()):
+        fam = k.split(".")[0]
+        if fam in ("encoder", "unet"):
+            sd[f"{fam}.blocks.{j}.{k.rsplit('.', 1)[1]}"] = v.detach().cpu()
+    return sd
+
+
+def api_laps(params, recon, xyz, nrm, counters, splat_launches):
+    """Phase 15, the public API (ROADMAP item 1).  (a) the reference
+    recipe: scene_big's weights as a wheel-layout ``ks.pth`` in a
+    temporary ``NKSR_TPU_CKPT_DIR``, resolved by ``configs.
+    load_checkpoint_from_url("ks")`` and loaded into a Reconstructor that
+    holds scene_big's backbone with its interpolators and decoders
+    scrambled; its lap on phase 3's (-x, -y) 20 m quadrant bit-equal to
+    the same lap under the load_tree weights, with phase 3's launches.
+    (b) ``svh.SparseFeatureHierarchy`` from the quadrant's points as
+    CUDA tensors, built on the host (the builders copy the points there
+    and run ``core/host_build``'s, which the JAX package's in-graph
+    builds are held to on the CPU) and placed on the card: the splat
+    hierarchy equal to the lap's host grids, the adaptive one (adaptive
+    depth 2, tau ADAPTIVE_ROUTE_TAU) to the host builder's, and
+    ``evaluate_voxel_status``, which runs on the card, equal to the
+    host's.  (c) the JAX package's canonical export of scene_big loads
+    whole into a seeded network.  Returns the recipe lap's launches and a
+    record."""
+    import tempfile
+
+    from nksr_tpu_torch import Reconstructor, configs, svh
+    from nksr_tpu_torch.core import host_build as HB
+    from nksr_tpu_torch.core import svh as CS
+    from nksr_tpu_torch.utils import checkpoint as CK
+
+    t_phase = time.perf_counter()
+    cfg = recon.config
+    m = (xyz[:, 0] < 0) & (xyz[:, 1] < 0)
+    xq, nq = xyz[m], nrm[m]
+    want = recon.network.state_dict()
+
+    # (a) the recipe
+    tree = CK.model_params(params)
+    rng = np.random.default_rng(15)
+    scrambled = dict(tree)
+    for k in ("interpolators", "sdf_decoder", "udf_decoder"):
+        scrambled[k] = CK._rebuild(tree[k], {
+            n: (rng.normal(size=np.shape(a)) * 0.1).astype(np.float32)
+            for n, a in CK._flat_dotted(tree[k]).items()})
+    rec = Reconstructor(config=cfg, params={"params": scrambled})
+    if all(torch.equal(rec.network.state_dict()[k], want[k])
+           for k in want if k.startswith("interpolators")):
+        raise AssertionError("[phase 15] the scrambled interpolators equal "
+                             "the checkpoint's")
+    saved = os.environ.get("NKSR_TPU_CKPT_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state_dict": wheel_state_dict(recon.network)},
+                   os.path.join(tmp, "ks.pth"))
+        os.environ["NKSR_TPU_CKPT_DIR"] = tmp
+        try:
+            ckpt = configs.load_checkpoint_from_url("ks")
+        finally:
+            if saved is None:
+                os.environ.pop("NKSR_TPU_CKPT_DIR")
+            else:
+                os.environ["NKSR_TPU_CKPT_DIR"] = saved
+    print(f"[phase 15] configs.load_checkpoint_from_url('ks'): "
+          f"{len(ckpt['state_dict'])} tensors; "
+          "reconstructor.network.load_state_dict(ckpt['state_dict']):",
+          flush=True)
+    if rec.network.load_state_dict(ckpt["state_dict"]) is not rec.network:
+        raise AssertionError("[phase 15] the wheel layout was not imported "
+                             "by family")
+    got = rec.network.state_dict()
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"[phase 15] after the import {len(differ)} "
+                             f"tensors differ from load_tree's: {differ[:5]}")
+    laps = {}
+    for tag, r in (("load_tree", recon), ("recipe", rec)):
+        reset_counts(counters.values())
+        tr, tm, field, mesh = main_path_lap(r, xq, nq)
+        laps[tag] = (read_counts(counters), tr, tm,
+                     ([a.clone() for a in field.alpha], mesh.v, mesh.f))
+        if tag == "recipe":
+            lap_field = field
+        del field, mesh
+    launches, recipe_s = laps["recipe"][0], laps["recipe"][1:3]
+    same = lap_diff(laps["recipe"][3], laps["load_tree"][3])
+    print(f"[phase 15] (a) the recipe on the 20 m quadrant ({len(xq)} "
+          f"points): reconstruct_s {laps['recipe'][1]:.3f} extract_mesh_s "
+          f"{laps['recipe'][2]:.3f}, {lap_field.solver_stats}; against the "
+          f"load_tree lap: {same}; launches {launches} (load_tree lap "
+          f"{laps['load_tree'][0]}, phase 3's lap {splat_launches})",
+          flush=True)
+    if "coefficients bit-equal" not in same or "mesh bit-equal" not in same:
+        raise AssertionError("[phase 15] the recipe's lap is not bit-equal "
+                             "to the load_tree lap: " + same)
+    if launches != splat_launches or launches != laps["load_tree"][0]:
+        raise AssertionError(f"[phase 15] launches {launches}, phase 3's "
+                             f"lap {splat_launches}")
+    host = lap_field.host_grids
+    del rec, laps
+    torch.cuda.empty_cache()
+
+    # (b) the hierarchy built on the host, placed on the card
+    t_b = time.perf_counter()
+    xt = torch.as_tensor(xq, device="cuda")
+    nt = torch.as_tensor(nq, device="cuda")
+    ones = torch.ones(len(xq), dtype=torch.bool, device="cuda")
+    caps = [8 * len(xq)] * cfg.tree_depth
+    vs = KW["voxel_size"]
+    splat = svh.SparseFeatureHierarchy.build_point_splatting(
+        xt, ones, vs, cfg.tree_depth, caps)
+    adaptive = svh.SparseFeatureHierarchy.build_adaptive_normal_variation(
+        xt, nt, ones, vs, cfg.tree_depth, caps, tau=ADAPTIVE_ROUTE_TAU,
+        adaptive_depth=2)
+    torch.cuda.synchronize()
+    host_build_s = time.perf_counter() - t_b
+    grids, orders = HB.build_splat_grids_ex(xq, vs, cfg.tree_depth)
+    host_adaptive = HB.build_adaptive_grids(
+        xq, nq, vs, cfg.tree_depth, tau=ADAPTIVE_ROUTE_TAU, adaptive_depth=2,
+        splat=(grids, orders))
+    n_status = 0
+    for tag, h, ref in (("splat", splat, host),
+                        ("adaptive", adaptive, host_adaptive)):
+        for d, (g, hg) in enumerate(zip(h.grids, ref)):
+            if not (g.device.type == "cuda" and g.num_voxels == len(hg.keys)
+                    and np.array_equal(g.coords[:g.num_voxels].cpu().numpy(),
+                                       hg.coords)):
+                raise AssertionError(f"[phase 15] the card's {tag} level {d} "
+                                     f"({g.num_voxels} voxels) differs from "
+                                     f"the host's ({len(hg.keys)})")
+            q = torch.cat([g.coords[:g.num_voxels],
+                           g.coords[:g.num_voxels] + 1]).long()
+            st = h.evaluate_voxel_status(q, d)
+            ref_st = CS.evaluate_voxel_status(ref, q.cpu().numpy(), d)
+            if not (st.device.type == "cuda"
+                    and np.array_equal(st.cpu().numpy(), ref_st)):
+                raise AssertionError(f"[phase 15] {tag} level {d}: the "
+                                     "card's voxel status differs from the "
+                                     "host's")
+            n_status += len(q)
+    print(f"[phase 15] (b) svh.SparseFeatureHierarchy from CUDA tensors, "
+          f"built on the host and placed on the card in {host_build_s:.3f} "
+          f"s (host time): splat levels {[g.num_voxels for g in splat.grids]}"
+          f" equal to the lap's host grids, adaptive (depth 2, tau "
+          f"{ADAPTIVE_ROUTE_TAU}) {[g.num_voxels for g in adaptive.grids]} "
+          f"equal to the host builder's; evaluate_voxel_status on the card "
+          f"at {n_status} voxels equal to the host's", flush=True)
+    del splat, adaptive, xt, nt
+    torch.cuda.empty_cache()
+
+    # (c) the JAX package's canonical export
+    export = CK.params_to_torch_state_dict({"params": tree})
+    net = Reconstructor(config=cfg, seed=3).network
+    res = net.load_state_dict(export)
+    got = net.state_dict()
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"[phase 15] (c) the JAX canonical export ({len(export)} tensors, "
+          f"3-D conv kernels) into a seeded network: missing "
+          f"{res.missing_keys}, unexpected {res.unexpected_keys}, "
+          f"{len(want) - len(differ)} of {len(want)} tensors equal to "
+          "load_tree's", flush=True)
+    if differ or res.missing_keys or res.unexpected_keys:
+        raise AssertionError(f"[phase 15] the JAX export did not load whole: "
+                             f"{differ[:5]}")
+    del net
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    return launches, {"seconds": seconds, "quadrant_points": int(len(xq)),
+                      "recipe_reconstruct_s": recipe_s[0],
+                      "recipe_extract_mesh_s": recipe_s[1],
+                      "svh_host_build_s": host_build_s}
+
+
 def kernel_counters() -> dict:
     """The main path's counted kernel wrappers, by key."""
     from nksr_tpu_torch.fields import lattice_kernels as LK
@@ -4016,6 +4228,18 @@ def main() -> int:
     print("[phase 14] record " + json.dumps(ad_rec), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- phase 15: the public API: the reference recipe's checkpoint
+    # load, the hierarchy classes on the card, the JAX canonical export
+    api_launches, api_rec = api_laps(params, recon, xyz, nrm, counters,
+                                     splat_launches)
+    print(f"[phase 15] {api_rec['seconds']:.1f} s; record "
+          + json.dumps(api_rec), flush=True)
+    print(smi, flush=True)
+    if api_rec["seconds"] > API_PHASE_LIMIT_S:
+        raise AssertionError(f"[phase 15] took {api_rec['seconds']:.1f} s, "
+                             f"over {API_PHASE_LIMIT_S} s")
+    torch.cuda.empty_cache()
+
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
     reset_counts(scatter_counters)
@@ -4096,6 +4320,7 @@ def main() -> int:
         rec["launches_neural_train"] = neural_train_launches[key]
         rec["launches_adaptive_a"] = ad_a_launches[key]
         rec["launches_adaptive_b"] = ad_b_launches[key]
+        rec["launches_api"] = api_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)

@@ -20,10 +20,30 @@ and the scene reconstructed in chunks:
     field = Reconstructor().reconstruct(
         xyz, sensor=sensor, chunk_size=20.0,
         preprocess_fn=get_estimate_normal_preprocess_fn(64, 85.0))
+
+A published checkpoint loads by name from the local cache
+(``configs.load_checkpoint_from_url``; ``models.network.NKSRNetwork.
+load_state_dict`` says which layouts it takes):
+
+    from nksr_tpu_torch import configs
+    ckpt = configs.load_checkpoint_from_url("ks")
+    reconstructor = Reconstructor()
+    reconstructor.network.load_state_dict(ckpt["state_dict"])
+
+The public names are the JAX package's (``SparseGrid``,
+``SparseFeatureHierarchy``, ``fields``, ``configs``, ``svh``, ...) and
+``PipelineConfig``.
 """
 
+__version__ = "0.1.0"
+
+from .core import SparseGrid, SparseFeatureHierarchy
 from .models.pipeline import PipelineConfig
 from .recon import Reconstructor, get_estimate_normal_preprocess_fn
+from . import fields
+from . import configs
+from . import svh
 
-__all__ = ["PipelineConfig", "Reconstructor",
-           "get_estimate_normal_preprocess_fn"]
+__all__ = ["SparseGrid", "SparseFeatureHierarchy", "Reconstructor",
+           "get_estimate_normal_preprocess_fn", "fields", "configs", "svh",
+           "__version__", "PipelineConfig"]

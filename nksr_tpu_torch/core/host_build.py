@@ -22,8 +22,14 @@ _OFFS2 = np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
                   -1).reshape(8, 3).astype(np.int64)
 
 
+# A voxel's 64-bit key: each coordinate plus KEY_BIAS in a 21-bit field,
+# i in the top one, so that keys sort in (i, j, k) order.
+KEY_BIAS = 1 << 20
+KEY_MASK = (1 << 21) - 1
+
+
 def pack64(coords: np.ndarray) -> np.ndarray:
-    c = coords.astype(np.int64) + (1 << 20)
+    c = coords.astype(np.int64) + KEY_BIAS
     return (c[..., 0] << 42) | (c[..., 1] << 21) | c[..., 2]
 
 
@@ -32,9 +38,9 @@ def unpack64(keys: np.ndarray) -> np.ndarray:
         out = native.unpack_keys(keys)
         if out is not None:
             return out
-    i = (keys >> 42) - (1 << 20)
-    j = ((keys >> 21) & ((1 << 21) - 1)) - (1 << 20)
-    k = (keys & ((1 << 21) - 1)) - (1 << 20)
+    i = (keys >> 42) - KEY_BIAS
+    j = ((keys >> 21) & KEY_MASK) - KEY_BIAS
+    k = (keys & KEY_MASK) - KEY_BIAS
     return np.stack([i, j, k], -1).astype(np.int32)
 
 

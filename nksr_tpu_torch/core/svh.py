@@ -21,15 +21,23 @@ with every table its decoder reads before the forward; with
 ``use_gt_structure=False`` they are the argmax of the network's
 structure logits, read back level by level inside the forward
 (``models/sparse_unet.predicted_unet``).
+
+``SparseFeatureHierarchy`` is the public class (counterpart of
+nksr_tpu/core/svh.py's): the levels as ``core/grid.SparseGrid``s on
+one device, built by the host builders above from points on any
+device, its tensors on theirs.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import host_build as HB
+from .grid import SparseGrid, host_array
 
 VOXEL_EMPTY, VOXEL_LEAF, VOXEL_REFINED = 0, 1, 2
 
@@ -178,3 +186,123 @@ def teacher_hierarchy(enc: Sequence[HB.HostGrid],
                                  step.octant, step.skip)
         cand, nbr = step.nxt, step.nbr
     return tuple(levels)
+
+
+# -------------------------------------------------------- the public class
+def _host_points(xyz, mask, origin) -> np.ndarray:
+    """The (n, 3) f32 host points where ``mask`` holds, minus
+    ``origin`` (in f32, as the device subtracts it)."""
+    x = host_array(xyz, np.float32)
+    if mask is not None:
+        x = x[host_array(mask, bool)]
+    if origin is not None:
+        x = x - host_array(origin, np.float32)
+    return x
+
+
+@dataclass
+class SparseFeatureHierarchy:
+    """``depth`` levels; level d has voxel size ``voxel_size * 2**d``
+    (level 0 the finest).  ``grids`` the levels, ``voxel_size`` the
+    finest level's."""
+
+    grids: Tuple[SparseGrid, ...]
+    voxel_size: float
+
+    @property
+    def depth(self) -> int:
+        return len(self.grids)
+
+    def get_voxel_centers(self, d: int) -> torch.Tensor:
+        return self.grids[d].voxel_centers()
+
+    def level_mask(self, d: int) -> torch.Tensor:
+        return self.grids[d].active_mask()
+
+    def to(self, device) -> "SparseFeatureHierarchy":
+        """The hierarchy on ``device``."""
+        return SparseFeatureHierarchy(
+            grids=tuple(g.to(device) for g in self.grids),
+            voxel_size=self.voxel_size)
+
+    # ------------------------------------------------------------------ build
+    @staticmethod
+    def from_host(grids: Sequence[HB.HostGrid], capacities: Sequence[int],
+                  origin=None, device="cuda") -> "SparseFeatureHierarchy":
+        """The hierarchy of host grids (each under its capacity) on
+        ``device``."""
+        out = tuple(SparseGrid.from_keys(
+            torch.as_tensor(g.keys, device=device), c, g.voxel_size, origin)
+            for g, c in zip(grids, capacities))
+        return SparseFeatureHierarchy(grids=out,
+                                      voxel_size=grids[0].voxel_size)
+
+    @staticmethod
+    def build_point_splatting(xyz, mask, voxel_size, depth: int,
+                              capacities: Sequence[int], origin=None
+                              ) -> "SparseFeatureHierarchy":
+        """Per level the 8 voxels around every point where ``mask``
+        holds (None: every point), each level cut at its capacity (its
+        first voxels in (i, j, k) order stay)."""
+        vs = float(np.float32(voxel_size))
+        grids, _ = build_point_splatting(_host_points(xyz, mask, origin),
+                                         vs, depth, capacities)
+        return SparseFeatureHierarchy.from_host(
+            grids, capacities, origin, _device_of(xyz))
+
+    @staticmethod
+    def build_adaptive_normal_variation(
+            xyz, normal, mask, voxel_size, depth: int,
+            capacities: Sequence[int], tau: float = 0.1,
+            adaptive_depth: int = 1, origin=None
+            ) -> "SparseFeatureHierarchy":
+        """Levels >= ``adaptive_depth - 1`` the splat levels; a finer
+        level keeps a splat voxel where its (cut) parent's normal
+        variation over the points nearest to it exceeds ``tau``; every
+        level cut at its capacity.  A point outside ``mask`` counts
+        nowhere."""
+        vs = float(np.float32(voxel_size))
+        nrm = _host_points(normal, mask, None)
+        grids = build_adaptive_normal_variation(
+            _host_points(xyz, mask, origin), nrm, vs, depth, capacities,
+            tau=tau, adaptive_depth=adaptive_depth)
+        return SparseFeatureHierarchy.from_host(
+            grids, capacities, origin, _device_of(xyz))
+
+    # -------------------------------------------------------- visualization
+    def get_visualization(self):
+        """Per level the 12 edges of every active voxel's cube, as
+        (starts (m, 3), ends (m, 3)) f32 numpy arrays."""
+        corner = np.stack(np.meshgrid(*([np.arange(2)] * 3),
+                                      indexing="ij"), -1).reshape(8, 3)
+        edges = np.array([(a, b) for a in range(8) for b in range(8)
+                          if a < b and bin(a ^ b).count("1") == 1])
+        out = []
+        for g in self.grids:
+            c = g.coords[:g.num_voxels].cpu().numpy().astype(np.float32)
+            cor = (c[:, None, :] + corner[None] - 0.5) \
+                * np.float32(g.voxel_size) + g.origin.cpu().numpy()
+            out.append((cor[:, edges[:, 0]].reshape(-1, 3),
+                        cor[:, edges[:, 1]].reshape(-1, 3)))
+        return out
+
+    # ------------------------------------------------------------- structure
+    def evaluate_voxel_status(self, coords: torch.Tensor,
+                              depth: int) -> torch.Tensor:
+        """Structure class (empty, leaf, refined; int64) of (n, 3) integer
+        voxels at ``depth``, on their device (``evaluate_voxel_status``
+        above on the host)."""
+        coords = torch.as_tensor(coords).reshape(-1, 3).long()
+        exists = self.grids[depth].lookup(coords) >= 0
+        if depth == 0:
+            return torch.where(exists, VOXEL_LEAF, VOXEL_EMPTY)
+        offs = torch.as_tensor(HB._OFFS2, device=coords.device)
+        child = (2 * coords[:, None, :] + offs[None]).reshape(-1, 3)
+        has_child = (self.grids[depth - 1].lookup(child) >= 0) \
+            .reshape(-1, 8).any(1)
+        return torch.where(exists, torch.where(has_child, VOXEL_REFINED,
+                                               VOXEL_LEAF), VOXEL_EMPTY)
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cuda")

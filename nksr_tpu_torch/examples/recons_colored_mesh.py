@@ -39,7 +39,7 @@ def main(ply: str, out: str = "spot_colored.ply", device: str = "cuda",
     field = reconstructor.reconstruct(xyz, normal, detail_level=0.6,
                                       structure="splat")
     dev = reconstructor.device
-    cell = 4 * float(np.float32(field.host_grids[0].voxel_size))
+    cell = 4 * field.svh.voxel_size
     tex = PCNNField.build(torch.as_tensor(xyz, device=dev),
                           torch.as_tensor(color, device=dev),
                           torch.ones(len(xyz), dtype=torch.bool, device=dev),

@@ -17,11 +17,13 @@ A field that carries its decoder hierarchy's host grids (the forward's,
 ``host_grids``) joins the supports of arbitrary points itself
 (``HostJoinedField``, shared with the neural geometry head of
 ``fields/neural_field.py``): ``evaluate_at`` and the masked
-``evaluate_f_bar`` take world points, and ``extract_dual_mesh`` meshes
+``evaluate_f_bar`` take world points, ``evaluate_f`` joins them itself
+when it is given no support rows, ``svh`` is the hierarchy as a
+``core/svh.SparseFeatureHierarchy``, and ``extract_dual_mesh`` meshes
 through ``meshing/dual_mc.py``, coloured by ``set_texture_field``'s
-texture.  The mask is the UDF head's ``NeuralField`` (``mask_field``)
-or, without one, the union of the hierarchy's supports (the JAX
-package's ``LayerField``).
+texture.  The mask is ``mask_field`` (the UDF head's ``NeuralField``,
+or a ``LayerField``) or, without one, the union of the hierarchy's
+supports (``fields/neural_field.LayerField``'s mask).
 
 The field follows PyTorch's grad mode.  Under autograd (the training
 forward) the unfused solve is ``solve_spd``, the implicitly
@@ -33,12 +35,14 @@ network and reconstructs under ``torch.no_grad()``.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import host_build as HB
+from ..core.grid import host_array
 from ..models.network import MLP
 from ..solver.pcg import solve_spd
 from . import support as S
@@ -53,13 +57,15 @@ class HostJoinedField:
     """What a field that carries its decoder hierarchy's host grids
     (``host_grids``, ``capacities``, ``voxel_sizes``) gives the in-graph
     mesher (``meshing/dual_mc.py``) and its users, over the field's own
-    ``evaluate_f(x, sup_idx, grad)``: supports of arbitrary points joined
-    on the host, the masked field, the mesh and its texture.  The mask
-    is ``mask_field`` (the UDF head's ``NeuralField``) or, without one,
-    the union of the hierarchy's supports at every depth (the JAX
-    package's ``LayerField``); ``adaptive_depth`` the depths the
-    mesher's lattice spans without a UDF mask.  ``texture_field`` (a
-    ``PCNNField`` or None) colours the mesh's vertices."""
+    ``_value_and_grad(x, sup_idx, grad)``: ``evaluate_f(x, grad=False,
+    sup_idx=None)``, the supports joined on the host where none are
+    given, the masked field, the hierarchy (``svh``), the mesh and its
+    texture.  The mask is ``mask_field`` (the UDF head's
+    ``NeuralField``, or a ``LayerField``) or, without one, the union of
+    the hierarchy's supports at every depth (``LayerField``'s mask);
+    ``adaptive_depth`` the depths the mesher's lattice spans without a
+    UDF mask.  ``texture_field`` (a ``PCNNField`` or None) colours the
+    mesh's vertices."""
 
     texture_field = None
     mask_field = None
@@ -75,35 +81,76 @@ class HostJoinedField:
         return tuple(torch.as_tensor(t.astype(np.int64), device=self.device)
                      for t in HB.support_indices(self.host_grids, caps, x))
 
+    def evaluate_f(self, x, grad: bool = False, sup_idx=None) -> FieldEval:
+        """(n,) values at (n, 3) points (a tensor on the field's device,
+        or numpy), with ``grad`` also their (n, 3) x-gradients;
+        ``sup_idx`` per depth the (n, 8) support rows, joined on the
+        host when None."""
+        if sup_idx is None:
+            x = host_array(x, np.float32)
+            sup_idx = self.host_supports(x)
+            x = torch.as_tensor(x, device=self.device)
+        return self._value_and_grad(x, sup_idx, grad)
+
     def evaluate_at(self, x, grad: bool = False) -> FieldEval:
         """``evaluate_f`` at (n, 3) world points (numpy or a tensor),
         their supports joined on the host."""
-        x = _host_points(x)
-        return self.evaluate_f(torch.as_tensor(x, device=self.device),
-                               self.host_supports(x), grad=grad)
+        return self.evaluate_f(host_array(x, np.float32), grad=grad)
+
+    @property
+    def svh(self):
+        """The decoder hierarchy as a ``core/svh.SparseFeatureHierarchy``
+        on the field's device (``svh.voxel_size`` the finest level's)."""
+        from ..core.svh import SparseFeatureHierarchy
+        if self.host_grids is None:
+            raise ValueError(f"this {type(self).__name__} carries no host "
+                             "grids")
+        caps = self.capacities or [len(g.keys) for g in self.host_grids]
+        return SparseFeatureHierarchy.from_host(self.host_grids, caps,
+                                                device=self.device)
+
+    def _trust(self, x: np.ndarray, xt: torch.Tensor, sup) -> torch.Tensor:
+        """The mask at host points ``x`` (``xt`` on the field's device)
+        whose supports are ``sup``: the mask field's, its supports joined
+        on the host where it has host grids, or without one
+        ``LayerField``'s union of ``sup``."""
+        from .neural_field import LayerField
+        if self.mask_field is None:
+            return LayerField.union_mask(sup)
+        if isinstance(self.mask_field, HostJoinedField):
+            return self.mask_field.evaluate_mask(
+                xt, sup_idx=self.mask_field.host_supports(x))
+        return self.mask_field.evaluate_mask(xt)
 
     def evaluate_f_bar(self, x) -> torch.Tensor:
         """The masked field at (n, 3) world points: ``f`` where the mask
-        passes, ``-voxel_size`` elsewhere; the mask is the UDF head's
-        (``level_set - udf > 0``) or, without one, any support at any
-        depth."""
-        x = _host_points(x)
+        passes (is positive), ``-voxel_size`` elsewhere."""
+        x = host_array(x, np.float32)
         sup = self.host_supports(x)
         xt = torch.as_tensor(x, device=self.device)
-        f = self.evaluate_f(xt, sup).value
-        if self.mask_field is None:
-            inside = torch.stack([(s >= 0).any(1) for s in sup]).any(0)
-        else:
-            inside = self.mask_field.evaluate_mask(
-                xt, self.mask_field.host_supports(x)) > 0
-        return torch.where(inside, f, -self.voxel_sizes[0])
+        f = self._value_and_grad(xt, sup, False).value
+        return torch.where(self._trust(x, xt, sup) > 0, f,
+                           -self.voxel_sizes[0])
+
+    def set_mask_field(self, field) -> "HostJoinedField":
+        """A copy of the field masked with ``field`` (a ``NeuralField`` at
+        its level set, or a ``LayerField``; None: the union of the
+        supports), as the JAX package's ``replace`` gives; the field
+        itself keeps its mask."""
+        out = copy.copy(self)
+        out.mask_field = field
+        return out
 
     @property
     def mesh_adaptive_depth(self) -> int:
         """The depths the mesher's lattice spans: the JAX package reads
         them from the mask (``LayerField.adaptive_depth``); its UDF mask
         has none, so the lattice is depth 0's alone."""
-        return self.adaptive_depth if self.mask_field is None else 1
+        from .neural_field import LayerField
+        if self.mask_field is None:
+            return self.adaptive_depth
+        return self.mask_field.adaptive_depth \
+            if isinstance(self.mask_field, LayerField) else 1
 
     def set_texture_field(self, field) -> "HostJoinedField":
         """Colour the mesh with ``field`` (a ``PCNNField``; None: no
@@ -282,16 +329,22 @@ class KernelField(HostJoinedField):
             *args, **kw)
 
     # ----------------------------------------------------------- evaluation
-    def evaluate_f(self, x: torch.Tensor, sup_idx, grad: bool = False
-                   ) -> FieldEval:
+    def _value_and_grad(self, x: torch.Tensor, sup_idx, grad: bool
+                        ) -> FieldEval:
         sup = self.support(x, sup_idx, grad=grad)
         if grad:
             v, g = S.predict(sup, self.alpha, grad=True)
             return FieldEval(value=v, gradient=g)
         return FieldEval(value=S.predict(sup, self.alpha))
 
-
-def _host_points(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.ascontiguousarray(x, np.float32)
+    def evaluate_mask(self, x) -> torch.Tensor:
+        """The signed mask at (n, 3) world points, positive where the
+        field is trusted: the mask field's, or without one the union of
+        the supports (+1 inside, -1 outside).  A mask field of None
+        stands for the ``LayerField`` that the JAX package's
+        reconstructions attach, whose mask this is; a JAX ``KernelField``
+        built with no mask reads ones here instead."""
+        x = host_array(x, np.float32)
+        return self._trust(x, torch.as_tensor(x, device=self.device),
+                           self.host_supports(x)
+                           if self.mask_field is None else None)

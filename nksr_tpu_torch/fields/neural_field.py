@@ -15,9 +15,14 @@ decoder the network's ``sdf_decoder``, the features its basis features)
 it has no coefficients (``alpha`` is None, so the in-graph mesher takes
 no Newton step) and its x-gradient is autograd's, as the JAX package
 takes it with ``jax.vjp``.  The pool is a gather and a weighted sum (no
-scatter), so it is the same from call to call on every device.  The
-union-of-support mask of ``HostJoinedField.evaluate_f_bar`` plays the
-JAX package's ``LayerField``.
+scatter), so it is the same from call to call on every device.
+
+``LayerField``: the hierarchy's own occupancy mask, +1 where a point
+has a support row at some depth, -1 elsewhere (the mask of
+``HostJoinedField.evaluate_f_bar`` without a mask field).
+
+``DecoderFn`` is the decoder's handle: a ``models/network.MLP``
+carries its own parameters, so it is the handle itself.
 
 ``PCNNField``: the attribute (colour) of the nearest reference point,
 found in the 27 cells of a bucketing grid around the query, one
@@ -34,7 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.grid import point_splat_coords, world_to_grid
+from ..core.grid import point_splat_coords, splat_coords, world_to_grid
 from ..models.network import MLP
 from ..ops.gather_scatter import take_rows
 from .kernel_field import FieldEval, HostJoinedField
@@ -85,9 +90,10 @@ class NeuralField(HostJoinedField):
     def _value(self, x: torch.Tensor, sup_idx) -> torch.Tensor:
         return self.decoder(self.pooled(x, sup_idx))[..., 0]
 
-    def evaluate_f(self, x: torch.Tensor, sup_idx, grad: bool = False
-                   ) -> FieldEval:
-        """(n,) field values at (n, 3) points, differentiable in the
+    def _value_and_grad(self, x: torch.Tensor, sup_idx, grad: bool
+                        ) -> FieldEval:
+        """(n,) field values at (n, 3) points (``evaluate_f`` joins their
+        supports where it is given none), differentiable in the
         features and the decoder under autograd; with ``grad`` also the
         (n, 3) x-gradient by autograd, itself differentiable (a graph of
         the gradient, for the normal loss) where grad mode is on, a plain
@@ -117,9 +123,54 @@ class NeuralField(HostJoinedField):
         out.texture_field = self.texture_field
         return out
 
-    def evaluate_mask(self, x: torch.Tensor, sup_idx) -> torch.Tensor:
-        """(n,) ``level_set - f(x)``: positive where the mask passes."""
-        return self.level_set - self.evaluate_f(x, sup_idx).value
+    def evaluate_mask(self, x, sup_idx=None) -> torch.Tensor:
+        """(n,) ``level_set - f(x)``: positive where the mask passes;
+        ``sup_idx`` as ``evaluate_f``'s."""
+        return self.level_set - self.evaluate_f(x, sup_idx=sup_idx).value
+
+
+DecoderFn = MLP
+
+
+class LayerField:
+    """Occupancy mask of a hierarchy (``core/svh.SparseFeatureHierarchy``
+    on the queries' device): +1 where a point has a support voxel (one of
+    the 8 voxel centers around it) at some depth, -1 elsewhere, so that
+    a masked field is negative in the far field.  ``adaptive_depth`` the
+    depths the in-graph mesher's lattice spans under this mask."""
+
+    def __init__(self, svh, adaptive_depth: int = 1):
+        self.svh = svh
+        self.adaptive_depth = int(adaptive_depth)
+
+    @staticmethod
+    def union_mask(sup_idx) -> torch.Tensor:
+        """+1 where a point has a support row (>= 0) at some depth, -1
+        elsewhere, from per-depth (n, 8) support rows."""
+        inside = torch.stack([(s >= 0).any(1) for s in sup_idx]).any(0)
+        return torch.where(inside, 1.0, -1.0)
+
+    def evaluate_mask(self, x, sup_idx=None) -> torch.Tensor:
+        """(n,) +1 / -1 at (n, 3) points; ``sup_idx`` their per-depth
+        (n, 8) support rows, looked up in the hierarchy's grids when
+        None."""
+        if sup_idx is None:
+            x = torch.as_tensor(x, dtype=torch.float32,
+                                device=self.svh.grids[0].device)
+            sup_idx = [g.lookup(splat_coords(g.world_to_grid(x))[0])
+                       for g in self.svh.grids]
+        return self.union_mask(sup_idx)
+
+    def evaluate_f(self, x, grad: bool = False, sup_idx=None) -> FieldEval:
+        """The mask as a field; its gradient zero."""
+        v = self.evaluate_mask(x, sup_idx)
+        return FieldEval(value=v, gradient=torch.zeros(
+            (v.shape[0], 3), device=v.device) if grad else None)
+
+    def to(self, device) -> "LayerField":
+        """Move the hierarchy to ``device`` in place."""
+        self.svh = self.svh.to(device)
+        return self
 
 
 # ------------------------------------------------------------------ texture

@@ -33,11 +33,16 @@ import numpy as np
 import torch
 
 from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
-from ..models.network import MLP, mlp_with_tangents
+from ..models.network import MLP, Interpolators, mlp_with_tangents
 from ..ops import segment_sum as SEG
 from ..ops.gather_scatter import gather_rows, take_rows
 from ..ops.window_basis import window_and_grad_fused
 from ..ops.window_basis import window_and_grad_plain as window_and_grad
+
+# the interpolators' handle: a torch module carries its own parameters,
+# so the network's ``Interpolators`` (``level(d)`` its MLP at depth d) is
+# the handle itself (the JAX package's ``InterpolatorFn``)
+InterpolatorFn = Interpolators
 
 # queries per support chunk.  The JAX package's 2^15 bounded the TPU's
 # lane-padded temporaries; on the card a gradient chunk holds about

@@ -125,3 +125,50 @@ class NKSRNetwork(nn.Module):
         self.interpolators = Interpolators(cfg)
         self.sdf_decoder = MLP(cfg.basis_dim, (2 * cfg.basis_dim,) * 2, 1)
         self.udf_decoder = MLP(cfg.udf_dim, (2 * cfg.udf_dim,) * 2, 1)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """Load one of three layouts, told apart by key set and shapes:
+
+        (a) this module's own ``state_dict()`` (its keys, its shapes):
+            torch's load, whole;
+        (b) the JAX package's canonical export (``utils.checkpoint.
+            params_to_torch_state_dict``): this module's keys, each leaf
+            of the export's shape (3-D ``(Cout, Cin, 27)`` conv kernels,
+            the stride-2 convs as flax leaves); every family through
+            ``torch_state_dict_to_params`` and ``params_to_torch``, then
+            torch's load, whole;
+        (c) a reference-wheel checkpoint: no key of this module's and
+            ``utils.checkpoint.looks_like_reference_state_dict``, e.g.
+            ``configs.load_checkpoint_from_url("ks")["state_dict"]``: the
+            interpolators and the decoders imported by order and shape
+            (``import_reference_state_dict``, lenient as in the JAX
+            package's ``NetworkHandle``), the encoder and the UNet kept as
+            they are; each family's report is printed.
+
+        (a) and (b) return torch's result (missing and unexpected keys,
+        both empty).  (c) returns the module, as the JAX package's
+        ``NetworkHandle.load_state_dict`` returns its handle.  Anything
+        else, such as this module's layout at another width or depth or
+        with keys missing, goes to torch's load with ``strict``, which
+        raises on shapes, and with ``strict`` on keys, that do not
+        match."""
+        from ..utils import checkpoint as CK
+        own = super().state_dict()
+        shapes = {k: tuple(v.shape) for k, v in state_dict.items()}
+        if shapes == {k: tuple(v.shape) for k, v in own.items()}:
+            return super().load_state_dict(state_dict, strict, assign)
+        tree = {"params": CK.torch_to_params(own)}
+        export = CK.params_to_torch_state_dict(tree)
+        if shapes == {k: v.shape for k, v in export.items()}:
+            tree = CK.torch_state_dict_to_params(None, state_dict, tree)
+            return super().load_state_dict(CK.params_to_torch(tree), True,
+                                           assign)
+        if not shapes.keys() & (own.keys() | export.keys()) and \
+                CK.looks_like_reference_state_dict(state_dict):
+            tree, report = CK.import_reference_state_dict(state_dict, tree)
+            for fam, status in report.items():
+                print(f"[nksr_tpu_torch] checkpoint import: {fam}: {status}")
+            super().load_state_dict(CK.params_to_torch(tree), True, assign)
+            return self
+        return super().load_state_dict(state_dict, strict, assign)

@@ -108,6 +108,16 @@ class HostField:
         return self.alpha[0].device
 
     @property
+    def svh(self):
+        """The decoder hierarchy the field lives on, as a ``core/svh.
+        SparseFeatureHierarchy`` on the field's device (the JAX
+        package's ``HostField`` reaches its field's ``svh``)."""
+        from ..core.svh import SparseFeatureHierarchy
+        caps = self.capacities or [len(g.keys) for g in self.host_grids]
+        return SparseFeatureHierarchy.from_host(self.host_grids, caps,
+                                                device=self.device)
+
+    @property
     def has_udf_mask(self) -> bool:
         return self.udf_host is not None and self.mask_field is not None
 
@@ -159,7 +169,7 @@ class HostField:
             if tm is not None:
                 tm.lap("mc: udf support joins")
             out[s:s + len(xb)] = self.mask_field.evaluate_mask(
-                torch.as_tensor(xb, device=self.device), sup) > 0
+                torch.as_tensor(xb, device=self.device), sup_idx=sup) > 0
             if tm is not None:
                 tm.lap("mc: udf mask")
         return out
@@ -182,7 +192,8 @@ class HostField:
             if tm is not None:
                 tm.lap("mc: support joins")
             out = self.field.evaluate_f(
-                torch.as_tensor(xb, device=self.device), idx, grad=grad)
+                torch.as_tensor(xb, device=self.device), grad=grad,
+                sup_idx=idx)
             vals[s:s + len(xb)] = out.value.cpu().numpy()
             mask[s:s + len(xb)] = inside
             if grad:

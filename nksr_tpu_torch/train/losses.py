@@ -208,8 +208,8 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
 
     if lcfg.spatial_weight > 0:
         chi = samples["spatial"].to(dev)
-        pd_chi = field.evaluate_f(chi, _support(out.dec_grids, caps,
-                                                chi)).value
+        pd_chi = field.evaluate_f(
+            chi, sup_idx=_support(out.dec_grids, caps, chi)).value
         with torch.no_grad():
             gt_tsdf = gt_tsdf_from_points(cfg, lcfg, table, chi, ref_xyz,
                                           ref_normal)
@@ -225,8 +225,8 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
         pick = samples["surface"].to(dev)
         sx, sn = ref_xyz[pick], ref_normal[pick]
         want_grad = lcfg.gt_surface_normal > 0
-        ev = field.evaluate_f(sx, _support(out.dec_grids, caps, sx),
-                              grad=want_grad)
+        ev = field.evaluate_f(sx, grad=want_grad,
+                              sup_idx=_support(out.dec_grids, caps, sx))
         if want_grad:
             g = ev.gradient
             g = -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-6)
@@ -248,8 +248,8 @@ def compute_losses(cfg: PipelineConfig, lcfg: LossConfig,
 
     if cfg.udf_enabled and lcfg.udf_weight > 0:
         chi = samples["udf"].to(dev)
-        pd = out.mask_field.evaluate_f(chi, _support(out.cand_grids, caps,
-                                                     chi)).value
+        pd = out.mask_field.evaluate_f(
+            chi, sup_idx=_support(out.cand_grids, caps, chi)).value
         with torch.no_grad():
             gt_tudf = gt_tsdf_from_points(cfg, lcfg, table, chi, ref_xyz,
                                           ref_normal).abs()
@@ -275,10 +275,10 @@ def evaluate_f_bar(cfg: PipelineConfig, out: ForwardOutput,
     of the decoder hierarchy's supports), ``-voxel_size`` elsewhere."""
     caps = tuple(cfg.capacities)
     sup = _support(out.dec_grids, caps, x)
-    f = out.field.evaluate_f(x, sup).value
+    f = out.field.evaluate_f(x, sup_idx=sup).value
     if out.mask_field is not None:
-        m = out.mask_field.evaluate_mask(x, _support(out.cand_grids, caps,
-                                                     x))
+        m = out.mask_field.evaluate_mask(
+            x, sup_idx=_support(out.cand_grids, caps, x))
     else:
         inside = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         for s in sup:

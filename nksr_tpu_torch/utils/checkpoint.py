@@ -16,10 +16,20 @@ holds: maps with string keys, and arrays as extension 1.
 ``TrainState``, so that package's ``load_params`` restores it into
 ``train.loop.init_state``'s template, and ``load_train_state`` resumes
 from a checkpoint of either package.
+
+The torch-style state dicts of the JAX package, on numpy trees: its
+canonical export (``params_to_torch_state_dict`` and its inverse
+``torch_state_dict_to_params``), the family import of the reference
+wheel's checkpoints (``import_reference_state_dict``), and
+``load_checkpoint_from_url``, which resolves a checkpoint's name in the
+local cache ``NKSR_TPU_CKPT_DIR``.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
+import re
 import struct
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -386,3 +396,221 @@ def load_train_state(path, net: torch.nn.Module, device
     tree = load_tree(path)
     net.load_state_dict(params_to_torch(model_params(tree)), strict=True)
     return _tree_to_opt(tree["opt_state"], device), int(tree["step"])
+
+
+# ------------------------------------------------- torch-style state dicts
+# The JAX package's exchange layouts (nksr_tpu/utils/checkpoint.py), on
+# numpy trees: its canonical export (flax paths with "kernel" -> "weight",
+# Dense kernels transposed, conv kernels (27, Cin, Cout) -> (Cout, Cin,
+# 27)) and the import of the reference wheel's family layout.
+def _flat_dotted(tree) -> Dict[str, Any]:
+    """{"a.b.c": leaf} of a nested dict, as the JAX package flattens."""
+    return {".".join(path): leaf for path, leaf in _flatten(tree)}
+
+
+def _rebuild(tree, flat: Dict[str, Any], prefix: str = ""):
+    """``tree``'s structure with the leaves of ``flat`` (by dotted path)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, flat, f"{prefix}{k}.") for k, v in tree.items()}
+    return flat[prefix[:-1]]
+
+
+def _as_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def params_to_torch_state_dict(params) -> Dict[str, np.ndarray]:
+    """The JAX package's canonical torch-style export of a flax tree
+    (``nksr_tpu.utils.checkpoint.params_to_torch_state_dict``): the
+    top-level ``params`` dropped from the paths, ``kernel`` leaves
+    transposed (all axes reversed) under ``weight``, ``scale`` leaves
+    under ``weight``, everything else as it is."""
+    out = {}
+    for k, v in _flat_dotted(params).items():
+        tk = k.replace("params.", "")
+        arr = np.asarray(v)
+        if tk.endswith("kernel"):
+            out[tk[: -len("kernel")] + "weight"] = arr.T
+        elif tk.endswith("scale"):
+            out[tk[: -len("scale")] + "weight"] = arr
+        else:
+            out[tk] = arr
+    return out
+
+
+def torch_state_dict_to_params(cfg, state_dict: Dict[str, Any], template):
+    """Inverse of ``params_to_torch_state_dict`` onto a flax-layout numpy
+    ``template`` (``nksr_tpu.utils.checkpoint.torch_state_dict_to_params``):
+    each template leaf takes the state-dict tensor at its normalised path
+    (transposed for a ``kernel``) where the shapes agree, and keeps its
+    own value elsewhere; raises if no leaf matches.  ``cfg`` is unused,
+    as in the JAX package."""
+    flat_t = {k: _as_numpy(v) for k, v in state_dict.items()}
+    flat_p = _flat_dotted(template)
+    new, missing = {}, []
+    for pk, pv in flat_p.items():
+        tk = pk.replace("params.", "").replace("/", ".")
+        cand = None
+        for suffix, name in (("kernel", "weight"), ("scale", "weight"),
+                             ("bias", "bias"), ("", None)):
+            if suffix and not tk.endswith(suffix):
+                continue
+            base = tk[: -len(suffix)].rstrip(".") if suffix else tk
+            key = f"{base}.{name}" if name else base
+            if key in flat_t:
+                cand = flat_t[key].T if suffix == "kernel" else flat_t[key]
+                break
+        if cand is None or cand.shape != np.shape(pv):
+            missing.append(pk)
+            new[pk] = pv
+        else:
+            new[pk] = np.asarray(cand, np.asarray(pv).dtype)
+    if missing and len(missing) == len(flat_p):
+        raise ValueError(f"state_dict matched no parameters; first keys: "
+                         f"{list(flat_t)[:5]}")
+    return _rebuild(template, new)
+
+
+# The published NKSR checkpoints' top-level families (the reference
+# wheel's ``NKSRNetwork`` submodules).  The interpolator and decoder
+# families are plain MLPs in both networks and map by registration order
+# and shape; the wheel's encoder and UNet are another architecture and
+# are never transplanted.  The JAX package's canonical export has the
+# same five top-level names, so these names alone do not tell a wheel
+# checkpoint from it (``models.network.NKSRNetwork.load_state_dict``
+# decides by key set and shapes first).
+REFERENCE_FAMILIES = ("encoder", "unet", "interpolators",
+                      "sdf_decoder", "udf_decoder")
+
+FAMILY_TO_PARAM_SUBTREE = {
+    "interpolators": ("params", "interpolators"),
+    "sdf_decoder": ("params", "sdf_decoder"),
+    "udf_decoder": ("params", "udf_decoder"),
+    "encoder": ("params", "encoder"),
+    "unet": ("params", "unet"),
+}
+
+
+def looks_like_reference_state_dict(state_dict: Dict[str, Any]) -> bool:
+    """A top-level family name and no ``params.`` key (the JAX package's
+    test, which its own canonical export also passes)."""
+    tops = {k.split(".")[0] for k in state_dict}
+    return bool(tops & set(REFERENCE_FAMILIES)) and \
+        not any(k.startswith("params.") for k in state_dict)
+
+
+def _family_leaves_in_order(subtree, prefix: str = ""):
+    """[(path, leaf)] of a flax subtree, keys sorted with each numeric
+    suffix as a number (``Dense_2`` before ``Dense_10``): the order the
+    layers were registered in."""
+    def sort_key(k):
+        m = re.search(r"_(\d+)$", k)
+        return (re.sub(r"_\d+$", "", k), int(m.group(1)) if m else -1)
+
+    if isinstance(subtree, dict):
+        out = []
+        for k in sorted(subtree, key=sort_key):
+            out.extend(_family_leaves_in_order(subtree[k], f"{prefix}{k}."))
+        return out
+    return [(prefix[:-1], subtree)]
+
+
+def import_reference_state_dict(state_dict: Dict[str, Any], template,
+                                strict: bool = False):
+    """Import a reference-wheel state dict by family onto a flax-layout
+    numpy ``template`` (``nksr_tpu.utils.checkpoint.
+    import_reference_state_dict``).  In each of the interpolator and
+    decoder families the 2-D weights, in the state dict's order, pair
+    with the family's Dense kernels in registration order (transposed),
+    each with its bias where the shapes agree.  Returns ``(params,
+    report)``, report mapping each family to ``mapped (N tensors)``,
+    ``skipped (...)`` or ``absent``; ``strict=True`` raises where an
+    interpolator or decoder family does not map."""
+    flat_t = {k: _as_numpy(v) for k, v in state_dict.items()}
+    report: Dict[str, str] = {}
+    new_flat = dict(_flat_dotted(template))
+
+    for fam in ("interpolators", "sdf_decoder", "udf_decoder"):
+        fam_items = [(k, v) for k, v in flat_t.items()
+                     if k.split(".")[0] == fam]
+        if not fam_items:
+            report[fam] = "absent"
+            continue
+        weights = [(k, v) for k, v in fam_items if v.ndim == 2]
+        biases = {k.rsplit(".", 1)[0]: v for k, v in fam_items
+                  if v.ndim == 1}
+        sub = template
+        for p in FAMILY_TO_PARAM_SUBTREE[fam]:
+            sub = sub.get(p, {}) if isinstance(sub, dict) else {}
+        our_kernels = [(p, leaf) for p, leaf in _family_leaves_in_order(sub)
+                       if p.endswith("kernel")]
+        if len(weights) != len(our_kernels):
+            report[fam] = (f"skipped (layer count mismatch: ckpt "
+                           f"{len(weights)} vs ours {len(our_kernels)})")
+            if strict:
+                raise ValueError(f"{fam}: {report[fam]}")
+            continue
+        ok, staged = True, {}
+        prefix = ".".join(FAMILY_TO_PARAM_SUBTREE[fam])
+        for (tk, tw), (pk, pl) in zip(weights, our_kernels):
+            if tw.T.shape != np.shape(pl):
+                report[fam] = (f"skipped (shape mismatch at {tk}: "
+                               f"{tw.shape} vs {np.shape(pl)})")
+                ok = False
+                break
+            staged[f"{prefix}.{pk}"] = np.asarray(tw.T, np.asarray(pl).dtype)
+            tb = biases.get(tk.rsplit(".", 1)[0])
+            bkey = f"{prefix}.{pk[: -len('kernel')]}bias"
+            if tb is not None and bkey in new_flat and \
+                    tb.shape == np.shape(new_flat[bkey]):
+                staged[bkey] = np.asarray(tb,
+                                          np.asarray(new_flat[bkey]).dtype)
+        if ok:
+            new_flat.update(staged)
+            report[fam] = f"mapped ({len(staged)} tensors)"
+        elif strict:
+            raise ValueError(f"{fam}: {report[fam]}")
+
+    for fam in ("encoder", "unet"):
+        has = any(k.split(".")[0] == fam for k in flat_t)
+        report[fam] = ("skipped (architecture differs: TPU re-design; "
+                       "see utils/checkpoint.py REFERENCE_FAMILIES note)"
+                       if has else "absent")
+    return _rebuild(template, new_flat), report
+
+
+# ------------------------------------------------------------ name lookup
+PRETRAINED = {
+    # the published checkpoints' names
+    "ks": "ks.pth",
+    "snet-n3k-wnormal": "snet-n3k-wnormal.pth",
+    "p2s": "p2s.pth",
+    "carla": "carla.pth",
+}
+
+
+def load_checkpoint_from_url(url: str) -> Dict[str, Any]:
+    """The checkpoint a URL or a ``PRETRAINED`` name names, from the local
+    cache ``NKSR_TPU_CKPT_DIR`` (default ``~/.cache/nksr_tpu``): the file
+    named by the URL's last component, or by its ``PRETRAINED`` entry.
+    A ``.pkl``/``.pickle`` file is unpickled, anything else read by
+    ``torch.load`` (unpickled if that fails).  Nothing is downloaded:
+    a name not in the cache raises ``FileNotFoundError``."""
+    cache = Path(os.environ.get("NKSR_TPU_CKPT_DIR",
+                                Path("~/.cache/nksr_tpu").expanduser()))
+    name = url.rstrip("/").split("/")[-1]
+    for p in (cache / name, cache / PRETRAINED.get(name, name)):
+        if p.exists():
+            if p.suffix in (".pkl", ".pickle"):
+                with open(p, "rb") as f:
+                    return pickle.load(f)
+            try:
+                return torch.load(p, map_location="cpu")
+            except Exception:
+                with open(p, "rb") as f:
+                    return pickle.load(f)
+    raise FileNotFoundError(
+        f"checkpoint '{name}' not found under {cache}; place the file "
+        f"there (nothing is downloaded)")

@@ -87,7 +87,7 @@ def fields():
     mask = NeuralField(vss, [torch.from_numpy(f) for f in ufeats],
                        net.udf_decoder, host_grids=grids)
     udf = mask.evaluate_f(torch.from_numpy(xyz),
-                          mask.host_supports(xyz)).value
+                          sup_idx=mask.host_supports(xyz)).value
     level = float(np.float32(np.median(udf.numpy())))
     mask = mask.set_level_set(level)
     jmask = JNeuralField(

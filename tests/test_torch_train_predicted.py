@@ -29,7 +29,12 @@ that is f32's floor here: the port against itself with every weight
 moved by one ulp differs by 1.4e-2 on that leaf, and the teacher-forced
 step on the same checkpoint differs from JAX's by 1.4e-2 on interp_0's.
 ``LEAF_RTOL`` is twice that; a leaf whose gradient is lost or wrong
-reads about 1.
+reads about 1.  (a)'s JAX side (``jax_reference``) takes about two
+minutes to compile here, so its numbers are kept in
+``tests/data/train_predicted_reference.npz``; rewrite it after a change
+to its inputs with
+
+    env -u PYTHONPATH JAX_PLATFORMS=cpu python scripts/train_predicted_reference.py
 
 (b) The seeded JAX init predicts an empty hierarchy (its stride-2 convs
 start at zero, so the coarsest decoder features and logits are exactly
@@ -77,6 +82,10 @@ from nksr_tpu_torch.utils.profiling import PhaseTimer
 JPCG = importlib.import_module("nksr_tpu.solver.pcg")
 REPO = Path(__file__).resolve().parents[1]
 RUN = REPO / "runs" / "synth_r3c"
+# the JAX side of ``parity`` (``jax_reference``; its compile takes about
+# two minutes on the CPU), written by scripts/train_predicted_reference.py
+REF = Path(__file__).resolve().parent / "data" / \
+    "train_predicted_reference.npz"
 PRED_TOL = 1e-5
 PRED_ITERS = 4000
 MARGIN_FRAC = 1e-4
@@ -179,11 +188,14 @@ def min_margin(logits: np.ndarray) -> float:
     return float((s[:, -1] - s[:, -2]).min())
 
 
-@pytest.fixture(scope="module")
-def parity():
-    cfg = r3c_config()
-    jcfg = jax_config(cfg)
-    params = {"params": model_params(load_tree(RUN / "best.ckpt"))}
+def r3c_params():
+    return {"params": model_params(load_tree(RUN / "best.ckpt"))}
+
+
+def jax_reference():
+    """The JAX side of ``parity``: the predicted step's value and
+    gradient from the trained checkpoint, its draws, and the (iterations,
+    relative residual) of each of its PCG solves."""
     jstats = []
     real_pcg = JPCG.pcg
 
@@ -196,12 +208,54 @@ def parity():
     mp.setattr(JPCG, "pcg", recording_pcg)
     try:
         r = jax_predicted_step(
-            jcfg, jax.tree_util.tree_map(jax.numpy.asarray, params), True)
+            jax_config(r3c_config()),
+            jax.tree_util.tree_map(jax.numpy.asarray, r3c_params()), True)
     finally:
         mp.undo()
-    _, lcfg = port_configs(jcfg, JLCFG)
+    r["jax_stats"] = jstats
+    return r
+
+
+def save_reference(path, r) -> None:
+    """``jax_reference()``'s numbers as an npz (lists by position, names
+    in their order)."""
+    out = {"loss_names": np.array(list(r["jax_losses"])),
+           "loss_values": np.array(list(r["jax_losses"].values()),
+                                   np.float64),
+           "grad_names": np.array(list(r["jax_grads"])),
+           "stats": np.array(r["jax_stats"], np.float64),
+           "spatial": r["samples"]["spatial"].numpy(),
+           "surface": r["samples"]["surface"].numpy()}
+    out.update({f"grad_{i}": v for i, v in enumerate(r["jax_grads"].values())})
+    for name in ("jax_logits", "jax_cand", "jax_dec"):
+        out.update({f"{name}_{d}": v for d, v in enumerate(r[name])})
+    np.savez_compressed(path, **out)
+
+
+def load_reference(path=REF):
+    """Inverse of ``save_reference``."""
+    with np.load(path) as z:
+        depth = sum(k.startswith("jax_cand_") for k in z.files)
+        r = {name: [z[f"{name}_{d}"] for d in range(depth)]
+             for name in ("jax_logits", "jax_cand", "jax_dec")}
+        r["jax_losses"] = {str(k): float(v) for k, v in
+                           zip(z["loss_names"], z["loss_values"])}
+        r["jax_grads"] = {str(k): z[f"grad_{i}"]
+                          for i, k in enumerate(z["grad_names"])}
+        r["jax_stats"] = [(int(i), float(rel)) for i, rel in z["stats"]]
+        r["samples"] = {"spatial": torch.tensor(z["spatial"]),
+                        "surface": torch.tensor(z["surface"]).long()}
+    return r
+
+
+@pytest.fixture(scope="module")
+def parity():
+    cfg = r3c_config()
+    params = r3c_params()
+    r = load_reference()
+    _, lcfg = port_configs(jax_config(cfg), JLCFG)
     r.update(port_predicted_step(cfg, lcfg, params, r["samples"]))
-    r.update(jax_stats=jstats, tol=cfg.solver_tol, cfg=cfg, params=params)
+    r.update(tol=cfg.solver_tol, cfg=cfg, params=params)
     return r
 
 
