@@ -290,6 +290,32 @@ Phases (any failure ends the run with a non-zero exit):
      (``utils/checkpoint.params_to_torch_state_dict``) loaded whole into
      a seeded network.  Under API_PHASE_LIMIT_S seconds.  The kernels
      line gains each kernel's launches on (a)'s lap (``launches_api``).
+ 16. (run after phase 15) multi-device reconstruction (ROADMAP item 15a):
+     ``reconstruct(..., mesh=parallel.make_mesh())`` and the sharded
+     ``extract_dual_mesh(mise_iter=1)``, in worlds of child processes
+     (``python3 chip_smoke.py --sharded ROLE RANK WORLD STORE OUT``, a
+     ``FileStore`` rendezvous) at scene_big's full width under phase 3's
+     settings: (a) an NCCL world of one on the 40 m tile (1M points);
+     beside it, a probe of NCCL with two ranks on the one card (recorded,
+     expected to be refused); then a gloo world of two, both ranks on
+     the card (compute on the card, halos, dots and gathers through
+     host copies): (b) the tile, two laps; (c) the (-x, -y) 20 m
+     quadrant on the predicted (default), adaptive (depth 2, tau
+     ADAPTIVE_ROUTE_TAU) and UDF-on splat (``config.yaml``, trimmed)
+     routes; (d) the quadrant in four 10 m chunks (``chunk_size=10,
+     mesh=``).  Gates: the terrain error means under ERR_LIMIT,
+     PRED_ERR_LIMIT, ADAPTIVE_QUADRANT_LIMIT and UDF_SPLAT_ERR_LIMIT;
+     against the single-device lap of the same scene on the card the
+     vertex count within SHARDED_COUNT_TOL and every sampled vertex
+     within SHARDED_MESH_TOL of that mesh (tests/test_parallel.py:
+     242-245); (b)'s laps bit-equal in coefficients and mesh, both ranks'
+     meshes equal; (d)'s chunks bit-equal to the serial chunked lap's;
+     each lap the lattice launches; ``av0_rows``, ``av0_adjoint_rows`` and
+     ``av0_cascade`` held against their plain versions at one slab's
+     specs from (b)'s plan.  A child's failure, or a world past
+     SHARDED_TIMEOUT, fails the script.  The kernels line gains each
+     kernel's launches on (a)'s lap and on (b)'s first lap (rank 0)
+     (``launches_sharded``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -532,6 +558,15 @@ ROUTE_B_TILE_TIMEOUT = 600
 # Phase 15, the public API: its time limit, so that the script stays
 # within its own
 API_PHASE_LIMIT_S = 30.0
+# phase 16: the mesh gates against the single-device lap of the same scene
+# (tests/test_parallel.py:242-245), the chunk size of (d), the seconds
+# the script waits for the worlds, and for the NCCL probe of two ranks
+# on one card
+SHARDED_COUNT_TOL = 0.01
+SHARDED_MESH_TOL = 0.05
+SHARDED_CHUNK = 10.0
+SHARDED_TIMEOUT = 480
+NCCL_PROBE_TIMEOUT = 90
 TEXTURE_TIE_RTOL = 1e-6
 NEURAL_PROBES = 4096
 NEURAL_FIELD_TOL = 1e-4
@@ -3839,6 +3874,358 @@ def api_laps(params, recon, xyz, nrm, counters, splat_launches):
                       "svh_host_build_s": host_build_s}
 
 
+# ------------------------------------------- phase 16: sharded worlds
+def quadrant_xyz(xyz, nrm):
+    """The (-x, -y) 20 m quadrant."""
+    q = (xyz[:, 0] < 0) & (xyz[:, 1] < 0)
+    return xyz[q], nrm[q]
+
+
+def quadrant_mesh_error(mesh):
+    """Terrain error over the used vertices 1 m inside the (-x, -y)
+    quadrant (``quadrant_error``'s measure for one quadrant)."""
+    v = mesh.v[np.unique(mesh.f)]
+    ax, ay = -v[:, 0], -v[:, 1]
+    v = v[(ax > 1) & (ax < 19) & (ay > 1) & (ay < 19)]
+    return np.abs(v[:, 2] - _height(v[:, 0], v[:, 1]))
+
+
+def mesh_digest(mesh) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(mesh.v).tobytes()
+                          + np.ascontiguousarray(mesh.f).tobytes()
+                          ).hexdigest()
+
+
+def sharded_lap(recon, xyz, nrm, mesh, structure, kw=KW, counters=None):
+    """One ``reconstruct(..., mesh=)`` + sharded ``extract_dual_mesh``,
+    with the counts set to 0 just before and read just after: a record
+    and (field, mesh)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if counters is not None:
+        reset_counts(counters.values())
+    t0 = time.perf_counter()
+    field = recon.reconstruct(xyz, nrm, structure=structure, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = field.extract_dual_mesh(mise_iter=1)
+    torch.cuda.synchronize()
+    rec = {"reconstruct_s": t1 - t0,
+           "extract_mesh_s": time.perf_counter() - t1,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "verts": len(m.v), "faces": len(m.f),
+           "solver": str(field.solver_stats),
+           "phases": {k: round(v, 4) for k, v in field.phase_times.items()},
+           "digest": mesh_digest(m)}
+    if counters is not None:
+        rec["launches"] = read_counts(counters)
+    if field.sharded is None or "sharded dual mc" not in field.phase_times:
+        raise AssertionError(f"[phase 16] a {structure} lap with mesh= was "
+                             f"not sharded: {sorted(field.phase_times)}")
+    if field.trim_stats is not None:
+        rec["trim"] = {k: field.trim_stats[k] for k in ("faces", "dropped")}
+    return rec, field, m
+
+
+def against_single(tag, m, single, err, limit):
+    """Phase 16's mesh gates: a finite mesh, the terrain error mean under
+    ``limit``, and against the single-device mesh ``single`` the vertex
+    count within SHARDED_COUNT_TOL and sampled vertices (about 4096)
+    within SHARDED_MESH_TOL.  Returns the record."""
+    from scipy.spatial import cKDTree
+    sample = m.v[::max(len(m.v) // 4096, 1)]
+    dist = cKDTree(single.v).query(sample)[0] if len(sample) else \
+        np.array([np.inf])
+    rec = {"err_mean": float(err.mean()), "err_q90": float(
+        np.quantile(err, 0.9)), "err_max": float(err.max()),
+        "limit": limit, "single_verts": len(single.v),
+        "count_rel": abs(len(m.v) - len(single.v)) / max(len(single.v), 1),
+        "sample_dist_max": float(dist.max())}
+    if not (len(m.f) and np.isfinite(m.v).all()
+            and rec["err_mean"] <= limit
+            and rec["count_rel"] <= SHARDED_COUNT_TOL
+            and rec["sample_dist_max"] <= SHARDED_MESH_TOL):
+        raise AssertionError(f"[phase 16] {tag}: {rec}")
+    return rec
+
+
+def slab_kernel_checks(LK, field, gen):
+    """``av0_rows`` and ``av0_adjoint_rows`` at one slab's solve spec
+    (slab plus one halo plane), on its real slot cells, and
+    ``av0_cascade`` at its mesher spec (slab plus two), each against its
+    plain version (``compare_rows``, ``compare_adjoint_rows``,
+    ``compare_kernels``); outside the counted laps."""
+    from nksr_tpu_torch.parallel.mesh_shard import _mesh_spec
+    from nksr_tpu_torch.scripts import time_adjoint as TA
+    splan = field.sharded.splan
+    spec_l = splan.spec_local
+    cells = torch.as_tensor(np.concatenate(
+        [splan.slot_cell0_pt[0], splan.slot_cell0_gr[0]]), device="cuda",
+        dtype=torch.int32)
+    xs = [torch.randn((spec_l.n_cells(d), spec_l.k), device="cuda",
+                      generator=gen) for d in range(spec_l.depth)]
+    rows = compare_rows(LK, spec_l, xs, cells, timed=False)
+    adj = compare_adjoint_rows(LK, TA, spec_l, cells, cells,
+                               spec_l.s_pt, gen, timed=False)
+    spec_m = _mesh_spec(field.sharded.plan.spec, splan.slab_x)
+    fwd = compare_kernels(LK, spec_m, gen, timed=False)
+    torch.cuda.empty_cache()
+    return {"solve_spec": [list(d) for d in spec_l.dims],
+            "mesh_spec": [list(d) for d in spec_m.dims],
+            "rows": len(cells), "rows_err": rows["err"],
+            "adjoint_rows_err": adj["err"], "cascade_err": fwd["fwd_err"],
+            "cascade_adjoint_err": fwd["adj_err"]}
+
+
+def sharded_world_child(role: str, rank: int, world: int, store: str,
+                        out: str) -> int:
+    """One rank of phase 16 (``--sharded``): ROLE "nccl1" runs (a),
+    "gloo2" (b) to (d), "nccl_probe" the NCCL probe of two ranks on one
+    card.  Writes its record to ``OUT.rRANK.json``; a gate that fails
+    raises."""
+    import datetime
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = "0"      # every rank is on the one card
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo" if role == "gloo2" else "nccl",
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    path = f"{out}.r{rank}.json"
+    if role == "nccl_probe":
+        rec = {"role": role}
+        try:
+            t = torch.ones(1, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            rec["result"] = f"ran: all_reduce gave {float(t)}"
+        except Exception as e:          # the refusal is the finding
+            rec["result"] = f"refused: {type(e).__name__}: {e}"[:600]
+        with open(path, "w") as f:
+            json.dump(rec, f)
+        os._exit(0)                     # a failed communicator may hang
+    from nksr_tpu_torch import PipelineConfig, Reconstructor
+    from nksr_tpu_torch.fields import lattice_kernels as LK
+    from nksr_tpu_torch.parallel import make_mesh
+    from nksr_tpu_torch.train.driver import pipeline_config_from_yaml
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.config import load_config
+    from nksr_tpu_torch.utils.scenes import synthetic_scene
+    mesh = make_mesh("cuda")
+    counters = kernel_counters()
+    params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
+    recon = Reconstructor(config=PipelineConfig(conv_dtype="bfloat16"),
+                          params=params)
+    xyz, nrm = synthetic_scene(N_POINTS)
+    rec = {"role": role, "rank": rank, "world": world,
+           "backend": dist.get_backend()}
+    if role == "gloo2":
+        go = out + ".go"
+        t0 = time.perf_counter()
+        while not os.path.exists(go):   # the parent starts it after (a)
+            if time.perf_counter() - t0 > SHARDED_TIMEOUT:
+                raise AssertionError("[phase 16] no go from the parent")
+            time.sleep(0.2)
+    # the single-device lap of the tile (rank 0; the warm-up of the laps)
+    single = main_path_lap(recon, xyz, nrm)[3] if rank == 0 else None
+    dist.barrier()
+    laps = []
+    for _ in range(1 if role == "nccl1" else 2):
+        lap, field, m = sharded_lap(recon, xyz, nrm, mesh, "splat",
+                                    counters=counters)
+        check_lattice_launches(f"phase 16 {role}", lap["launches"], field)
+        laps.append((lap, [a.clone() for a in field.alpha], m))
+    lap, _, m = laps[0]
+    if rank == 0:
+        lap["gates"] = against_single(f"{role} tile", m, single,
+                                      terrain_error(m)[0], ERR_LIMIT)
+        lap["single_verts"] = len(single.v)
+    rec["tile"] = lap
+    del single
+    if role == "gloo2":
+        same = lap_diff(*[(a, mm.v, mm.f) for _, a, mm in laps])
+        rec["tile_laps"] = same
+        rec["tile_second"] = laps[1][0]
+        if "coefficients bit-equal" not in same or "mesh bit-equal" \
+                not in same:
+            raise AssertionError(f"[phase 16] (b) two laps: {same}")
+        if rank == 0:
+            rec["slab_kernels"] = slab_kernel_checks(
+                LK, field, torch.Generator(device="cuda").manual_seed(16))
+    del laps, field, m
+    torch.cuda.empty_cache()
+    if role == "nccl1":
+        return _write_json(path, rec)
+
+    # (c) the quadrant on three routes
+    xq, nq = quadrant_xyz(xyz, nrm)
+    udf_cfg = dataclasses.replace(pipeline_config_from_yaml(load_config(
+        os.path.join(REPO, UDF_CONFIG))), conv_dtype="bfloat16")
+    routes = (
+        ("predicted", recon, PRED_ERR_LIMIT),
+        ("adaptive", Reconstructor(config=PipelineConfig(
+            conv_dtype="bfloat16", adaptive_depth=2,
+            adaptive_tau=ADAPTIVE_ROUTE_TAU), params=params),
+         ADAPTIVE_QUADRANT_LIMIT),
+        ("splat", Reconstructor(config=udf_cfg, params=params),
+         UDF_SPLAT_ERR_LIMIT))
+    rec["quadrant"] = {}
+    for structure, r_, limit in routes:
+        dist.barrier()
+        lap, field, m = sharded_lap(r_, xq, nq, mesh, structure)
+        if rank == 0:
+            single = main_path_lap(r_, xq, nq, structure)[3]
+            lap["gates"] = against_single(
+                f"(c) {structure}", m, single, quadrant_mesh_error(m), limit)
+        if structure == "splat" and not lap.get("trim", {}).get("dropped"):
+            raise AssertionError("[phase 16] (c) the UDF splat lap trimmed "
+                                 "nothing")
+        rec["quadrant"]["udf splat" if structure == "splat"
+                        else structure] = lap
+        del field, m
+        torch.cuda.empty_cache()
+
+    # (d) the quadrant in four 10 m chunks, chunk i on rank i % 2
+    crecon = Reconstructor(config=PipelineConfig(
+        conv_dtype="bfloat16", structure_mode="splat", solver_tol=1e-4,
+        solver_max_iters=KW["solver_max_iters"]), params=params)
+    dist.barrier()
+    t0 = time.perf_counter()
+    cf = crecon.reconstruct(xq, nq, chunk_size=SHARDED_CHUNK,
+                            solver_tol=1e-4, mesh=mesh)
+    torch.cuda.synchronize()
+    chunks = {"reconstruct_s": time.perf_counter() - t0,
+              "chunks": len(cf.chunks),
+              "phases": {k: round(v, 4) for k, v in cf.phase_times.items()}}
+    probes = xq[::64]
+    if rank == 0:
+        serial = crecon.reconstruct(xq, nq, chunk_size=SHARDED_CHUNK,
+                                    solver_tol=1e-4)
+        same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            chunk_alphas(cf), chunk_alphas(serial)))
+        for c in (cf, serial):
+            for ch in c.chunks:
+                ch["field"].to("cuda")
+        same_f = np.array_equal(cf.evaluate_f_bar(probes),
+                                serial.evaluate_f_bar(probes))
+        chunks.update(bit_equal_alphas=same, bit_equal_blend=same_f,
+                      serial_chunks=len(serial.chunks))
+        if len(cf.chunks) != 4 or not (same and same_f):
+            raise AssertionError(f"[phase 16] (d) the sharded chunks differ "
+                                 f"from the serial ones: {chunks}")
+    rec["chunks"] = chunks
+    return _write_json(path, rec)
+
+
+def _write_json(path, rec) -> int:
+    import torch.distributed as dist
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_world(role: str, world: int, tag: str):
+    """Start a world of ``world`` ranks of ``sharded_world_child``:
+    (processes, output path)."""
+    import atexit
+    base = os.path.join(REPO, "data", f"chip_smoke_sharded_{tag}")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    for suffix in [".store", ".go"] + [f".r{r}.json" for r in range(world)]:
+        if os.path.exists(base + suffix):
+            os.remove(base + suffix)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded", role, str(r), str(world),
+                               base + ".store", base], cwd=REPO)
+             for r in range(world)]
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs, base
+
+
+def finish_world(procs, base, deadline, must_pass=True):
+    """Wait for a world until ``deadline`` (``time.perf_counter()``),
+    killing its ranks past it: the ranks' records, or an
+    AssertionError."""
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+        except subprocess.TimeoutExpired:
+            break
+    late = [p for p in procs if p.poll() is None]
+    for p in late:
+        p.kill()
+        p.wait()
+    recs = []
+    for r in range(len(procs)):
+        path = f"{base}.r{r}.json"
+        recs.append(json.load(open(path)) if os.path.exists(path) else None)
+    rcs = [p.returncode for p in procs]
+    if must_pass and (late or any(rcs) or None in recs):
+        raise AssertionError(f"[phase 16] {os.path.basename(base)}: exit "
+                             f"codes {rcs}, {len(late)} killed at the "
+                             "time limit")
+    return recs
+
+
+def sharded_laps():
+    """Phase 16 (see the module docstring): returns (launches by kernel
+    key for (a) and (b), the phase's record)."""
+    t_phase = time.perf_counter()
+    a_world = start_world("nccl1", 1, "a")
+    probe = start_world("nccl_probe", 2, "probe")
+    b_world = start_world("gloo2", 2, "b")
+    a_rec = finish_world(*a_world, t_phase + SHARDED_TIMEOUT)[0]
+    # (b) to (d) start once (a)'s laps are done: their ranks loaded the
+    # model and drew the scene beside it
+    open(b_world[1] + ".go", "w").close()
+    probe_rec = finish_world(*probe, t_phase + NCCL_PROBE_TIMEOUT,
+                             must_pass=False)
+    b_recs = finish_world(*b_world, time.perf_counter() + SHARDED_TIMEOUT)
+    b0, b1 = b_recs
+    if b0["tile"]["digest"] != b1["tile"]["digest"] or any(
+            b0["quadrant"][k]["digest"] != b1["quadrant"][k]["digest"]
+            for k in b0["quadrant"]):
+        raise AssertionError("[phase 16] the ranks' meshes differ")
+    rec = {"a": a_rec, "b": b0, "b_rank1_tile": b1["tile"],
+           "nccl_two_ranks_one_card": [r["result"] if r else "no record "
+                                       "(killed at the limit)"
+                                       for r in probe_rec],
+           "seconds": time.perf_counter() - t_phase}
+    for tag, lap in (("(a) NCCL world of one, tile", a_rec["tile"]),
+                     ("(b) gloo world of two, tile, rank 0", b0["tile"])):
+        print(f"[phase 16] {tag}: reconstruct_s {lap['reconstruct_s']:.3f} "
+              f"extract_mesh_s {lap['extract_mesh_s']:.3f} peak "
+              f"{lap['peak_gib']:.2f} GiB, {lap['verts']} vertices, "
+              f"{lap['solver']}, launches {lap['launches']}, gates "
+              f"{lap['gates']}; phases {json.dumps(lap['phases'])}",
+              flush=True)
+    print(f"[phase 16] (b) the two laps: {b0['tile_laps']}; both ranks' "
+          "meshes equal", flush=True)
+    print("[phase 16] (b) kernels at one slab's specs against their plain "
+          "versions: " + json.dumps(b0["slab_kernels"]), flush=True)
+    for k, lap in b0["quadrant"].items():
+        print(f"[phase 16] (c) quadrant, {k}: reconstruct_s "
+              f"{lap['reconstruct_s']:.3f} extract_mesh_s "
+              f"{lap['extract_mesh_s']:.3f}, {lap['verts']} vertices, gates "
+              f"{lap['gates']}" + (f", trim {lap['trim']}" if "trim" in lap
+                                   else ""), flush=True)
+    print(f"[phase 16] (d) quadrant in 10 m chunks: {b0['chunks']}",
+          flush=True)
+    print(f"[phase 16] NCCL, two ranks on one card: "
+          f"{rec['nccl_two_ranks_one_card']}", flush=True)
+    return {"a": a_rec["tile"]["launches"],
+            "b": b0["tile"]["launches"]}, rec
+
+
 def kernel_counters() -> dict:
     """The main path's counted kernel wrappers, by key."""
     from nksr_tpu_torch.fields import lattice_kernels as LK
@@ -4240,6 +4627,13 @@ def main() -> int:
                              f"over {API_PHASE_LIMIT_S} s")
     torch.cuda.empty_cache()
 
+    # ---- phase 16: multi-device reconstruction in worlds of child
+    # processes on the card
+    sharded_launches, sharded_rec = sharded_laps()
+    print(f"[phase 16] {sharded_rec['seconds']:.1f} s; record "
+          + json.dumps(sharded_rec), flush=True)
+    print(smi, flush=True)
+
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
     reset_counts(scatter_counters)
@@ -4321,6 +4715,8 @@ def main() -> int:
         rec["launches_adaptive_a"] = ad_a_launches[key]
         rec["launches_adaptive_b"] = ad_b_launches[key]
         rec["launches_api"] = api_launches[key]
+        rec["launches_sharded"] = {w: sharded_launches[w][key]
+                                   for w in ("a", "b")}
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -4403,4 +4799,8 @@ if __name__ == "__main__":
         sys.exit(train_cpu_reference(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--route-b-tile":
         sys.exit(route_b_tile_lap(sys.argv[2]))
+    if len(sys.argv) == 7 and sys.argv[1] == "--sharded":
+        sys.exit(sharded_world_child(sys.argv[2], int(sys.argv[3]),
+                                     int(sys.argv[4]), sys.argv[5],
+                                     sys.argv[6]))
     sys.exit(main())

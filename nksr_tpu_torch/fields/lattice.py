@@ -501,6 +501,102 @@ def gram_middle(spec: LatticeSpec, adj_tables, y: torch.Tensor,
         slot_cells0, compute_dtype)
 
 
+class SlotOperator:
+    """The solve rows' operator on one coefficient lattice: ``A`` maps
+    the per-depth lattices ``xs`` to the rows' values through AV0's slot
+    rows (``av0_rows``) and each slot's basis block, ``A^T`` maps row
+    values back through the transposed blocks and the slot-row adjoint
+    (``av0_adjoint_rows``).  Row blocks hold ``compute_dtype`` values in
+    f32; pad point slots and inactive gradient slots (``real`` False)
+    are dropped by the adjoint.
+
+    ``extend`` and ``fold`` wrap the lattice: ``extend(xs)`` gives the
+    lattices the kernels read (the sharded solve's slab plus its right
+    halo plane, ``parallel/lattice_shard.py``) and ``fold`` maps the
+    adjoint's lattices back (the halo plane folded onto the right
+    neighbour's); by default both are the identity."""
+
+    def __init__(self, spec: LatticeSpec, b_pt: torch.Tensor,
+                 b_gr: torch.Tensor, slot_cell0_pt: torch.Tensor,
+                 slot_cell0_gr: torch.Tensor, real: torch.Tensor,
+                 compute_dtype, extend=None, fold=None):
+        self.spec, self.b_pt, self.b_gr = spec, b_pt, b_gr
+        self.cdt = compute_dtype
+        # one index for both row families: point slots, then gradient slots
+        self.slot_cells0 = torch.cat([slot_cell0_pt, slot_cell0_gr]).to(
+            torch.int32)
+        self.s_pt, self.s_gr = slot_cell0_pt.shape[0], slot_cell0_gr.shape[0]
+        # pad point slots (no point) and inactive gradient slots hold zero
+        # rows; the adjoint drops them (cell -1) rather than fold +-0.0 into
+        # one cell, a segment of some 10^5 rows at the bench plan that one
+        # thread would walk alone.  Dropped zeros move at most a zero's sign.
+        with record_function("lattice_solve: adjoint tables"):
+            self.adj_tables = LK.adjoint_rows_tables(
+                spec, torch.where(real, self.slot_cells0, -1))
+        self.extend = extend or (lambda xs: xs)
+        self.fold = fold or (lambda ys: ys)
+
+    def contract(self, av):
+        """Each slot's basis block times its AV0 row: the rows' values
+        (s_pt, r) and (s_gr, 3)."""
+        s_pt = self.s_pt
+        t_pt = torch.bmm(self.b_pt, av[:s_pt, :, None])[..., 0]
+        t_gr = torch.bmm(self.b_gr, av[s_pt:, :, None])[..., 0]
+        return t_pt, t_gr
+
+    def slot_rows(self, t_pt, t_gr):
+        """The transposed contraction: the slot rows, point slots then
+        gradient slots, in one f32 buffer, from row values rounded to
+        the compute dtype."""
+        s_pt, cdt = self.s_pt, self.cdt
+        y = torch.empty((s_pt + self.s_gr, self.spec.lanes),
+                        dtype=torch.float32, device=self.b_pt.device)
+        torch.bmm(self.b_pt.transpose(1, 2), t_pt.to(cdt).float()[..., None],
+                  out=y[:s_pt, :, None])
+        torch.bmm(self.b_gr.transpose(1, 2), t_gr.to(cdt).float()[..., None],
+                  out=y[s_pt:, :, None])
+        return y
+
+    def adjoint(self, y, dtype):
+        """The slot-row adjoint of the slot rows ``y``, read in ``dtype``,
+        folded back onto the lattice."""
+        return self.fold(LK.av0_adjoint_rows(self.spec, self.adj_tables, y,
+                                             dtype))
+
+    def apply_A(self, xs):
+        return self.contract(LK.av0_rows(self.spec, self.extend(xs),
+                                         self.slot_cells0, self.cdt))
+
+    def apply_AT(self, t_pt, t_gr):
+        return self.adjoint(self.slot_rows(t_pt, t_gr), self.cdt)
+
+
+def primal_system(op: SlotOperator, w_pt, w_gr, gr_targets,
+                  reg_weight: float):
+    """The primal normal equations ``(A^T W A + reg I) x = A^T W y`` on
+    ``op``: (matvec, rhs, Jacobi preconditioner).  The gradient rows'
+    targets ``gr_targets`` (s_gr, 3) are in slot order; value rows have
+    target 0."""
+    b_pt, b_gr = op.b_pt, op.b_gr
+
+    def matvec(xs):
+        t_pt, t_gr = op.apply_A(xs)
+        y = op.apply_AT(w_pt * t_pt, w_gr[:, None] * t_gr)
+        return tuple(yi + reg_weight * xi for yi, xi in zip(y, xs))
+
+    with record_function("lattice_solve: rhs"):
+        rhs = op.apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
+
+    # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k),
+    # mapped back by the adjoint in f32
+    with record_function("lattice_solve: jacobi diagonal"):
+        dy = torch.cat([(b_pt ** 2 * w_pt[..., None]).sum(1),
+                        (b_gr ** 2).sum(1) * w_gr[:, None]])
+        diag = tuple(a + reg_weight for a in op.adjoint(dy, torch.float32))
+        del dy
+    return matvec, rhs, lambda r: tuple(ri / di for ri, di in zip(r, diag))
+
+
 @torch.no_grad()
 def lattice_solve(spec: LatticeSpec, interp: Interpolators,
                   basis_features: Sequence[torch.Tensor],
@@ -538,9 +634,8 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     if formulation not in FORMULATIONS:
         raise ValueError(f"unknown solver formulation {formulation!r}; "
                          f"one of {FORMULATIONS}")
-    depth, k = spec.depth, spec.k
+    depth = spec.depth
     cdt = compute_dtype
-    f32 = torch.float32
     dev = xyz_sorted.device
     gr_targets = gr_targets[gr_perm]
 
@@ -563,42 +658,9 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
     m_vox = torch.clamp(gr_active.float().sum(), min=1.0)
     w_pt = m_pt * (pos_weight / n_pts)                          # (s_pt, r)
     w_gr = gr_active.float() * (normal_weight / m_vox * voxel_size ** 2)
-    # one index for both row families: point slots, then gradient slots
-    slot_cells0 = torch.cat([slot_cell0_pt, slot_cell0_gr]).to(torch.int32)
-    s_pt, s_gr = slot_cell0_pt.shape[0], slot_cell0_gr.shape[0]
-    # pad point slots (no point) and inactive gradient slots hold zero
-    # rows; the adjoint drops them (cell -1) rather than fold +-0.0 into
-    # one cell, a segment of some 10^5 rows at the bench plan that one
-    # thread would walk alone.  Dropped zeros move at most a zero's sign.
     real = torch.cat([m_pt.amax(1) > 0, gr_active])
-    with record_function("lattice_solve: adjoint tables"):
-        adj_tables = LK.adjoint_rows_tables(
-            spec, torch.where(real, slot_cells0, -1))
-
-    def contract(av):
-        """Each slot's basis block times its AV0 row: the rows' values
-        (s_pt, r) and (s_gr, 3)."""
-        t_pt = torch.bmm(b_pt, av[:s_pt, :, None])[..., 0]
-        t_gr = torch.bmm(b_gr, av[s_pt:, :, None])[..., 0]
-        return t_pt, t_gr
-
-    def slot_rows(t_pt, t_gr):
-        """The transposed contraction: the slot rows, point slots then
-        gradient slots, in one f32 buffer, from row values rounded to
-        the compute dtype."""
-        y = torch.empty((s_pt + s_gr, spec.lanes), dtype=f32, device=dev)
-        torch.bmm(b_pt.transpose(1, 2), t_pt.to(cdt).float()[..., None],
-                  out=y[:s_pt, :, None])
-        torch.bmm(b_gr.transpose(1, 2), t_gr.to(cdt).float()[..., None],
-                  out=y[s_pt:, :, None])
-        return y
-
-    def apply_A(xs):
-        return contract(LK.av0_rows(spec, xs, slot_cells0, cdt))
-
-    def apply_AT(t_pt, t_gr):
-        return LK.av0_adjoint_rows(spec, adj_tables, slot_rows(t_pt, t_gr),
-                                   cdt)
+    op = SlotOperator(spec, b_pt, b_gr, slot_cell0_pt, slot_cell0_gr, real,
+                      cdt)
 
     if formulation == "dual":
         # (nksr_tpu/fields/lattice.py:1243-1319, its default "gram"
@@ -607,9 +669,9 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
 
         def matvec(u):
             u_pt, u_gr = u
-            t_pt, t_gr = contract(gram_middle(
-                spec, adj_tables, slot_rows(sw_pt * u_pt, sw_gr * u_gr),
-                slot_cells0, cdt))
+            t_pt, t_gr = op.contract(gram_middle(
+                spec, op.adj_tables, op.slot_rows(sw_pt * u_pt, sw_gr * u_gr),
+                op.slot_cells0, cdt))
             return (sw_pt * t_pt + reg_weight * u_pt,
                     sw_gr * t_gr + reg_weight * u_gr)
 
@@ -619,34 +681,20 @@ def lattice_solve(spec: LatticeSpec, interp: Interpolators,
         with record_function("lattice_solve: jacobi diagonal"):
             diag = (w_pt * (b_pt ** 2).sum(-1) + reg_weight,
                     w_gr[:, None] * (b_gr ** 2).sum(-1) + reg_weight)
+
+        def precond(r):
+            return tuple(ri / di for ri, di in zip(r, diag))
     else:
-        def matvec(xs):
-            t_pt, t_gr = apply_A(xs)
-            y = apply_AT(w_pt * t_pt, w_gr[:, None] * t_gr)
-            return tuple(yi + reg_weight * xi for yi, xi in zip(y, xs))
-
-        # rhs = A_g^T W_g targets (value rows have target 0)
-        with record_function("lattice_solve: rhs"):
-            rhs = apply_AT(torch.zeros_like(w_pt), w_gr[:, None] * gr_targets)
-
-        # Jacobi diagonal: sum over rows of w * basis^2 per (cell, k),
-        # mapped back by the adjoint in f32
-        with record_function("lattice_solve: jacobi diagonal"):
-            dy = torch.cat([(b_pt ** 2 * w_pt[..., None]).sum(1),
-                            (b_gr ** 2).sum(1) * w_gr[:, None]])
-            diag = tuple(a + reg_weight for a in
-                         LK.av0_adjoint_rows(spec, adj_tables, dy, f32))
-            del dy
+        matvec, rhs, precond = primal_system(op, w_pt, w_gr, gr_targets,
+                                             reg_weight)
 
     with record_function("lattice_solve: pcg"):
-        xs, iters, rel_res = pcg(
-            matvec, rhs,
-            precond=lambda r: tuple(ri / di for ri, di in zip(r, diag)),
-            tol=tol, max_iters=max_iters)
+        xs, iters, rel_res = pcg(matvec, rhs, precond=precond, tol=tol,
+                                 max_iters=max_iters)
     if formulation == "dual":
         # x = A^T W^1/2 u, through the primal's adjoint (rows in cdt)
         with record_function("lattice_solve: back-substitution"):
-            xs = apply_AT(sw_pt * xs[0], sw_gr * xs[1])
+            xs = op.apply_AT(sw_pt * xs[0], sw_gr * xs[1])
 
     alphas = []
     for d in range(depth):

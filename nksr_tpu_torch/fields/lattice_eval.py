@@ -48,9 +48,16 @@ def _upsample_to_0(a: torch.Tensor, spec, d: int) -> torch.Tensor:
 def prepare_tables(spec, dense_xs, basis_features, vox_cell, vox_active,
                    compute_dtype) -> LatticeEvalTables:
     """Evaluator tables from the solve's dense coefficient lattices."""
-    av0 = LK.av0_cascade(spec, dense_xs, compute_dtype)
     fdp, adp = LAT.scatter_tables(spec, basis_features, vox_cell,
                                    vox_active)
+    return tables_from(spec, dense_xs, fdp, adp, compute_dtype)
+
+
+def tables_from(spec, dense_xs, fdp, adp, compute_dtype
+                ) -> LatticeEvalTables:
+    """Evaluator tables from the dense coefficient lattices and the
+    padded per-depth basis feature and activity tables."""
+    av0 = LK.av0_cascade(spec, dense_xs, compute_dtype)
     mask0 = shell0 = None
     for d in range(spec.depth):
         n = spec.n_cells(d)
@@ -72,7 +79,8 @@ class LatticeEvalContext:
 
     def __init__(self, spec, origins: np.ndarray, interp: Interpolators,
                  basis_features, vox_cell, vox_active, voxel_size: float,
-                 approx_grad: bool, compute_dtype, dense_xs):
+                 approx_grad: bool, compute_dtype, dense_xs,
+                 tables: Optional[LatticeEvalTables] = None):
         self.spec = spec
         self.origins = np.asarray(origins)
         self.interp = interp
@@ -83,7 +91,7 @@ class LatticeEvalContext:
         self.approx_grad = bool(approx_grad)
         self.compute_dtype = compute_dtype
         self.dense_xs = dense_xs
-        self._tables: Optional[LatticeEvalTables] = None
+        self._tables = tables
 
     def to(self, device) -> "LatticeEvalContext":
         """Move the solved field, and its tables once built, to

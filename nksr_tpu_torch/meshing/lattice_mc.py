@@ -78,14 +78,18 @@ def _dilate1(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def candidates(shell0: torch.Tensor, dims0, f: int):
+def candidates(shell0: torch.Tensor, dims0, f: int, x_range=None):
     """Candidate fine cells and the corners they use: (Xf, Yf, Zf) and
-    (Xf+1, Yf+1, Zf+1) bool."""
+    (Xf+1, Yf+1, Zf+1) bool.  ``x_range`` (lo, hi): keep only the cells
+    with fine x in [lo, hi] (a slab of the sharded mesher)."""
     X, Y, Z = dims0
     m = shell0.view(X, Y, Z)
     for ax in range(3):
         m = m.repeat_interleave(f, dim=ax)
     cand = _dilate1(m)
+    if x_range is not None:
+        cand[:x_range[0]] = False
+        cand[x_range[1] + 1:] = False
     Xf, Yf, Zf = cand.shape
     cg = torch.zeros((Xf + 1, Yf + 1, Zf + 1), dtype=torch.bool,
                      device=cand.device)
@@ -118,10 +122,13 @@ def corner_values(ctx, corner: torch.Tensor, f: int,
 
 
 def topology(v_dense: torch.Tensor, cand: torch.Tensor, origin0, f: int,
-             voxel_size: float):
+             voxel_size: float, quad_x_min: int = 0,
+             return_cells: bool = False):
     """Dual vertices at the crossing cells (edge-crossing means), their
     cell centers, and per axis the quads (4 vertex ids) with their flip
-    flags."""
+    flags.  ``quad_x_min``: only quads whose base cell has fine x >= it
+    (a slab of the sharded mesher owns the quads based in its extent);
+    ``return_cells``: the crossing cells' fine coordinates (V, 3) too."""
     Xf, Yf, Zf = cand.shape
     s_f = voxel_size / f
     dev = v_dense.device
@@ -166,6 +173,8 @@ def topology(v_dense: torch.Tensor, cand: torch.Tensor, origin0, f: int,
         e[a] = 1
         sa = S[cc[:, 0] + e[0], cc[:, 1] + e[1], cc[:, 2] + e[2]]
         ok = s_base != sa
+        if quad_x_min:
+            ok &= cc[:, 0] >= quad_x_min
         vids = []
         for off in _QUAD_VOX_OFFS[a]:
             nb = cc - torch.as_tensor(off, device=dev)
@@ -176,6 +185,8 @@ def topology(v_dense: torch.Tensor, cand: torch.Tensor, origin0, f: int,
             vids.append(rank[nflat])
         quads.append(torch.stack(vids, -1)[ok])
         flips.append(~s_base[ok])
+    if return_cells:
+        return verts, centers, quads, flips, cc
     return verts, centers, quads, flips
 
 

@@ -256,7 +256,11 @@ def reconstruct_chunked(recon, xyz: np.ndarray,
                         normal: Optional[np.ndarray],
                         sensor: Optional[np.ndarray], chunk_size: float,
                         approx_kernel_grad: bool = False,
-                        solver_tol: float = 1e-5) -> ChunkedField:
+                        solver_tol: float = 1e-5, mesh=None) -> ChunkedField:
+    """The scene in chunks, each reconstructed alone and parked.  With
+    ``mesh`` (``parallel.spatial.reconstruct_chunks_sharded``) chunk i is
+    reconstructed on rank i % n and then broadcast from it, so every
+    rank returns the whole field."""
     cfg = recon.config
     vs = cfg.voxel_size
     # halo: kernel support reach at the coarsest level + DMC stencil
@@ -269,13 +273,23 @@ def reconstruct_chunked(recon, xyz: np.ndarray,
     uniq = unique_rows(ids)
     tm.lap("chunks: split")
 
-    chunks = []
+    kept = []
     for cid in uniq:
         c_lo = lo + cid * chunk_size
-        c_hi = c_lo + chunk_size
-        sel = np.all((xyz >= c_lo - halo) & (xyz < c_hi + halo), axis=1)
+        sel = np.all((xyz >= c_lo - halo) & (xyz < c_lo + chunk_size + halo),
+                     axis=1)
         tm.lap("chunks: select")
-        if sel.sum() < 16:
+        if sel.sum() >= 16:
+            kept.append((cid, c_lo, sel))
+
+    n, r = 1, 0
+    if mesh is not None:
+        from ..parallel import spatial as SP
+        n, r = SP.size(mesh), SP.rank(mesh)
+    chunks = []
+    for i, (cid, c_lo, sel) in enumerate(kept):
+        if i % n != r:
+            chunks.append(None)
             continue
         t0 = time.perf_counter()
         field = recon.reconstruct(
@@ -290,9 +304,14 @@ def reconstruct_chunked(recon, xyz: np.ndarray,
         # park the chunk off the card until the mesh
         field.to(recon.chunk_tmp_device)
         tm.lap("chunks: park")
-        chunks.append({"cid": cid, "lo": c_lo, "hi": c_hi, "field": field,
-                       "n_points": int(sel.sum()), "engine": engine,
+        chunks.append({"cid": cid, "lo": c_lo, "hi": c_lo + chunk_size,
+                       "field": field, "n_points": int(sel.sum()),
+                       "engine": engine,
                        "seconds": time.perf_counter() - t0})
+    if mesh is not None:
+        chunks = SP.share_chunks(mesh, chunks, recon.network,
+                                 recon.chunk_tmp_device)
+        tm.lap("chunks: share")
     return ChunkedField(chunks, chunk_size, vs, origin=lo,
                         id_lo=uniq.min(0), id_hi=uniq.max(0),
                         device=recon.device, phase_times=times)

@@ -102,6 +102,9 @@ class HostField:
         self.trim_stats: Optional[dict] = None
         # colours the meshes (``set_texture_field``)
         self.texture_field = None
+        # a sharded solve's slab (``parallel/lattice_shard.
+        # ShardedSolution``): the field then meshes slab by slab
+        self.sharded = None
 
     @property
     def device(self) -> torch.device:
@@ -257,6 +260,16 @@ class HostField:
         """Dual mesh of the zero set, coloured by the texture field if one
         is set; ``max_points`` bounds each field-evaluation wave."""
         tm = PhaseTimer(self.device, self.phase_times)
+        if self.sharded is not None:
+            mesh = self._extract_sharded(mise_iter, grid_upsample,
+                                         max_points)
+            if mesh is not None:
+                tm.lap("sharded dual mc")
+                if self.trim_stats is not None:
+                    # the trim as a phase of its own
+                    self.phase_times["sharded dual mc"] -= \
+                        self.trim_stats["seconds"]
+                return mesh
         if self.lattice_ctx is not None:
             self.lattice_ctx.tables()
             tm.lap("evaluator tables")
@@ -279,4 +292,29 @@ class HostField:
                                       grid_upsample=grid_upsample,
                                       max_points=max_points)
         tm.lap("host dual mc")
+        return mesh
+
+    def _extract_sharded(self, mise_iter, grid_upsample, max_points
+                         ) -> Optional[TriangleMesh]:
+        """The sharded mesher (a collective: every rank calls it and gets
+        the whole mesh), or None, on every rank alike, where it does not
+        apply; the field then meshes whole on each rank."""
+        from ..parallel.mesh_shard import extract_dual_mesh_sharded
+        from ..utils.profiling import log_engine_demotion
+        trim = {} if self.has_udf_mask else None
+        mesh = extract_dual_mesh_sharded(
+            self.sharded, mise_iter=mise_iter, grid_upsample=grid_upsample,
+            max_points=max_points,
+            udf_mask=(lambda v: self.udf_mask(v.cpu().numpy()))
+            if trim is not None else None, trim_stats=trim,
+            texture=self.texture_field)
+        if mesh is None:
+            log_engine_demotion(
+                "sharded-dual-mc", "dense-dual-mc",
+                "slab under 2 planes, f == 1 or a slab's fine grid over "
+                "the dense cell budget")
+            return None
+        if trim is not None:
+            self.phase_times["dmc: udf mask trim"] = trim["seconds"]
+        self.trim_stats = trim
         return mesh

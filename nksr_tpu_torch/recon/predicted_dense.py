@@ -9,6 +9,9 @@ the mesher are the splat path's (dense lattice solve with the dense
 normal prior, lattice evaluator, dense dual MC).  A UDF head is read at
 the candidate voxels, and its mask lives on the candidate hierarchy.
 
+``reconstruct_predicted_sharded`` runs the same engine with the final
+solve in x-slabs over a device mesh.
+
 ``reconstruct_predicted_dense`` returns None where this engine does not
 apply (the UNet lattice over ``DENSE_PRED_CELLMAP_BUDGET``, an empty
 level, a prediction that prunes everything, a solve plan refused); the
@@ -143,10 +146,46 @@ def reconstruct_predicted_dense(cfg, net, xyz: np.ndarray,
     if plan is None:
         return None
     tm.lap("lattice plan")
-    input_normal = feat if cfg.feature == "normal" else None
-    udf = None if parts.udf_f is None else UdfHead(
-        parts.cand_host, parts.cand_caps, parts.udf_f)
     return lattice_field(cfg, net, plan, parts.dec_host, xyz, xyz_t,
-                         input_normal, parts.basis_f, parts.normal_f, tm,
-                         times, dense_prior=True,
-                         label="final solve (lattice)", udf=udf)
+                         _input_normal(cfg, feat), parts.basis_f,
+                         parts.normal_f, tm, times, dense_prior=True,
+                         label="final solve (lattice)", udf=_udf_head(parts))
+
+
+def _input_normal(cfg, feat):
+    return feat if cfg.feature == "normal" else None
+
+
+def _udf_head(parts: PredictedParts) -> Optional[UdfHead]:
+    """The UDF head at the candidate voxels (None without one)."""
+    return None if parts.udf_f is None else UdfHead(
+        parts.cand_host, parts.cand_caps, parts.udf_f)
+
+
+@torch.no_grad()
+def reconstruct_predicted_sharded(cfg, net, xyz: np.ndarray,
+                                  xyz_t: torch.Tensor, feat, splat, tm,
+                                  times: dict, mesh) -> Optional[HostField]:
+    """The dense engine with its FINAL SOLVE in x-slabs over ``mesh``
+    (``parallel/lattice_shard.py``; the JAX package's
+    ``reconstruct_predicted_sharded``): the structure-predicting forward
+    runs on every rank, the solve is the slab's.  None where the dense
+    engine or the slab-aligned plan does not apply (the caller then runs
+    the single-device predicted route on every rank)."""
+    from ..parallel.lattice_shard import plan_sharded
+    from .solve_tail import sharded_lattice_field
+    parts = predicted_structures(cfg, net, xyz, xyz_t, feat, splat, tm)
+    if parts is None:
+        return None
+    out = plan_sharded(parts.grids, parts.caps, xyz, parts.orders[0][0],
+                       parts.orders[0][1], cfg.voxel_size, cfg.tree_depth,
+                       cfg.adaptive_depth, mesh.size(), k=cfg.kernel_dim,
+                       dec_grids=parts.dec_host, dec_caps=parts.dec_caps)
+    if out is None:
+        return None
+    plan, splan = out
+    tm.lap("sharded plan")
+    return sharded_lattice_field(cfg, net, plan, splan, mesh, parts.dec_host,
+                                 xyz_t, _input_normal(cfg, feat),
+                                 parts.basis_f, parts.normal_f, tm, times,
+                                 udf=_udf_head(parts))

@@ -71,9 +71,21 @@ The dense mesher meshes a lattice field whose fine grid fits
 ``meshing.lattice_mc.DENSE_CELL_BUDGET``, the host mesher any other
 field; with a UDF mask the dense mesher trims and the host mesher seals
 (``recon/host_field.py``).  ``_last_unet_engine`` records "dense" or "sparse",
-``_last_pred_engine`` "dense" or "host-per-level".  Routes that are not
-ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; nothing falls back to another engine or to the CPU.
+``_last_pred_engine`` "dense" or "host-per-level".  Nothing falls back
+to another engine or to the CPU.
+
+``mesh=`` (a ``parallel.make_mesh()`` device mesh; every rank calls
+``reconstruct`` with the same cloud) runs the JAX package's sharded
+routes over ``torch.distributed``: splat and adaptive on the dense UNet's
+route and predicted on the one-pass dense engine solve in x-slabs
+(``parallel/lattice_shard.py``), each rank ending with the whole field,
+whose ``extract_dual_mesh`` is then a collective (``parallel/
+mesh_shard.py``); with ``chunk_size`` the chunks are dealt over the
+ranks (``parallel/spatial.py``).  Where the slab-aligned plan or the
+dense engine does not apply, every rank reconstructs the whole scene
+alone, as in the JAX package (an engine demotion on stderr).  The
+sharded solve is the primal's: ``solver_formulation="dual"`` with
+``mesh=`` raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -97,9 +109,11 @@ from ..utils.checkpoint import params_to_torch
 from ..utils.profiling import PhaseTimer
 from .host_field import HostField
 from .host_predicted import reconstruct_predicted_host
-from .predicted_dense import reconstruct_predicted_dense
+from ..utils.profiling import log_engine_demotion
+from .predicted_dense import (reconstruct_predicted_dense,
+                              reconstruct_predicted_sharded)
 from .solve_tail import (UdfHead, lattice_field, resolve_solver_dtype,
-                         support_row_field)
+                         sharded_lattice_field, support_row_field)
 
 # total dense cells (all depths) x f_maps the conv3d UNet may hold;
 # beyond it the gather-conv UNet runs
@@ -108,12 +122,6 @@ DENSE_UNET_CELLMAP_BUDGET = 400_000_000
 
 def _next_pow2(n: int) -> int:
     return 1 << max(8, int(math.ceil(math.log2(max(n, 1)))))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to nksr_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item})")
 
 
 def _check_geometry(cfg) -> None:
@@ -128,6 +136,34 @@ def _check_geometry(cfg) -> None:
             f"'predicted_ingraph' only, not on structure="
             f"{cfg.structure_mode!r} (a host route, which solves a kernel "
             "field)")
+
+
+def _check_mesh(mesh) -> None:
+    """``mesh=`` takes the device mesh ``parallel.make_mesh`` returns."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh) or mesh.ndim != 1:
+        raise TypeError(
+            f"mesh= takes a 1-D DeviceMesh from parallel.make_mesh() "
+            f"(multi-GPU reconstruction, ROADMAP item 15a), not "
+            f"{type(mesh).__name__}")
+
+
+def _check_sharded(cfg) -> None:
+    """The x-slab solve is the primal's; the JAX package's sharded route
+    runs the primal whatever the formulation, the port refuses the dual
+    rather than answer with the other formulation."""
+    if cfg.solver_formulation != "primal":
+        raise ValueError(
+            f"solver_formulation={cfg.solver_formulation!r} does not run "
+            "with mesh=: the sharded solve (parallel/lattice_shard.py) "
+            "solves the primal formulation only")
+
+
+def _demote_sharded(cfg, why: str) -> None:
+    """Every rank reconstructs the whole scene on its own device, as the
+    JAX package does where its sharded solve does not apply."""
+    log_engine_demotion("sharded-svh-solve", "single-device",
+                        f"structure={cfg.structure_mode!r}: {why}")
 
 
 def _dense_unet_fits(spec, cfg) -> bool:
@@ -196,6 +232,8 @@ class Reconstructor:
         normal = None if input_normal is None else np.asarray(
             input_normal, np.float32)
         sens = None if sensor is None else np.asarray(sensor, np.float32)
+        if mesh is not None:
+            _check_mesh(mesh)
         if preprocess_fn is not None:
             xyz, normal, sens = preprocess_fn(xyz, normal, sens)
             xyz = np.asarray(xyz, np.float32)
@@ -207,17 +245,18 @@ class Reconstructor:
                 raise ValueError(
                     "detail tuning is not supported in chunk mode; "
                     "prescale your cloud instead")
-            if mesh is not None:
-                raise _not_ported("chunked reconstruction over a device "
-                                  "mesh (chunk_size= with mesh=)", "item 15")
             _check_geometry(self.config)
+            if mesh is not None:
+                _check_sharded(self.config)
+                from ..parallel.spatial import reconstruct_chunks_sharded
+                return reconstruct_chunks_sharded(
+                    self, xyz, normal, sens, chunk_size, mesh,
+                    approx_kernel_grad=approx_kernel_grad,
+                    solver_tol=solver_tol)
             from .chunking import reconstruct_chunked
             return reconstruct_chunked(self, xyz, normal, sens, chunk_size,
                                        approx_kernel_grad=approx_kernel_grad,
                                        solver_tol=solver_tol)
-        if mesh is not None:
-            raise _not_ported("multi-device reconstruction (mesh=)",
-                              "item 15")
         cfg = self._runtime_config(
             self._pick_voxel_size(xyz, detail_level, voxel_size),
             approx_kernel_grad, solver_tol, solver_max_iters,
@@ -226,15 +265,26 @@ class Reconstructor:
         if structure is not None:
             cfg = dataclasses.replace(cfg, structure_mode=structure)
         _check_geometry(cfg)
+        if mesh is not None:
+            _check_sharded(cfg)
         if cfg.structure_mode == "predicted":
+            if mesh is not None:
+                hf = self._reconstruct_predicted(cfg, xyz, normal, sens,
+                                                 mesh=mesh)
+                if hf is not None:
+                    return hf
+                _demote_sharded(cfg, "the dense engine or its slab-aligned "
+                                "plan does not apply")
             return self._reconstruct_predicted(cfg, xyz, normal, sens)
         if cfg.structure_mode == "predicted_ingraph":
+            if mesh is not None:
+                _demote_sharded(cfg, "no sharded route")
             return self._reconstruct_ingraph(cfg, xyz, normal, sens)
         if cfg.structure_mode not in ("splat", "adaptive"):
             raise ValueError(f"unknown structure {cfg.structure_mode!r}")
         if cfg.structure_mode == "adaptive" and normal is None:
             raise ValueError("adaptive structure needs input normals")
-        return self._reconstruct_host(cfg, xyz, normal, sens)
+        return self._reconstruct_host(cfg, xyz, normal, sens, mesh=mesh)
 
     def _inputs(self, cfg, xyz, normal, sens):
         """The points and their input features on the device."""
@@ -248,16 +298,24 @@ class Reconstructor:
                                                              device=dev))
         return xyz_t, feat
 
-    def _reconstruct_predicted(self, cfg, xyz, normal, sens) -> HostField:
+    def _reconstruct_predicted(self, cfg, xyz, normal, sens, mesh=None
+                               ) -> Optional[HostField]:
         """The predicted structure: the one-pass dense engine, or the
         per-level engine where it does not apply (the JAX package's
-        order)."""
+        order).  With ``mesh``: the dense engine with its final solve in
+        x-slabs over the mesh, or None where that does not apply."""
         times: dict = {}
         tm = PhaseTimer(self.device, times)
         xyz_t, feat = self._inputs(cfg, xyz, normal, sens)
         # the encoder's splat hierarchy, shared by both engines
         splat = HB.build_splat_grids_ex(xyz, cfg.voxel_size, cfg.tree_depth)
         tm.lap("splat grids")
+        if mesh is not None:
+            hf = reconstruct_predicted_sharded(cfg, self.network, xyz, xyz_t,
+                                               feat, splat, tm, times, mesh)
+            if hf is not None:
+                self._last_pred_engine = self._last_unet_engine = "dense"
+            return hf
         hf = reconstruct_predicted_dense(cfg, self.network, xyz, xyz_t, feat,
                                          splat, tm, times)
         if hf is not None:
@@ -287,12 +345,18 @@ class Reconstructor:
         self._last_unet_engine = "sparse"
         return field
 
-    def _reconstruct_host(self, cfg, xyz, normal, sens) -> HostField:
+    def _reconstruct_host(self, cfg, xyz, normal, sens, mesh=None
+                          ) -> HostField:
         """Host-built grids, plan and tables, then the device stages of
         the route the budgets pick (see the module docstring).  With
         ``structure="adaptive"`` the decoder hierarchy (the plan, the
         heads, the solve and the field's mask) is the normal-variation
-        one, the encoder's the splat."""
+        one, the encoder's the splat.  With ``mesh`` the plan is the
+        slab-aligned one and the solve runs in x-slabs over the mesh
+        (the JAX package's ``_reconstruct_sharded``), on the dense
+        UNet's route only: where the aligned plan or its feature
+        lattices do not fit, the single-device route runs on every
+        rank."""
         dev = self.device
         times: dict = {}
         tm = PhaseTimer(dev, times)
@@ -308,13 +372,25 @@ class Reconstructor:
                 splat=(grids, orders))
             dec_caps = tuple(max(_next_pow2(int(len(g.keys) * 1.05)), 512)
                              for g in dec_grids)
-        plan = plan_lattice(grids, caps, xyz, orders[0][0], orders[0][1],
-                            cfg.voxel_size, cfg.tree_depth,
-                            cfg.adaptive_depth, k=cfg.kernel_dim,
-                            dec_grids=None if dec_grids is grids
-                            else dec_grids,
-                            dec_caps=None if dec_grids is grids
-                            else dec_caps)
+        plan_kw = dict(dec_grids=None if dec_grids is grids else dec_grids,
+                       dec_caps=None if dec_grids is grids else dec_caps)
+        splan = None
+        if mesh is not None:
+            from ..parallel.lattice_shard import plan_sharded
+            out = plan_sharded(grids, caps, xyz, orders[0][0], orders[0][1],
+                               cfg.voxel_size, cfg.tree_depth,
+                               cfg.adaptive_depth, mesh.size(),
+                               k=cfg.kernel_dim, **plan_kw)
+            if out is not None and _dense_unet_fits(out[0].spec, cfg):
+                plan, splan = out
+            else:
+                _demote_sharded(cfg, "the slab-aligned lattice or its "
+                                "feature lattices exceed the dense budgets")
+        if splan is None:
+            plan = plan_lattice(grids, caps, xyz, orders[0][0],
+                                orders[0][1], cfg.voxel_size, cfg.tree_depth,
+                                cfg.adaptive_depth, k=cfg.kernel_dim,
+                                **plan_kw)
         dense_unet = plan is not None and _dense_unet_fits(plan.spec, cfg)
         self._last_unet_engine = "dense" if dense_unet else "sparse"
 
@@ -336,11 +412,14 @@ class Reconstructor:
                 xyz_t[perm], None if feat is None else feat[perm], base0)
             tm.lap("dense unet")
             # the UDF head lives on the encoder's splat hierarchy
+            udf = None if udf_f is None else UdfHead(grids, caps, udf_f)
+            if splan is not None:
+                return sharded_lattice_field(
+                    cfg, self.network, plan, splan, mesh, dec_grids, xyz_t,
+                    input_normal, basis_f, normal_f, tm, times, udf=udf)
             return lattice_field(cfg, self.network, plan, dec_grids, xyz,
                                  xyz_t, input_normal, basis_f, normal_f, tm,
-                                 times, dense_prior=True,
-                                 udf=None if udf_f is None else
-                                 UdfHead(grids, caps, udf_f))
+                                 times, dense_prior=True, udf=udf)
 
         # the points' splat rows into the decoder voxels: the normal
         # prior's (adaptive depths) and route B's value rows (every

@@ -75,6 +75,32 @@ def splat_normals_dense(spec, origins, d, voxel_size, xyz, normal,
     return rows / (torch.linalg.norm(rows, dim=-1, keepdim=True) + 1e-6)
 
 
+def gradient_targets(cfg, plan, xyz_t: torch.Tensor,
+                     input_normal: Optional[torch.Tensor], normal_f,
+                     vox_cell, vox_active, dense_prior: bool, pt_sup=None,
+                     dec_caps: Optional[Sequence[int]] = None
+                     ) -> torch.Tensor:
+    """The solve's gradient targets (s_gr, 3) in hierarchy order: minus
+    the residual normal head plus the input normals' prior, splatted
+    onto the solve lattice (``dense_prior``) or through ``pt_sup[d]``,
+    the points' (N, 8) splat rows into the depth-d decoder voxels of
+    capacity ``dec_caps[d]``."""
+    nvals = []
+    for d in range(cfg.adaptive_depth):
+        nv = normal_f[d]
+        if input_normal is not None:
+            if dense_prior:
+                nv = nv + splat_normals_dense(
+                    plan.spec, plan.origins, d, cfg.voxel_size, xyz_t,
+                    input_normal, vox_cell[d], vox_active[d])
+            else:
+                nv = nv + P.splat_normals_to_grid(
+                    P.level_voxel_size(cfg, d), dec_caps[d], xyz_t,
+                    input_normal, pt_sup[d])
+        nvals.append(nv)
+    return -torch.cat(nvals, 0)
+
+
 def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
                   xyz_t: torch.Tensor, input_normal: Optional[torch.Tensor],
                   basis_f, normal_f, tm, times: dict, *,
@@ -97,19 +123,9 @@ def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
     spec = plan.spec
     vox_cell = tuple(up(v, i64) for v in plan.vox_cell)
     vox_active = tuple(up(v) for v in plan.vox_active)
-    nvals = []
-    for d in range(cfg.adaptive_depth):
-        nv = normal_f[d]
-        if input_normal is not None:
-            if dense_prior:
-                nv = nv + splat_normals_dense(
-                    spec, plan.origins, d, cfg.voxel_size, xyz_t,
-                    input_normal, vox_cell[d], vox_active[d])
-            else:
-                nv = nv + P.splat_normals_to_grid(
-                    P.level_voxel_size(cfg, d), dec_caps[d], xyz_t,
-                    input_normal, pt_sup[d])
-        nvals.append(nv)
+    gr_targets = gradient_targets(cfg, plan, xyz_t, input_normal, normal_f,
+                                  vox_cell, vox_active, dense_prior, pt_sup,
+                                  dec_caps)
     cdt = getattr(torch, resolve_solver_dtype(cfg.solver_compute_dtype,
                                               dev))
     alphas, dense_xs, (iters, rel_res) = lattice_solve(
@@ -118,7 +134,7 @@ def lattice_field(cfg, net, plan, dec_grids, xyz: np.ndarray,
         up(plan.pt_dest, i64), up(plan.slot_cell_pt, i64),
         up(plan.slot_cell_gr, i64), up(plan.gr_coords, i64),
         up(plan.gr_depth, i64), up(plan.gr_active),
-        -torch.cat(nvals, 0), vox_cell, vox_active,
+        gr_targets, vox_cell, vox_active,
         voxel_size=cfg.voxel_size, pos_weight=cfg.pos_weight,
         normal_weight=cfg.normal_weight, reg_weight=cfg.reg_weight,
         tol=cfg.solver_tol, max_iters=cfg.solver_max_iters,
@@ -159,3 +175,47 @@ def support_row_field(cfg, net, grids, caps, xyz_t: torch.Tensor,
                                  cfg.solver_max_iters),
                      phase_times=times, field=field, capacities=caps,
                      **udf_mask_kw(cfg, net, udf))
+
+
+def sharded_lattice_field(cfg, net, plan, splan, mesh, dec_grids,
+                          xyz_t: torch.Tensor,
+                          input_normal: Optional[torch.Tensor], basis_f,
+                          normal_f, tm, times: dict,
+                          udf: Optional[UdfHead] = None) -> HostField:
+    """``lattice_field`` with the solve in x-slabs over ``mesh``
+    (``parallel/lattice_shard.py``): the network's outputs and the
+    gradient targets are every rank's (replicated), the solve is the
+    slab's, and every rank ends with the whole field; the field meshes
+    slab by slab (``parallel/mesh_shard.py``, a collective)."""
+    from ..parallel import lattice_shard as LS
+    dev = xyz_t.device
+    vox_cell = tuple(torch.as_tensor(v, device=dev, dtype=torch.int64)
+                     for v in plan.vox_cell)
+    vox_active = tuple(torch.as_tensor(v, device=dev)
+                       for v in plan.vox_active)
+    gr_targets = gradient_targets(cfg, plan, xyz_t, input_normal, normal_f,
+                                  vox_cell, vox_active, dense_prior=True)
+    cdt = getattr(torch, resolve_solver_dtype(cfg.solver_compute_dtype,
+                                              dev))
+    xs_slab, (iters, rel_res) = LS.sharded_lattice_solve(
+        mesh, splan, net.interpolators, basis_f, gr_targets,
+        voxel_size=cfg.voxel_size, pos_weight=cfg.pos_weight,
+        normal_weight=cfg.normal_weight, reg_weight=cfg.reg_weight,
+        tol=cfg.solver_tol, max_iters=cfg.solver_max_iters,
+        approx_grad=cfg.approx_kernel_grad, compute_dtype=cdt)
+    tm.lap("sharded solve")
+    alphas, dense_xs = LS.gather_alphas(mesh, plan, splan, xs_slab,
+                                        vox_cell, vox_active)
+    tm.lap("gather")
+    ctx = LatticeEvalContext(
+        plan.spec, plan.origins, net.interpolators, basis_f, vox_cell,
+        vox_active, cfg.voxel_size, cfg.approx_kernel_grad,
+        compute_dtype=cdt, dense_xs=dense_xs)
+    hf = HostField(cfg, dec_grids, alphas, ctx,
+                   SolverStats(iters, rel_res, cfg.solver_tol,
+                               cfg.solver_max_iters),
+                   phase_times=times, **udf_mask_kw(cfg, net, udf))
+    hf.sharded = LS.ShardedSolution(
+        mesh, plan, splan, xs_slab, net.interpolators, tuple(basis_f),
+        cfg.voxel_size, cdt, cfg.approx_kernel_grad)
+    return hf

@@ -37,6 +37,21 @@ class PhaseTimer:
         self._t = t
 
 
+_DEMOTIONS_LOGGED = set()
+
+
+def log_engine_demotion(wanted: str, got: str, why: str) -> None:
+    """One notice a process on stderr that an engine handed its work to
+    another (the JAX package's ``log_engine_demotion``): the sharded
+    solve or mesher to the single-device one."""
+    if (wanted, got) in _DEMOTIONS_LOGGED:
+        return
+    _DEMOTIONS_LOGGED.add((wanted, got))
+    import sys
+    print(f"[nksr_tpu_torch] engine demotion: {wanted} -> {got} ({why})",
+          file=sys.stderr, flush=True)
+
+
 def graph_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn`` on the current CUDA device,
     the host's dispatch taken out: ``reps`` calls captured in one CUDA

@@ -243,11 +243,15 @@ def test_host_field_queries(solved):
     ({}, dict(structure="splat", mesh=object()), "item 15"),
 ])
 def test_unported_routes_raise(cfg_kw, call_kw, item):
+    """The ``mesh=`` routes of ROADMAP item 15 are ported (item 15a,
+    tests/test_torch_parallel.py); what is not a device mesh from
+    ``parallel.make_mesh`` raises ``TypeError`` naming the item, with and
+    without chunks."""
     xyz, nrm = _scene(200)
     recon = Reconstructor(device="cpu",
                           config=P.PipelineConfig(**SMALL, **cfg_kw))
     kw = dict(KW, **call_kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    with pytest.raises(TypeError, match=f"make_mesh.*ROADMAP {item}"):
         recon.reconstruct(xyz, nrm, **kw)
 
 
