@@ -316,6 +316,31 @@ Phases (any failure ends the run with a non-zero exit):
      SHARDED_TIMEOUT, fails the script.  The kernels line gains each
      kernel's launches on (a)'s lap and on (b)'s first lap (rank 0)
      (``launches_sharded``).
+ 17. (run after phase 16) data-parallel training (ROADMAP item 15b):
+     ``parallel.dp_train_step`` and ``train.driver.fit(batch_size=2)``
+     at runs/scene_big/config.yaml's width from its best.ckpt on items
+     0 and 1 of phase 11's corpus, in worlds of child processes
+     (``python3 chip_smoke.py --dp ROLE RANK WORLD STORE OUT``, a
+     ``FileStore`` rendezvous), as phase 16 runs its worlds; they start
+     beside phase 16's (b) to (d), each rank loading the model and its
+     items and making one untimed pass (its process's cold start) before
+     its go, one world on the card at a time after phase 16: (a) an NCCL
+     world of one with both items: one step's reduced gradient bit-equal
+     to (g0 + g1) / 2 from two ``loss_and_grads`` calls on the same
+     draws (one generator a cloud, seeded by step and global index), the
+     step's launches equal to those two calls' (the segment sum and the
+     window kernel must run; twice phase 11's single-cloud step printed
+     beside them); (b) a gloo world of two on the card, one item a rank:
+     three steps, params and losses bit-equal across the ranks and to
+     (a)'s three steps; (c) each step's seconds by phase (the clouds'
+     host build, forward, samples, losses and backward, ``"dp:
+     flatten"``, ``"dp: all_reduce"``, the optimizer), peak GiB a rank
+     and launches, in both worlds; (d) ``fit(batch_size=2)`` in the gloo
+     world for 4 steps with one validation, only rank 0 writing, both
+     ranks' params equal, its best.ckpt through ``Reconstructor`` on
+     item 0 under FIT_MESH_LIMIT, the logger backend that ran printed.
+     The kernels line gains each kernel's launches in (a)'s first step
+     (``launches_train_dp``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -443,6 +468,9 @@ PARITY_BOUND = 5e-3
 # each leaf within TRAIN_GRAD_RTOL.  The bounds are
 # tests/test_torch_train.py's against the JAX package.
 TRAIN_ROOT = os.path.join("data", "synth_scene_smoke")
+# the fits' run directories, outside the corpus: the dataset reads every
+# directory under its root as a category (a fit's tb/ as an item)
+TRAIN_RUN = os.path.join("data", "chip_smoke_train_run")
 TRAIN_ITEMS = 8
 TRAIN_UNET_TOL = 1e-4
 TRAIN_STRUCT_RTOL = 1e-4
@@ -567,6 +595,18 @@ SHARDED_MESH_TOL = 0.05
 SHARDED_CHUNK = 10.0
 SHARDED_TIMEOUT = 480
 NCCL_PROBE_TIMEOUT = 90
+# Phase 17, data-parallel training: the global batch (items DP_ITEMS of
+# phase 11's corpus), the steps of (a) and (b), the fit's steps, its run
+# directory, and the seconds the script waits for each world
+DP_BATCH = 2
+DP_ITEMS = (0, 1)
+DP_STEPS = 3
+DP_FIT_STEPS = 4
+DP_RUN = TRAIN_RUN + "_dp"
+DP_TIMEOUT = 240
+DP_PHASE_TARGET_S = 60
+# the seed of each rank's untimed first pass
+DP_WARMUP_SEED = 17
 TEXTURE_TIE_RTOL = 1e-6
 NEURAL_PROBES = 4096
 NEURAL_FIELD_TOL = 1e-4
@@ -2232,15 +2272,11 @@ def sphere_train_setup():
     return cfg, lcfg, P.init_params(cfg, 0), batch, samples
 
 
-def scene_train_setup():
-    """runs/scene_big/config.yaml's configurations, the corpus' train and
-    val sets, item 0's padded batch and one set of draws for it (CPU
-    generator seed 0)."""
-    from nksr_tpu_torch.data import (DatasetSpec as DS, ShapeNetDataset,
-                                     to_device_batch)
-    from nksr_tpu_torch.models import pipeline as P
+def scene_train_config():
+    """runs/scene_big/config.yaml and its pipeline and loss
+    configurations, and the corpus' train and val sets."""
+    from nksr_tpu_torch.data import DatasetSpec as DS, ShapeNetDataset
     from nksr_tpu_torch.train import driver
-    from nksr_tpu_torch.train import losses as L
     from nksr_tpu_torch.utils.config import load_config
     yc = load_config(os.path.join(REPO, UDF_CONFIG))
     cfg = driver.pipeline_config_from_yaml(yc)
@@ -2251,6 +2287,16 @@ def scene_train_setup():
                                                                 TRAIN_ROOT))
     ds = ShapeNetDataset(spec=spec, **args)
     val_ds = ShapeNetDataset(spec=spec, **dict(args, split="val"))
+    return yc, cfg, lcfg, ds, val_ds
+
+
+def scene_train_setup():
+    """``scene_train_config()``, item 0's padded batch and one set of
+    draws for it (CPU generator seed 0)."""
+    from nksr_tpu_torch.data import to_device_batch
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.train import losses as L
+    yc, cfg, lcfg, ds, val_ds = scene_train_config()
     batch = to_device_batch(ds[0], yc["point_bucket"], yc["gt_bucket"])
     inp = P.prepare_inputs(cfg, batch, "cpu")
     samples = L.draw_samples(torch.Generator().manual_seed(0), cfg, lcfg,
@@ -2530,7 +2576,7 @@ def training_laps(params, counters, gen, ref):
     del finals
 
     # (f) fit with one validation, then best.ckpt meshed by Reconstructor
-    run_dir = os.path.join(REPO, TRAIN_ROOT, "run")
+    run_dir = os.path.join(REPO, TRAIN_RUN)
     train_batches = [to_device_batch(ds[i], pb, gb) for i in range(4)]
     val_batches = [to_device_batch(val_ds[0], pb, gb)]
     t1 = time.perf_counter()
@@ -4128,17 +4174,18 @@ def _write_json(path, rec) -> int:
     return 0
 
 
-def start_world(role: str, world: int, tag: str):
-    """Start a world of ``world`` ranks of ``sharded_world_child``:
-    (processes, output path)."""
+def start_world(role: str, world: int, tag: str, flag: str = "--sharded"):
+    """Start a world of ``world`` ranks of ``sharded_world_child`` (or,
+    with ``flag`` "--dp", of ``dp_world_child``): (processes, output
+    path)."""
     import atexit
-    base = os.path.join(REPO, "data", f"chip_smoke_sharded_{tag}")
+    base = os.path.join(REPO, "data", f"chip_smoke_{flag[2:]}_{tag}")
     os.makedirs(os.path.dirname(base), exist_ok=True)
     for suffix in [".store", ".go"] + [f".r{r}.json" for r in range(world)]:
         if os.path.exists(base + suffix):
             os.remove(base + suffix)
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--sharded", role, str(r), str(world),
+                               flag, role, str(r), str(world),
                                base + ".store", base], cwd=REPO)
              for r in range(world)]
 
@@ -4151,7 +4198,7 @@ def start_world(role: str, world: int, tag: str):
     return procs, base
 
 
-def finish_world(procs, base, deadline, must_pass=True):
+def finish_world(procs, base, deadline, must_pass=True, phase=16):
     """Wait for a world until ``deadline`` (``time.perf_counter()``),
     killing its ranks past it: the ranks' records, or an
     AssertionError."""
@@ -4170,15 +4217,16 @@ def finish_world(procs, base, deadline, must_pass=True):
         recs.append(json.load(open(path)) if os.path.exists(path) else None)
     rcs = [p.returncode for p in procs]
     if must_pass and (late or any(rcs) or None in recs):
-        raise AssertionError(f"[phase 16] {os.path.basename(base)}: exit "
-                             f"codes {rcs}, {len(late)} killed at the "
+        raise AssertionError(f"[phase {phase}] {os.path.basename(base)}: "
+                             f"exit codes {rcs}, {len(late)} killed at the "
                              "time limit")
     return recs
 
 
-def sharded_laps():
+def sharded_laps(beside_b=None):
     """Phase 16 (see the module docstring): returns (launches by kernel
-    key for (a) and (b), the phase's record)."""
+    key for (a) and (b), the phase's record).  ``beside_b``: called once
+    (a)'s world has ended, beside (b) to (d)."""
     t_phase = time.perf_counter()
     a_world = start_world("nccl1", 1, "a")
     probe = start_world("nccl_probe", 2, "probe")
@@ -4187,6 +4235,8 @@ def sharded_laps():
     # (b) to (d) start once (a)'s laps are done: their ranks loaded the
     # model and drew the scene beside it
     open(b_world[1] + ".go", "w").close()
+    if beside_b is not None:
+        beside_b()
     probe_rec = finish_world(*probe, t_phase + NCCL_PROBE_TIMEOUT,
                              must_pass=False)
     b_recs = finish_world(*b_world, time.perf_counter() + SHARDED_TIMEOUT)
@@ -4224,6 +4274,271 @@ def sharded_laps():
           f"{rec['nccl_two_ranks_one_card']}", flush=True)
     return {"a": a_rec["tile"]["launches"],
             "b": b0["tile"]["launches"]}, rec
+
+
+def _digest(net) -> str:
+    """A hash of every parameter's bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in net.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _flat_grads(params, flat) -> None:
+    """Add each parameter's ``.grad`` into ``flat`` as ``dp_train_step``
+    adds them (None as zeros)."""
+    off = 0
+    for p in params:
+        if p.grad is not None:
+            flat[off:off + p.numel()] += p.grad.reshape(-1)
+        off += p.numel()
+
+
+def dp_world_child(role: str, rank: int, world: int, store: str,
+                   out: str) -> int:
+    """One rank of phase 17 (``--dp``): ROLE "nccl1" runs (a) and (c) in
+    an NCCL world of one with both items; "gloo2" (b), (c) and (d), one
+    item a rank.  Writes its record to ``OUT.rRANK.json``; a gate that
+    fails raises."""
+    import datetime
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = "0"      # every rank is on the one card
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo" if role == "gloo2" else "nccl",
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from nksr_tpu_torch import parallel as PP
+    from nksr_tpu_torch.data import to_device_batch
+    from nksr_tpu_torch.models import pipeline as P
+    from nksr_tpu_torch.parallel import data_parallel as DP
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.profiling import PhaseTimer
+    path = f"{out}.r{rank}.json"
+    yc, cfg, lcfg, ds, val_ds = scene_train_config()
+    tc = driver.train_config_from_yaml(yc)
+    pb, gb = yc["point_bucket"], yc["gt_bucket"]
+    params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
+    mesh = PP.make_mesh("cuda")
+    counters = kernel_counters()
+    n_local = DP_BATCH // world
+    first = rank * n_local
+    local = PP.shard_batch(mesh, PP.stack_samples(
+        [to_device_batch(ds[i], pb, gb) for i in DP_ITEMS]))
+    state = PP.replicate(mesh, T.init_state(cfg, tc, params=params,
+                                            device="cuda"))
+    rec = {"role": role, "rank": rank, "world": world,
+           "backend": dist.get_backend(),
+           "items": list(DP_ITEMS[first:first + n_local])}
+
+    def gens(step):
+        return [torch.Generator().manual_seed(DP.sample_seed(
+            0, step, g, DP_BATCH)) for g in range(first, first + n_local)]
+    # a first pass (its draws from another seed) takes the process's cold
+    # start (CUDA context, cuDNN and cuBLAS handles) out of the timed steps
+    state.net.train()
+    T.loss_and_grads(cfg, lcfg, state.net, P.prepare_inputs(
+        cfg, {k: v[0] for k, v in local.items()}, "cuda"), None,
+        gen=torch.Generator().manual_seed(DP_WARMUP_SEED))
+    state.net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    go = out + ".go"
+    t0 = time.perf_counter()
+    while not os.path.exists(go):   # the parent starts (a), then (b)
+        if time.perf_counter() - t0 > DP_TIMEOUT:
+            raise AssertionError("[phase 17] no go from the parent")
+        time.sleep(0.2)
+    plist = list(state.net.parameters())
+    if role == "nccl1":
+        # (a) the mean of two single-cloud gradients on the same draws
+        want = torch.zeros(sum(p.numel() for p in plist), device="cuda")
+        single = []
+        state.net.train()
+        for g in range(DP_BATCH):
+            inp = P.prepare_inputs(cfg, {k: v[g] for k, v in local.items()},
+                                   "cuda")
+            reset_counts(counters.values())
+            T.loss_and_grads(cfg, lcfg, state.net, inp, None,
+                             gen=gens(0)[g])
+            torch.cuda.synchronize()
+            single.append(read_counts(counters))
+            _flat_grads(plist, want)
+        want = want / DP_BATCH
+        state.net.zero_grad(set_to_none=True)
+        rec["single_launches"] = single
+    laps = []
+    for s in range(DP_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        times = {}
+        tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
+        t0 = time.perf_counter()
+        state, losses = PP.dp_train_step(cfg, tc, lcfg, state, local,
+                                         gens(s), mesh, tm=tm)
+        torch.cuda.synchronize()
+        lap = {"seconds": time.perf_counter() - t0, "losses": losses,
+               "phases": {k: round(v, 4) for k, v in times.items()},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": read_counts(counters),
+               "digest": _digest(state.net)}
+        if s == 0 and role == "nccl1":
+            got = torch.cat([p.grad.reshape(-1) for p in plist])
+            lap["grad_bit_equal"] = bool(torch.equal(got, want))
+            if not lap["grad_bit_equal"]:
+                raise AssertionError("[phase 17] (a) the reduced gradient "
+                                     "differs from (g0 + g1) / 2: max "
+                                     f"{(got - want).abs().max().item()}")
+            del got, want
+        laps.append(lap)
+    rec["steps"] = laps
+    if role == "nccl1":
+        return _write_json(path, rec)
+
+    # (d) fit(batch_size=2) for DP_FIT_STEPS steps, one validation
+    del state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    n_train = len(ds)
+    train = [to_device_batch(ds[(rank + world * i) % n_train], pb, gb)
+             for i in range(DP_FIT_STEPS)]
+    val = [to_device_batch(val_ds[0], pb, gb)]
+    run_dir = os.path.join(REPO, DP_RUN)
+    t0 = time.perf_counter()
+    st = driver.fit(yc, train, val, run_dir, max_steps=DP_FIT_STEPS,
+                    val_every=DP_FIT_STEPS, seed=0, batch_size=DP_BATCH,
+                    params=params, device="cuda")
+    rec["fit"] = {"seconds": time.perf_counter() - t0, "step": st.step,
+                  "digest": _digest(st.net)}
+    return _write_json(path, rec)
+
+
+def start_dp_worlds():
+    """Start phase 17's two worlds; each rank loads the model and its
+    items, makes one untimed pass and waits for its go (``dp_laps``)."""
+    import shutil
+    shutil.rmtree(os.path.join(REPO, DP_RUN), ignore_errors=True)
+    return (start_world("nccl1", 1, "a", flag="--dp"),
+            start_world("gloo2", 2, "b", flag="--dp"), time.perf_counter())
+
+
+def dp_laps(worlds, train_launches, cfg, batch):
+    """Phase 17 (see the module docstring) on ``start_dp_worlds()``'s
+    worlds; ``train_launches`` phase 11's launches of one step,
+    ``batch`` item 0's.  Returns (launches by kernel key of (a)'s first
+    step, the phase's record)."""
+    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from scipy.spatial import cKDTree
+    a_world, b_world, t_start = worlds
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(REPO, DP_RUN)
+    # (a), then (b) and (d): one world on the card at a time
+    open(a_world[1] + ".go", "w").close()
+    a = finish_world(*a_world, t_phase + DP_TIMEOUT, phase=17)[0]
+    open(b_world[1] + ".go", "w").close()
+    b0, b1 = finish_world(*b_world, time.perf_counter() + DP_TIMEOUT,
+                          phase=17)
+    a0 = a["steps"][0]
+    launches = a0["launches"]
+    summed = {k: sum(s[k] for s in a["single_launches"]) for k in launches}
+    twice = {k: 2 * train_launches[k] for k in ("segsum", "window")}
+    print(f"[phase 17] (a) NCCL world of one, B = {DP_BATCH} (items "
+          f"{a['items']}): reduced gradient bit-equal to (g0 + g1) / 2: "
+          f"{a0['grad_bit_equal']}; launches of a step {launches}, of the "
+          f"two single-cloud passes {a['single_launches']}; twice phase "
+          f"11's step {twice}", flush=True)
+    if launches != summed or launches["segsum"] <= 0 \
+            or launches["window"] <= 0:
+        raise AssertionError(f"[phase 17] (a) a DP step launched {launches}"
+                             f", its two clouds alone {summed}")
+    for tag, r in (("(a) NCCL world of one", a), ("(b) gloo rank 0", b0),
+                   ("(b) gloo rank 1", b1)):
+        for i, lap in enumerate(r["steps"]):
+            print(f"[phase 17] {tag} step {i}: {lap['seconds']:.4f} s, "
+                  f"peak {lap['peak_gib']:.2f} GiB, sum "
+                  f"{lap['losses']['sum']!r}, params {lap['digest'][:16]}; "
+                  f"phases {json.dumps(lap['phases'])}", flush=True)
+    for i, (x, y, z) in enumerate(zip(a["steps"], b0["steps"],
+                                      b1["steps"])):
+        if not (x["digest"] == y["digest"] == z["digest"]
+                and x["losses"] == y["losses"] == z["losses"]):
+            raise AssertionError(f"[phase 17] (b) step {i}: the gloo world "
+                                 "of two differs from the world of one or "
+                                 "across ranks")
+    print(f"[phase 17] (b) {DP_STEPS} steps: params and losses bit-equal "
+          "across the ranks and to (a)'s", flush=True)
+    f0, f1 = b0["fit"], b1["fit"]
+    files = sorted(os.listdir(run_dir))
+    backend = "tensorboard" if "tb" in files else "csv"
+    print(f"[phase 17] (d) fit(batch_size={DP_BATCH}) in the gloo world of "
+          f"two, {DP_FIT_STEPS} steps and one validation: "
+          f"{f0['seconds']:.1f} s; logger backend {backend}; run directory "
+          f"{files}", flush=True)
+    if not (f0["step"] == f1["step"] == DP_FIT_STEPS
+            and f0["digest"] == f1["digest"]
+            and {"best.ckpt", "last.ckpt", "metrics.csv"} <= set(files)):
+        raise AssertionError(f"[phase 17] (d) fit: {f0}, {f1}, {files}")
+    recon = Reconstructor(config=cfg, params=load_tree(
+        os.path.join(run_dir, "best.ckpt")))
+    m = batch["mask"].numpy()
+    field = recon.reconstruct(batch["xyz"].numpy()[m],
+                              batch["normal"].numpy()[m], detail_level=None,
+                              voxel_size=cfg.voxel_size)
+    mesh = field.extract_dual_mesh(mise_iter=1)
+    gtm = batch["gt_mask"].numpy()
+    d, _ = cKDTree(batch["gt_xyz"].numpy()[gtm]).query(mesh.v)
+    print(f"[phase 17] (d) the DP fit's best.ckpt through Reconstructor on "
+          f"item 0: {len(mesh.v)} vertices, vertex distance to the GT cloud "
+          f"mean {d.mean():.5f} (gate: under {FIT_MESH_LIMIT})", flush=True)
+    if not (len(mesh.f) and np.isfinite(mesh.v).all()
+            and d.mean() < FIT_MESH_LIMIT):
+        raise AssertionError("[phase 17] the DP-trained checkpoint did not "
+                             "mesh the item")
+    rec = {"a": a, "b": [b0, b1], "backend": backend,
+           "mesh_mean": float(d.mean()), "twice_phase11": twice,
+           "seconds": time.perf_counter() - t_phase,
+           "started_before_s": t_phase - t_start}
+    return launches, rec
+
+
+def dp_alone() -> int:
+    """Phase 17 alone (``python3 chip_smoke.py --dp-alone``): build the
+    kernels, write phase 11's corpus, count one warm single-cloud step's
+    launches, then ``dp_laps``."""
+    from nksr_tpu_torch import cuda_build as CB
+    from nksr_tpu_torch.data import to_device_batch
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    CB.build_kernels()
+    make_corpus(os.path.join(REPO, TRAIN_ROOT))
+    yc, cfg, lcfg, ds, _ = scene_train_config()
+    tc = driver.train_config_from_yaml(yc)
+    batch = to_device_batch(ds[0], yc["point_bucket"], yc["gt_bucket"])
+    counters = kernel_counters()
+    state = T.init_state(cfg, tc, params=load_tree(os.path.join(
+        REPO, "runs", "scene_big", "best.ckpt")), device="cuda")
+    for i in range(2):
+        reset_counts(counters.values())
+        state, _, _ = T.train_step(cfg, tc, lcfg, state, batch,
+                                   torch.Generator().manual_seed(i))
+    train_launches = read_counts(counters)
+    del state
+    torch.cuda.empty_cache()
+    launches, rec = dp_laps(start_dp_worlds(), train_launches, cfg, batch)
+    print(f"[phase 17] {rec['seconds']:.1f} s; launches {launches}; record "
+          + json.dumps(rec), flush=True)
+    return 0
 
 
 def kernel_counters() -> dict:
@@ -4629,9 +4944,27 @@ def main() -> int:
 
     # ---- phase 16: multi-device reconstruction in worlds of child
     # processes on the card
-    sharded_launches, sharded_rec = sharded_laps()
+    # phase 17's worlds start beside phase 16's (b) to (d): their ranks'
+    # start-up and first pass are off the script's critical path
+    dp_worlds = []
+    sharded_launches, sharded_rec = sharded_laps(
+        beside_b=lambda: dp_worlds.append(start_dp_worlds()))
     print(f"[phase 16] {sharded_rec['seconds']:.1f} s; record "
           + json.dumps(sharded_rec), flush=True)
+    print(smi, flush=True)
+
+    # ---- phase 17: data-parallel training in worlds of child processes
+    # on the card
+    from nksr_tpu_torch.data import to_device_batch
+    dp_yc, dp_cfg, _, dp_ds, _ = scene_train_config()
+    dp_launches, dp_rec = dp_laps(dp_worlds[0], train_launches, dp_cfg,
+                                  to_device_batch(dp_ds[0],
+                                                  dp_yc["point_bucket"],
+                                                  dp_yc["gt_bucket"]))
+    print(f"[phase 17] {dp_rec['seconds']:.1f} s after its worlds' "
+          f"start-up ({dp_rec['started_before_s']:.1f} s beside phase 16; "
+          f"target {DP_PHASE_TARGET_S} s); record " + json.dumps(dp_rec),
+          flush=True)
     print(smi, flush=True)
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
@@ -4717,6 +5050,7 @@ def main() -> int:
         rec["launches_api"] = api_launches[key]
         rec["launches_sharded"] = {w: sharded_launches[w][key]
                                    for w in ("a", "b")}
+        rec["launches_train_dp"] = dp_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -4799,6 +5133,11 @@ if __name__ == "__main__":
         sys.exit(train_cpu_reference(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--route-b-tile":
         sys.exit(route_b_tile_lap(sys.argv[2]))
+    if sys.argv[1:] == ["--dp-alone"]:
+        sys.exit(dp_alone())
+    if len(sys.argv) == 7 and sys.argv[1] == "--dp":
+        sys.exit(dp_world_child(sys.argv[2], int(sys.argv[3]),
+                                int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     if len(sys.argv) == 7 and sys.argv[1] == "--sharded":
         sys.exit(sharded_world_child(sys.argv[2], int(sys.argv[3]),
                                      int(sys.argv[4]), sys.argv[5],

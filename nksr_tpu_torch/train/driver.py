@@ -1,8 +1,9 @@
 """Run drivers (counterpart of nksr_tpu/train/driver.py): the maps of a
 run config onto ``PipelineConfig``, ``LossConfig`` and ``TrainConfig``,
-the CSV/JSON run logger, and ``fit``, the training loop (the
-teacher-forcing coin a step) with periodic validation, best/last
-checkpoints and resume.
+the run logger (CSV and JSON rows, tensorboard or wandb, mesh renders),
+and ``fit``, the training loop (the teacher-forcing coin a step) on one
+device or data-parallel, with periodic validation, best/last
+checkpoints, resume and an opt-in profiler trace.
 
     cfg = pipeline_config_from_yaml(load_config("runs/scene_big/config.yaml"))
 
@@ -11,6 +12,7 @@ Entry points: ``nksr_tpu_torch/scripts/train.py`` and ``overfit.py``.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import time
@@ -22,6 +24,7 @@ import torch
 
 from ..models import pipeline as P
 from ..utils import checkpoint as CKPT
+from ..utils import profiling as PROF
 from . import loop as T
 from . import losses as L
 
@@ -98,21 +101,18 @@ def train_config_from_yaml(cfg: dict) -> T.TrainConfig:
     )
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to nksr_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item})")
-
-
 class RunLogger:
-    """Metric logging to ``metrics.csv`` (a header whenever the keys
-    change) and ``metrics.jsonl`` (one object a row).  The JAX package's
-    tensorboard and wandb backends are not ported: ``backend`` "auto"
-    and "csv" log to these files, any other raises."""
+    """Metric and artifact logging (the JAX package's ``RunLogger``):
+    ``metrics.csv`` (a header whenever the keys change) and
+    ``metrics.jsonl`` (one object a row) always, plus a backend:
+    ``"auto"`` adds tensorboard scalars and images under ``tb/`` where
+    ``torch.utils.tensorboard`` imports; ``"tensorboard"`` raises where
+    it does not; ``"wandb"`` needs ``wandb`` (it raises without it);
+    ``"csv"`` adds nothing."""
 
     def __init__(self, run_dir: Path, backend: str = "auto"):
-        if backend not in ("auto", "csv"):
-            raise _not_ported(f"the {backend!r} logger backend", "item 14")
+        if backend not in ("auto", "csv", "tensorboard", "wandb"):
+            raise ValueError(f"unknown logger backend {backend!r}")
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.csv_path = self.run_dir / "metrics.csv"
@@ -120,6 +120,22 @@ class RunLogger:
         self._keys = None
         self._fh = None
         self._jh = None
+        self._tb = None
+        self._wandb = None
+        if backend in ("auto", "tensorboard"):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                if backend == "tensorboard":
+                    raise
+            else:
+                self._tb = SummaryWriter(log_dir=str(self.run_dir / "tb"))
+        elif backend == "wandb":
+            import wandb  # a hard requirement when asked for
+            self._wandb = wandb.init(project=f"nkfw-{self.run_dir.name}",
+                                     dir=str(self.run_dir), resume="allow")
+        self.backend = ("tensorboard" if self._tb is not None else
+                        "wandb" if self._wandb is not None else "csv")
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = ""):
         row = {"step": step}
@@ -135,36 +151,125 @@ class RunLogger:
         self._fh.flush()
         self._jh.write(json.dumps(row) + "\n")
         self._jh.flush()
+        if self._tb is not None:
+            for k, v in row.items():
+                if k != "step":
+                    self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(row, step=step)
+
+    def log_image(self, step: int, tag: str, image: np.ndarray):
+        """An (H, W, 3) uint8 image: a PNG under ``artifacts/`` where
+        matplotlib imports, and to the backend."""
+        art = self.run_dir / "artifacts"
+        art.mkdir(exist_ok=True)
+        plt = _pyplot()
+        if plt is not None:
+            plt.imsave(art / f"{tag.replace('/', '_')}_{step}.png", image)
+        if self._tb is not None:
+            self._tb.add_image(tag, image, step, dataformats="HWC")
+        if self._wandb is not None:
+            import wandb
+            self._wandb.log({tag: wandb.Image(image)}, step=step)
+
+    def log_mesh(self, step: int, tag: str, verts: np.ndarray,
+                 faces: np.ndarray, max_tris: int = 30000):
+        """A ``.ply`` under ``artifacts/`` and, where matplotlib imports,
+        its render (``render_mesh``) through ``log_image``."""
+        from ..data.io import write_ply
+        name = tag.replace("/", "_")
+        write_ply(self.run_dir / "artifacts" / f"{name}_{step}.ply",
+                  np.asarray(verts, np.float32), np.asarray(faces))
+        img = render_mesh(verts, faces, max_tris=max_tris)
+        if img is not None:
+            self.log_image(step, tag, img)
 
     def close(self):
         for fh in (self._fh, self._jh):
             if fh:
                 fh.close()
+        if self._tb is not None:
+            self._tb.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
-def _log_val_mesh(run: Path, step: int, pcfg: P.PipelineConfig, net,
-                  val_loader, device) -> None:
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None where it does not
+    import."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
+
+
+def render_mesh(verts: np.ndarray, faces: np.ndarray,
+                max_tris: int = 30000) -> Optional[np.ndarray]:
+    """A flat-shaded render of the mesh as (H, W, 3) uint8, by
+    matplotlib's software rasteriser (at most ``max_tris`` triangles,
+    evenly picked); None for an empty mesh or where matplotlib does not
+    import."""
+    if len(faces) == 0 or len(verts) == 0:
+        return None
+    plt = _pyplot()
+    if plt is None:
+        return None
+    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
+    verts = np.asarray(verts, np.float64)
+    f = np.asarray(faces)
+    if len(f) > max_tris:
+        f = f[np.linspace(0, len(f) - 1, max_tris).astype(int)]
+    tris = verts[f]                                    # (T, 3, 3)
+    n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    n /= np.linalg.norm(n, axis=1, keepdims=True) + 1e-12
+    shade = 0.25 + 0.75 * np.clip(n @ np.array([0.4, 0.3, 0.85]), 0, 1)
+    fig = plt.figure(figsize=(5, 5), dpi=100)
+    ax = fig.add_subplot(projection="3d")
+    coll = Poly3DCollection(tris, linewidths=0)
+    coll.set_facecolor(np.stack([0.55 * shade, 0.65 * shade,
+                                 0.85 * shade, np.ones_like(shade)], 1))
+    ax.add_collection3d(coll)
+    lo, hi = verts.min(0), verts.max(0)
+    c, r = (lo + hi) / 2, (hi - lo).max() / 2 + 1e-6
+    ax.set_xlim(c[0] - r, c[0] + r)
+    ax.set_ylim(c[1] - r, c[1] + r)
+    ax.set_zlim(c[2] - r, c[2] + r)
+    ax.set_axis_off()
+    fig.tight_layout(pad=0)
+    fig.canvas.draw()
+    img = np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    plt.close(fig)
+    return img
+
+
+def _log_val_mesh(logger: Optional[RunLogger], step: int,
+                  pcfg: P.PipelineConfig, net, val_loader, device) -> None:
     """Reconstruct the first val cloud with the current params (splat
     structure; the in-graph route for the neural geometry head, which
-    runs there alone) and write its mesh as
-    ``artifacts/val_mesh_<step>.ply``."""
-    from ..data.io import write_ply
+    runs there alone) and log its mesh (``RunLogger.log_mesh``: the
+    ``artifacts/val_mesh_<step>.ply`` and its render); with no
+    ``logger`` (a rank that does not write) only reconstruct it."""
     from ..recon.reconstructor import Reconstructor
     from ..utils.checkpoint import torch_to_params
     batch = next(iter(val_loader), None)
     if batch is None:
         return
-    m = batch["mask"].numpy()
+    m = np.asarray(batch["mask"])
     recon = Reconstructor(device=device, config=pcfg, params={
         "params": torch_to_params(net.state_dict())})
-    hf = recon.reconstruct(batch["xyz"].numpy()[m],
-                           batch["normal"].numpy()[m], detail_level=None,
-                           voxel_size=pcfg.voxel_size,
+    hf = recon.reconstruct(np.asarray(batch["xyz"])[m],
+                           np.asarray(batch["normal"])[m],
+                           detail_level=None, voxel_size=pcfg.voxel_size,
                            structure="splat" if pcfg.geometry == "kernel"
                            else "predicted_ingraph",
                            solver_max_iters=min(pcfg.solver_max_iters, 48))
     mesh = hf.extract_dual_mesh()
-    write_ply(run / "artifacts" / f"val_mesh_{step}.ply", mesh.v, mesh.f)
+    if logger is not None:
+        logger.log_mesh(step, "val/mesh", np.asarray(mesh.v),
+                        np.asarray(mesh.f))
 
 
 def fit(cfg: dict, train_loader: Iterable, val_loader: Optional[Iterable],
@@ -173,7 +278,8 @@ def fit(cfg: dict, train_loader: Iterable, val_loader: Optional[Iterable],
         batch_size: Optional[int] = None, device="cuda",
         params=None) -> T.TrainState:
     """The fit loop: the teacher-forcing coin (``pd_structure_prob``),
-    one ``torch.Generator`` a step seeded ``seed * 1000003 + step``,
+    one ``torch.Generator`` a cloud and step (``parallel.data_parallel.
+    sample_seed``: ``seed * 1000003 + step`` at one cloud a step),
     window-mean train logs (every 50 steps and the first), validation
     every ``val_every`` steps with ``best.ckpt`` on a better val sum,
     ``last.ckpt`` every ``ckpt_every`` steps and at the end, and resume
@@ -182,19 +288,41 @@ def fit(cfg: dict, train_loader: Iterable, val_loader: Optional[Iterable],
     ``device`` (the card unless asked for the CPU).  A step the coin
     sends to the predicted structure runs the decoder on its own
     prediction; validation is teacher-forced, as in the JAX package.
-    ``batch_size`` > 1 (data parallel) raises (item 15)."""
-    if batch_size is not None and batch_size > 1:
-        raise _not_ported("data-parallel training (batch_size > 1)",
-                          "item 15")
+    The whole loop runs under ``utils.profiling.trace_run(run_dir /
+    "trace")`` (a trace when NKSR_PROFILE=1).
+
+    ``batch_size`` > 1 trains data-parallel over ``torch.distributed``
+    (``parallel.dp_train_step``; the process group of ``parallel.
+    init_distributed``, or a world of one): ``batch_size`` must be a
+    multiple of the world size, each rank takes ``batch_size // world``
+    clouds a step from its own ``train_loader`` (their shapes must
+    match: set the config's point and GT buckets), every rank starts
+    from rank 0's state (after resume) and runs the same validation,
+    and only rank 0 writes logs, artifacts and checkpoints."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda'): no CUDA device is "
                            "available")
+    dp = batch_size is not None and batch_size > 1
+    mesh, writer, n_local = None, True, 1
+    if dp:
+        from ..parallel import data_parallel as DP
+        from ..parallel import spatial as SP
+        mesh = DP.make_mesh(device.type)
+        device = DP.mesh_device(mesh)
+        if batch_size % SP.size(mesh):
+            raise ValueError(f"batch_size {batch_size} must be a multiple "
+                             f"of the world size {SP.size(mesh)}")
+        n_local = batch_size // SP.size(mesh)
+        writer = SP.rank(mesh) == 0
     pcfg = pipeline_config_from_yaml(cfg)
     lcfg = loss_config_from_yaml(cfg)
     tcfg = train_config_from_yaml(cfg)
     run = Path(run_dir)
-    logger = RunLogger(run, backend=cfg.get("logger", "auto"))
+    logger = None
+    if writer:
+        logger = RunLogger(run, backend=cfg.get("logger", "auto"))
+        print(f"[fit] logger backend: {logger.backend}", flush=True)
     log_mesh = bool(cfg.get("log_mesh_artifacts", False))
     rng = np.random.default_rng(seed)
 
@@ -206,54 +334,91 @@ def fit(cfg: dict, train_loader: Iterable, val_loader: Optional[Iterable],
                                                       device)
         state = T.TrainState(state.net, opt_state, start_step)
         print(f"[resume] from {last_ckpt} at step {start_step}")
+    if dp:
+        state = DP.replicate(mesh, state)
+
+    def batches():
+        """This rank's clouds of each step: one padded batch, or a
+        stack of ``n_local`` on the device."""
+        it = iter(train_loader)
+        while True:
+            got = []
+            for b in it:
+                got.append(b)
+                if len(got) == n_local:
+                    break
+            if len(got) < n_local:
+                return
+            yield DP.to_device(DP.stack_samples(got), device) if dp \
+                else got[0]
+
+    def save(path):
+        if writer:
+            CKPT.save_train_state(path, state.net, state.opt_state, step)
 
     best_val = float("inf")
     step = start_step
     window = []
     t0 = time.time()
-    for batch in train_loader:
-        if step >= max_steps:
-            break
-        use_gt = rng.random() >= T.pd_structure_prob(tcfg, step)
-        gen = torch.Generator().manual_seed(seed * 1000003 + step)
-        state, losses, _ = T.train_step(pcfg, tcfg, lcfg, state, batch, gen,
-                                        use_gt_structure=use_gt)
-        step = state.step
-        window.append(losses)
-        if step % 50 == 0 or step == start_step + 1:
-            ls = {k: float(np.mean([w[k] for w in window]))
-                  for k in window[-1]}
-            window = []
-            ls["lr"] = float(T.lr_schedule(tcfg, step))
-            ls["pd_struct_prob"] = T.pd_structure_prob(tcfg, step)
-            dt = time.time() - t0
-            print(f"[train {step}] sum={ls['sum']:.4f} "
-                  f"({dt / max(step - start_step, 1):.2f}s/it)", flush=True)
-            logger.log(step, ls, "train/")
-        if val_loader is not None and step % val_every == 0:
-            state.net.eval()
-            vals = []
-            for vb in val_loader:
-                lv, mv = T.val_step(pcfg, lcfg, state.net, vb,
-                                    torch.Generator().manual_seed(step))
-                vals.append({**lv, **mv})
-            mean = {k: float(np.mean([v[k] for v in vals if k in v]))
-                    for k in vals[0]} if vals else {}
-            logger.log(step, mean, "val/")
-            print(f"[val {step}] {json.dumps(mean)[:200]}", flush=True)
-            if log_mesh:
-                try:
-                    _log_val_mesh(run, step, pcfg, state.net, val_loader,
-                                  device)
-                except Exception as e:   # artifacts must never kill a run
-                    print(f"[val {step}] mesh artifact failed: {e}",
+    with PROF.trace_run(str(run / "trace")) if writer \
+            else contextlib.nullcontext():
+        for batch in batches():
+            if step >= max_steps:
+                break
+            use_gt = rng.random() >= T.pd_structure_prob(tcfg, step)
+            if dp:
+                first = SP.rank(mesh) * n_local
+                gens = [torch.Generator().manual_seed(DP.sample_seed(
+                    seed, step, first + i, batch_size))
+                    for i in range(n_local)]
+                state, losses = DP.dp_train_step(
+                    pcfg, tcfg, lcfg, state, batch, gens, mesh,
+                    use_gt_structure=use_gt)
+            else:
+                gen = torch.Generator().manual_seed(seed * 1000003 + step)
+                state, losses, _ = T.train_step(pcfg, tcfg, lcfg, state,
+                                                batch, gen,
+                                                use_gt_structure=use_gt)
+            step = state.step
+            window.append(losses)
+            if step % 50 == 0 or step == start_step + 1:
+                ls = {k: float(np.mean([w[k] for w in window]))
+                      for k in window[-1]}
+                window = []
+                ls["lr"] = float(T.lr_schedule(tcfg, step))
+                ls["pd_struct_prob"] = T.pd_structure_prob(tcfg, step)
+                dt = time.time() - t0
+                if writer:
+                    print(f"[train {step}] sum={ls['sum']:.4f} "
+                          f"({dt / max(step - start_step, 1):.2f}s/it)",
                           flush=True)
-            if mean.get("sum", float("inf")) < best_val:
-                best_val = mean["sum"]
-                CKPT.save_train_state(run / "best.ckpt", state.net,
-                                      state.opt_state, step)
-        if step % ckpt_every == 0:
-            CKPT.save_train_state(last_ckpt, state.net, state.opt_state, step)
-    CKPT.save_train_state(last_ckpt, state.net, state.opt_state, step)
-    logger.close()
+                    logger.log(step, ls, "train/")
+            if val_loader is not None and step % val_every == 0:
+                state.net.eval()
+                vals = []
+                for vb in val_loader:
+                    lv, mv = T.val_step(pcfg, lcfg, state.net, vb,
+                                        torch.Generator().manual_seed(step))
+                    vals.append({**lv, **mv})
+                mean = {k: float(np.mean([v[k] for v in vals if k in v]))
+                        for k in vals[0]} if vals else {}
+                if writer:
+                    logger.log(step, mean, "val/")
+                    print(f"[val {step}] {json.dumps(mean)[:200]}",
+                          flush=True)
+                if log_mesh:
+                    try:
+                        _log_val_mesh(logger, step, pcfg, state.net,
+                                      val_loader, device)
+                    except Exception as e:   # artifacts never kill a run
+                        print(f"[val {step}] mesh artifact failed: {e}",
+                              flush=True)
+                if mean.get("sum", float("inf")) < best_val:
+                    best_val = mean["sum"]
+                    save(run / "best.ckpt")
+            if step % ckpt_every == 0:
+                save(last_ckpt)
+    save(last_ckpt)
+    if logger is not None:
+        logger.close()
     return state

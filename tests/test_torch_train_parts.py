@@ -467,14 +467,12 @@ def test_fit_checkpoints_resume_and_reconstruct(tmp_path):
 
 
 def test_unported_training_paths_raise():
-    """Data parallel (item 15) and the fused solve under autograd raise,
-    naming what is not ported."""
+    """The fused solve under autograd raises, naming what is not ported
+    (data parallel, item 15b, is: tests/test_torch_dp_train.py)."""
     cfg = P.PipelineConfig(**TINY)
     tc = T.TrainConfig()
     state = T.init_state(cfg, tc, device="cpu")
     lcfg = driver.loss_config_from_yaml(FIT_CFG)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        driver.fit(FIT_CFG, [], None, "unused", batch_size=2, device="cpu")
     with pytest.raises(NotImplementedError, match="fused_mode"):
         T.train_step(dataclasses.replace(cfg, fused_mode=True), tc, lcfg,
                      state, _sphere_batch(), torch.Generator())

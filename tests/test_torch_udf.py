@@ -501,14 +501,15 @@ def test_scene_big_config_enables_the_udf_head():
     "# head\na: 1.0e-06\nb: 1e-4\nc: .5\nd: -2\ne: ~\nf: data/x_y\n",
     "a:\n  b:\n  c: 1_000\nd: +1.5\ne: .inf\n",
     "- 1\n- two\n- c: 3\n",
+    "a: [1, 2]", "a: {b: 1}", "a: 'x'", 'a: "x"', "a: ${b}",
 ])
 def test_yaml_subset_matches_pyyaml(text):
     assert repr(parse_yaml(text)) == repr(yaml.safe_load(text))
 
 
 @pytest.mark.parametrize("text", [
-    "a: [1, 2]", "a: {b: 1}", "a: 'x'", 'a: "x"', "a: &x 1\nb: *x",
-    "a: !!str 1", "a: |\n  text", "a: ${b}", "a: 0755", "a: 0x1f",
+    "a: [1, 2", "a: {b: 1", "a: 'x", 'a: "x', "a: &x 1\nb: *x",
+    "a: !!str 1", "a: |\n  text", "a: [1] x", "a: 0755", "a: 0x1f",
     "a: 1\na: 2", "---\na: 1", "a:\n\t- 1", "a:\n- - 1",
 ])
 def test_yaml_reader_refuses_what_it_does_not_parse(text):
@@ -517,8 +518,11 @@ def test_yaml_reader_refuses_what_it_does_not_parse(text):
 
 
 def test_load_config_refuses_include_chains(tmp_path):
+    """An include chain that comes back to a file it started from (the
+    JAX package's loader recurses without end on it)."""
     p = tmp_path / "config.yaml"
     p.write_text("include_configs:\n- base.yaml\na: 1\n")
+    (tmp_path / "base.yaml").write_text("include_configs: [config.yaml]\n")
     with pytest.raises(ValueError, match="include_configs"):
         load_config(p)
 
