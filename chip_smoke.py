@@ -341,6 +341,30 @@ Phases (any failure ends the run with a non-zero exit):
      item 0 under FIT_MESH_LIMIT, the logger backend that ran printed.
      The kernels line gains each kernel's launches in (a)'s first step
      (``launches_train_dp``).
+ 18. (started after phase 11, read after phase 17) fused-mode training
+     (``PipelineConfig(fused_mode=True)``: the support-row solve that
+     rebuilds its supports in every CG matvec, forward and backward) at
+     runs/scene_big/config.yaml's width from its best.ckpt on item 0 of
+     phase 11's corpus, in its own process (``python3 chip_smoke.py
+     --fused-train OUT REF``): (a) the teacher-forced step, fused against
+     unfused from one state on the same draws: forward coefficients and
+     loss terms within FUSED_FWD_RTOL (bit-equal on the CPU), the whole
+     gradient within FUSED_WHOLE_RTOL and each leaf within
+     FUSED_LEAF_RTOL relative L2 (leaves zero up to rounding within
+     ZERO_FLOOR of the whole), the same forward and backward CG
+     iterations; (b) the same for the predicted step, on one hierarchy;
+     (c) the fused step against it on CPU tensors (``fused`` of phase
+     11's CPU reference) under phase 11's gates at 16 iterations; (d)
+     two runs of three fused steps from one state bit-equal; (e) three
+     steps each, unfused then fused: seconds by phase, peak GiB, CG
+     iterations, launches (the fused step must launch the window kernel
+     more often than the unfused one).  Its start-up and one untimed
+     pass run beside phases 12 to 14; (a) to (e) wait for its go, given
+     when phase 14 starts to wait for its route B lap (the card is idle
+     there).  Alone: ``python3 chip_smoke.py --fused-alone``
+     (builds the kernels, writes the corpus, takes the CPU step itself).
+     The kernels line gains each kernel's launches in a warm fused step
+     (``launches_train_fused``).
 Each path (the probe run, the reconstructions, the microbenchmark) is
 driven with every launch count set to 0 just before it and read just
 after.
@@ -607,6 +631,18 @@ DP_TIMEOUT = 240
 DP_PHASE_TARGET_S = 60
 # the seed of each rank's untimed first pass
 DP_WARMUP_SEED = 17
+# phase 18: fused training against the unfused step (forward coefficients
+# and loss terms bit-equal on the CPU, so FUSED_FWD_RTOL only admits
+# another summation order; the gradient within FUSED_WHOLE_RTOL whole and
+# FUSED_LEAF_RTOL a leaf), and a leaf zero up to rounding (a conv bias
+# before a group norm) held within ZERO_FLOOR of the whole gradient, as
+# the CPU tests hold it; the steps of (d) and (e); the child's time limit
+FUSED_FWD_RTOL = 1e-6
+FUSED_WHOLE_RTOL = 1e-5
+FUSED_LEAF_RTOL = 1e-4
+ZERO_FLOOR = 1e-6
+FUSED_STEPS = 3
+FUSED_TIMEOUT = 600
 TEXTURE_TIE_RTOL = 1e-6
 NEURAL_PROBES = 4096
 NEURAL_FIELD_TOL = 1e-4
@@ -2045,7 +2081,9 @@ def train_grads(cfg, lcfg, params, batch, samples, device,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
         if device == "cuda" else 0.0
     fwd = {"logits": [x.detach().cpu() for x in out.structure_logits],
-           "basis": [x.detach().cpu() for x in out.basis_features]}
+           "basis": [x.detach().cpu() for x in out.basis_features],
+           "alpha": [a.detach().cpu()
+                     for a in getattr(out.field, "alpha", None) or ()]}
     if samples is None:
         fwd["samples"] = L.draw_samples(
             torch.Generator().manual_seed(TRAIN_PRED_SEED), cfg, lcfg, inp,
@@ -2332,6 +2370,10 @@ def train_cpu_reference(out_path: str) -> int:
     res["predicted"] = train_grads(cfg, lcfg, params, batch, None, "cpu",
                                    use_gt_structure=False)
     res["neural"] = neural_cpu_reference(params, batch, samples)
+    t1 = time.perf_counter()
+    res["fused"] = train_grads(dataclasses.replace(cfg, fused_mode=True),
+                               lcfg, params, batch, samples, "cpu")
+    res["fused_seconds"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     res["cores"] = sorted(os.sched_getaffinity(0))
     torch.save(res, out_path + ".tmp")
@@ -2372,7 +2414,8 @@ def finish_train_reference(ref) -> dict:
         raise AssertionError(f"[phase 11] the CPU reference exited with {rc}")
     res = torch.load(out, weights_only=False)
     print(f"[phase 11] the CPU reference on {TRAIN_REF_THREADS} threads "
-          f"(cores {res['cores']}) took {res['seconds']:.1f} s; waited "
+          f"(cores {res['cores']}) took {res['seconds']:.1f} s (phase 18's "
+          f"fused step {res['fused_seconds']:.1f} s of it); waited "
           f"{time.perf_counter() - t0:.1f} s for it", flush=True)
     return res
 
@@ -3538,7 +3581,7 @@ def finish_route_b_tile(ref):
 
 
 def adaptive_route_laps(params, counters, synthetic_scene, a_phases,
-                        a_n0, b_phases, b_n0, b_tile):
+                        a_n0, b_phases, b_n0, b_tile, before_b_wait=None):
     """Phase 14.  The adaptive structure (adaptive depth 2, tau
     ADAPTIVE_ROUTE_TAU) on route A (phase 5's 60 m tile) and route B
     (phase 4's 100 m tile, its lap in the process ``b_tile`` of
@@ -3546,7 +3589,8 @@ def adaptive_route_laps(params, counters, synthetic_scene, a_phases,
     alone under 1.5x the JAX package's figures, one sub-tile of each
     route twice bit-equal, and the UNet's heads on the adaptive decoder
     card against CPU (see the module docstring).  ``a_phases``, ``a_n0``
-    (``b_...``): phase 5's (phase 4's) phases and depth-0 voxels.
+    (``b_...``): phase 5's (phase 4's) phases and depth-0 voxels;
+    ``before_b_wait`` called (if given) just before the wait for ``b_tile``.
     Returns the two tile laps' launches and a record."""
     from nksr_tpu_torch import Reconstructor
     from nksr_tpu_torch.core import host_build as HB
@@ -3700,6 +3744,8 @@ def adaptive_route_laps(params, counters, synthetic_scene, a_phases,
     torch.cuda.empty_cache()
 
     # (b) route B, the 100 m tile: its lap ran in its own process
+    if before_b_wait is not None:
+        before_b_wait()
     b_launches, lap = finish_route_b_tile(b_tile)
     print_route("phase 14 (b) route B", b_launches, lap)
     if (lap["unet"], lap["solve"], lap["mesher"]) != (
@@ -4541,6 +4587,262 @@ def dp_alone() -> int:
     return 0
 
 
+def compare_fused(tag, unfused, fused) -> dict:
+    """Phase 18 (a), (b): a fused step against the unfused step from one
+    state on the same draws (``train_grads`` records): the forward
+    coefficients and every loss term within FUSED_FWD_RTOL (bit-equal on
+    the CPU; the same operations in the same order), the whole gradient
+    within FUSED_WHOLE_RTOL and each leaf within FUSED_LEAF_RTOL relative
+    L2 (a leaf under ZERO_FLOOR of the whole gradient's, zero up to
+    rounding, within that floor), the same forward and backward CG
+    iterations.  Returns the worst of each."""
+    ul, ug, uf, us, upk = unfused
+    fl, fg, ff, fs, fpk = fused
+    alpha = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(ff["alpha"], uf["alpha"]))
+    same_alpha = all(torch.equal(a, b) for a, b in zip(ff["alpha"],
+                                                        uf["alpha"]))
+    loss = max(abs(fl[k] - ul[k]) / max(abs(ul[k]), 1e-30) for k in ul)
+    whole = float(torch.sqrt(sum((ug[n] ** 2).sum() for n in ug)))
+    err = float(torch.sqrt(sum(((fg[n] - ug[n]) ** 2).sum() for n in ug)))
+    leaf, floor_leaf = (0.0, ""), 0.0
+    for n in ug:
+        d, e = float(ug[n].norm()), float((fg[n] - ug[n]).norm())
+        if d < ZERO_FLOOR * whole:
+            floor_leaf = max(floor_leaf, e / whole)
+        else:
+            leaf = max(leaf, (e / d, n))
+    iters = ((us[0][0], us[1][0]), (fs[0][0], fs[1][0]))
+    print(f"[phase 18] {tag}: fused against unfused: forward coefficients "
+          f"{'bit-equal' if same_alpha else f'{alpha:.3e} of max'}, loss "
+          f"terms {'bit-equal' if fl == ul else f'worst {loss:.3e} rel'} "
+          f"(gate {FUSED_FWD_RTOL}); the whole gradient {err / whole:.3e} "
+          f"rel L2 (gate {FUSED_WHOLE_RTOL}), leaves worst {leaf[0]:.3e} "
+          f"({leaf[1]}; gate {FUSED_LEAF_RTOL}), leaves of rounding size "
+          f"{floor_leaf:.3e} of the whole (gate {ZERO_FLOOR}); CG "
+          f"iterations forward, backward {iters[0]} unfused, {iters[1]} "
+          f"fused; peak {upk:.2f} / {fpk:.2f} GiB; losses "
+          f"{json.dumps(fl)}", flush=True)
+    if not (alpha <= FUSED_FWD_RTOL and loss <= FUSED_FWD_RTOL
+            and err <= FUSED_WHOLE_RTOL * whole
+            and leaf[0] <= FUSED_LEAF_RTOL and floor_leaf <= ZERO_FLOOR
+            and iters[0] == iters[1]):
+        raise AssertionError(f"[phase 18] {tag}: the fused step differs "
+                             "from the unfused one")
+    return {"alpha": alpha, "alpha_bit_equal": same_alpha, "loss": loss,
+            "loss_bit_equal": fl == ul, "whole_grad": err / whole,
+            "leaf": leaf[0], "leaf_name": leaf[1], "floor_leaf": floor_leaf,
+            "iters": iters, "peak_gib": (upk, fpk)}
+
+
+def fused_train_child(out: str, ref_path: str) -> int:
+    """Phase 18 (``python3 chip_smoke.py --fused-train OUT REF``; see the
+    module docstring), in its own process: its start-up and one untimed
+    pass at once, (a) to (e) once the file OUT.go exists.  REF is phase
+    11's CPU reference (its ``fused`` step); the record goes to OUT as
+    JSON, a gate that fails raises."""
+    from nksr_tpu_torch.solver.pcg import solve_spd
+    from nksr_tpu_torch.train import driver
+    from nksr_tpu_torch.train import loop as T
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    from nksr_tpu_torch.utils.profiling import PhaseTimer
+    t_phase = time.perf_counter()
+    yc, cfg, lcfg, _, _, batch, samples, _ = scene_train_setup()
+    tc = driver.train_config_from_yaml(yc)
+    fcfg = dataclasses.replace(cfg, fused_mode=True)
+    params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
+    counters = kernel_counters()
+    rec = {"pid": os.getpid()}
+    # a first pass (its draws from another seed) takes the process's cold
+    # start (CUDA context, cuDNN and cuBLAS handles) out of the timed steps
+    train_grads(fcfg, lcfg, params, batch, None, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec["before_go_s"] = time.perf_counter() - t_phase
+    go = out + ".go"
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > FUSED_TIMEOUT:
+            raise AssertionError("[phase 18] no go from the parent")
+        time.sleep(0.2)
+    rec["waited_s"] = time.perf_counter() - t0
+    t_go = time.perf_counter()
+    # (a) teacher-forced on the scene's draws, (b) predicted on draws from
+    # the predicted decoder (one generator seed): unfused, then fused
+    card = {}
+    for key, tag, smp, gt in (("a", "(a) teacher-forced", samples, True),
+                              ("b", "(b) predicted", None, False)):
+        runs = [train_grads(c, lcfg, params, batch, smp, "cuda",
+                            use_gt_structure=gt) for c in (cfg, fcfg)]
+        if not gt and not all(np.array_equal(a, b) for a, b in zip(
+                runs[0][2]["dec"] + runs[0][2]["cand"],
+                runs[1][2]["dec"] + runs[1][2]["cand"])):
+            raise AssertionError("[phase 18] (b) the fused step predicted "
+                                 "another hierarchy")
+        rec[key] = compare_fused(tag, *runs)
+        card[key] = runs[1]
+    # (c) the fused step on the card against it on CPU tensors (phase
+    # 11's CPU reference), under phase 11's gates at 16 iterations
+    cpu = torch.load(ref_path, weights_only=False)["fused"]
+    print(f"[phase 18] (c) fused step at {cfg.solver_max_iters} iterations "
+          f"on the CPU: losses {json.dumps(cpu[0])}; solves {cpu[3]}",
+          flush=True)
+    rec["c"] = compare_train(
+        f"(c) fused step at {cfg.solver_max_iters} iterations", card["a"],
+        cpu, False, TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_UNET_TOL,
+        TRAIN_STRUCT_RTOL, phase="phase 18")
+    del card, cpu
+    # (d) two runs of FUSED_STEPS fused steps from one state, bit-equal
+    finals = []
+    for _ in range(2):
+        state = T.init_state(fcfg, tc, params=params, device="cuda")
+        sums = []
+        for i in range(FUSED_STEPS):
+            state, losses, _ = T.train_step(
+                fcfg, tc, lcfg, state, batch,
+                torch.Generator().manual_seed(i))
+            sums.append(losses["sum"])
+        finals.append((_digest(state.net), sums))
+        del state
+    print(f"[phase 18] (d) two runs of {FUSED_STEPS} fused steps from one "
+          f"state: params {finals[0][0][:16]} / {finals[1][0][:16]}; sums "
+          f"{finals[0][1]} / {finals[1][1]}", flush=True)
+    if finals[0] != finals[1]:
+        raise AssertionError(f"[phase 18] (d) two {FUSED_STEPS}-step fused "
+                             "runs from one state differ")
+    rec["d"] = finals[0][1]
+    rec["a_to_d_s"] = time.perf_counter() - t_go
+    # (e) FUSED_STEPS steps of each on the scene's draws: seconds by
+    # phase, peak, CG iterations, launches
+    t_e = time.perf_counter()
+    for name, c in (("unfused", cfg), ("fused", fcfg)):
+        state = T.init_state(c, tc, params=params, device="cuda")
+        laps = []
+        for i in range(FUSED_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(counters.values())
+            times = {}
+            tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
+            t1 = time.perf_counter()
+            state, losses, _ = T.train_step(c, tc, lcfg, state, batch, None,
+                                            samples=samples, tm=tm)
+            torch.cuda.synchronize()
+            times["train: forward solve"] = solve_spd.last_seconds
+            times["train: backward solve"] = solve_spd.last_backward_seconds
+            laps.append({
+                "seconds": time.perf_counter() - t1,
+                "phases": {k: round(v, 4) for k, v in times.items()},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": read_counts(counters),
+                "solves": [solve_spd.last_stats,
+                           solve_spd.last_backward_stats],
+                "sum": losses["sum"]})
+        del state
+        torch.cuda.empty_cache()
+        rec[name] = laps
+        warm = min(lap["seconds"] for lap in laps[1:])
+        print(f"[phase 18] (e) {name} step: warm {warm:.4f} s (laps "
+              + ", ".join(f"{lap['seconds']:.4f}" for lap in laps)
+              + f"); phases {json.dumps(laps[-1]['phases'])}; peak "
+              f"{max(lap['peak_gib'] for lap in laps):.2f} GiB; solves "
+              f"{laps[-1]['solves']}; launches {laps[-1]['launches']}",
+              flush=True)
+    rec["e_s"] = time.perf_counter() - t_e
+    u, f = rec["unfused"][-1]["launches"], rec["fused"][-1]["launches"]
+    if not (f["window"] > u["window"] > 0 and f["segsum"] > 0
+            and u["segsum"] > 0):
+        raise AssertionError(f"[phase 18] (e) launches: unfused {u}, fused "
+                             f"{f}: the fused step must launch the window "
+                             "kernel more often")
+    rec["seconds"] = time.perf_counter() - t_phase
+    with open(out + ".tmp", "w") as fh:
+        json.dump(rec, fh)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+def start_fused_train(ref_path: str):
+    """Start ``fused_train_child`` in its own process; it is killed at
+    exit if still running.  Returns (process, output path, start)."""
+    import atexit
+    out = os.path.join(REPO, "data", "chip_smoke_fused_train.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    for path in (out, out + ".go"):
+        if os.path.exists(path):
+            os.remove(path)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--fused-train", out, ref_path], cwd=REPO)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    print(f"[phase 18] started in its own process (pid {proc.pid})",
+          flush=True)
+    return proc, out, time.perf_counter()
+
+
+def go_fused_train(ref) -> None:
+    """Let phase 18's process run (a) to (e)."""
+    open(ref[1] + ".go", "w").close()
+    print("[phase 18] go", flush=True)
+
+
+def finish_fused_train(ref):
+    """Wait for ``fused_train_child``: (launches by kernel key of one
+    warm fused step, the phase's record)."""
+    proc, out, t_start = ref
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=FUSED_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(f"[phase 18] its process exited with {rc}")
+    with open(out) as fh:
+        rec = json.load(fh)
+    rec["waited_by_parent_s"] = time.perf_counter() - t0
+    rec["since_start_s"] = time.perf_counter() - t_start
+    print(f"[phase 18] {rec['seconds']:.1f} s in its own process (start-up "
+          f"and a first pass {rec['before_go_s']:.1f} s, then "
+          f"{rec['waited_s']:.1f} s for its go, (a) to (d) "
+          f"{rec['a_to_d_s']:.1f} s, (e) {rec['e_s']:.1f} s); the parent "
+          f"waited {rec['waited_by_parent_s']:.1f} s for it", flush=True)
+    return rec["fused"][-1]["launches"], rec
+
+
+def fused_alone() -> int:
+    """Phase 18 alone (``python3 chip_smoke.py --fused-alone``): build the
+    kernels, write phase 11's corpus, take the fused step on CPU tensors
+    (the CPU reference's ``fused``), then ``fused_train_child`` in this
+    process with its go given."""
+    from nksr_tpu_torch import cuda_build as CB
+    from nksr_tpu_torch.utils.checkpoint import load_tree
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    CB.build_kernels()
+    root = os.path.join(REPO, TRAIN_ROOT)
+    make_corpus(root)
+    _, cfg, lcfg, _, _, batch, samples, _ = scene_train_setup()
+    params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
+    t0 = time.perf_counter()
+    ref = {"fused": train_grads(dataclasses.replace(cfg, fused_mode=True),
+                                lcfg, params, batch, samples, "cpu")}
+    print(f"[phase 18] the fused step on CPU tensors in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref_path = os.path.join(root, "fused_cpu_reference.pt")
+    torch.save(ref, ref_path)
+    out = os.path.join(REPO, "data", "chip_smoke_fused_train.json")
+    open(out + ".go", "w").close()
+    rc = fused_train_child(out, ref_path)
+    with open(out) as fh:
+        print("[phase 18] record " + fh.read(), flush=True)
+    return rc
+
+
 def kernel_counters() -> dict:
     """The main path's counted kernel wrappers, by key."""
     from nksr_tpu_torch.fields import lattice_kernels as LK
@@ -4908,6 +5210,9 @@ def main() -> int:
     # phase 14 (b)'s tile lap, beside phases 12 to 14 (a) on the cores
     # the CPU reference used
     b_tile = start_route_b_tile()
+    # ---- phase 18: fused training in its own process: its start-up
+    # beside phases 12 to 14, (a) to (e) while phase 14 waits for (b)
+    fused_train = start_fused_train(train_ref[1])
 
     # ---- phase 12: the in-graph route, its mesher and per-chunk meshing
     ingraph_launches, ingraph_rec, ingraph_win = ingraph_laps(
@@ -4926,7 +5231,7 @@ def main() -> int:
     # ---- phase 14: the adaptive structure on routes A and B
     ad_a_launches, ad_b_launches, ad_rec = adaptive_route_laps(
         params, counters, synthetic_scene, a_phases, a_n0, b_phases, b_n0,
-        b_tile)
+        b_tile, before_b_wait=lambda: go_fused_train(fused_train))
     print("[phase 14] record " + json.dumps(ad_rec), flush=True)
     torch.cuda.empty_cache()
 
@@ -4966,6 +5271,10 @@ def main() -> int:
           f"target {DP_PHASE_TARGET_S} s); record " + json.dumps(dp_rec),
           flush=True)
     print(smi, flush=True)
+
+    # ---- phase 18's record (its process ran beside phases 12 to 17)
+    fused_launches, fused_rec = finish_fused_train(fused_train)
+    print("[phase 18] record " + json.dumps(fused_rec), flush=True)
 
     # ---- phase 6: the row-stage scatter microbenchmark (its own path)
     t_phase = time.perf_counter()
@@ -5051,6 +5360,7 @@ def main() -> int:
         rec["launches_sharded"] = {w: sharded_launches[w][key]
                                    for w in ("a", "b")}
         rec["launches_train_dp"] = dp_launches[key]
+        rec["launches_train_fused"] = fused_launches[key]
     # the training step's backwards at its shapes: the gather's (the
     # segment sum over an order built in the backward) and the segment
     # sum's own (a row gather, no kernel)
@@ -5070,6 +5380,12 @@ def main() -> int:
         train_step_peak_gib=train_rec["peak_gib"],
         train_predicted_step_s=train_rec["predicted"]["warm_s"],
         train_predicted_step_peak_gib=train_rec["predicted"]["peak_gib"],
+        train_fused_step_s=min(lap["seconds"]
+                               for lap in fused_rec["fused"][1:]),
+        train_fused_unfused_step_s=min(
+            lap["seconds"] for lap in fused_rec["unfused"][1:]),
+        train_fused_step_peak_gib=max(lap["peak_gib"]
+                                      for lap in fused_rec["fused"]),
         train_gather_backwards=train_rec["gathers"]["gathers"],
         train_gather_sorts=train_rec["gathers"]["sorts"])
     # the window kernel at each input of one training step
@@ -5135,6 +5451,10 @@ if __name__ == "__main__":
         sys.exit(route_b_tile_lap(sys.argv[2]))
     if sys.argv[1:] == ["--dp-alone"]:
         sys.exit(dp_alone())
+    if len(sys.argv) == 4 and sys.argv[1] == "--fused-train":
+        sys.exit(fused_train_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:] == ["--fused-alone"]:
+        sys.exit(fused_alone())
     if len(sys.argv) == 7 and sys.argv[1] == "--dp":
         sys.exit(dp_world_child(sys.argv[2], int(sys.argv[3]),
                                 int(sys.argv[4]), sys.argv[5], sys.argv[6]))

@@ -11,7 +11,8 @@ has SPD normal equations, applied matrix-free from per-row supports
 (``fields/support.py``: gathers, small contractions, index-add scatters)
 and solved by Jacobi PCG (``solver/pcg.py``).  ``solve_non_fused`` keeps
 the supports for the whole solve; ``solve_fused`` recomputes them in
-every matvec (memory for compute), the reference's ``fused_mode``.
+every matvec (memory for compute), the reference's ``fused_mode``, in
+the training backward too.
 
 A field that carries its decoder hierarchy's host grids (the forward's,
 ``host_grids``) joins the supports of arbitrary points itself
@@ -26,11 +27,14 @@ or a ``LayerField``) or, without one, the union of the hierarchy's
 supports (``fields/neural_field.LayerField``'s mask).
 
 The field follows PyTorch's grad mode.  Under autograd (the training
-forward) the unfused solve is ``solve_spd``, the implicitly
-differentiated PCG, with the support rows as the operator's inputs, and
-``evaluate_f`` differentiates through the supports and the
-coefficients.  Inference builds no graph: ``Reconstructor`` freezes its
-network and reconstructs under ``torch.no_grad()``.
+forward) both solves are ``solve_spd``, the implicitly differentiated
+PCG: the unfused one with the support rows as the operator's inputs,
+the fused one with the tensors they are built from (the basis features
+and the interpolator MLPs' weights and biases), its backward rebuilding
+one depth's value or gradient rows at a time.  ``evaluate_f``
+differentiates through the supports and the coefficients.  Inference
+builds no graph: ``Reconstructor`` freezes its network and reconstructs
+under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 
 from ..core import host_build as HB
 from ..core.grid import host_array
-from ..models.network import MLP
+from ..models.network import MLP, TensorMLP
 from ..solver.pcg import solve_spd
 from . import support as S
 
@@ -236,58 +240,60 @@ class KernelField(HostJoinedField):
     def normal_equations(self, *args, **kw):
         """(matvec, rhs, Jacobi diagonal) of the solve's SPD system (the
         arguments of ``_system``), ``matvec(a)`` the operator applied."""
-        matvec, op, rhs, diag = self._system(*args, **kw)
+        matvec, op, rhs, diag, _ = self._system(*args, **kw)
         return (lambda a: matvec(a, *op)), rhs, diag
 
     def _system(self, pos_xyz, pos_w, normal_xyz, normal_w,
                 normal_value, reg_weight: float = 1.0,
                 pos_sup_idx=None, normal_sup_idx=None,
                 fused: bool = False):
-        """(matvec, op, rhs, Jacobi diagonal) of the solve's SPD system:
-        ``matvec(a, *op)`` is linear in ``a``, and ``op`` the support
-        tensors it reads (each depth's value-row basis, then each depth's
-        gradient-row dbasis), so ``solver.pcg.solve_spd`` differentiates
+        """(matvec, op, rhs, Jacobi diagonal, parts) of the solve's SPD
+        system: ``matvec(a, *op)`` is linear in ``a``, and ``op`` the
+        tensors it reads, so ``solver.pcg.solve_spd`` differentiates
         through them.  ``pos_w`` / ``normal_w`` per-row weights;
         ``*_sup_idx`` the rows' host support tables.  Unfused, the
-        supports are built once and held; fused, every matvec rebuilds
-        them, so one row block is alive at a time (no gradient: the
-        rebuilt supports are not inputs of the solve, so it raises where
-        the supports carry a graph).  The diagonal is a constant."""
+        supports are built once and held: ``op`` is each depth's
+        value-row basis, then each depth's gradient-row dbasis.  Fused,
+        every matvec rebuilds them from ``op``, each depth's basis
+        features and then its interpolator MLP's weights and biases
+        (``MLP.tensors``), so one row block is alive at a time; its
+        ``parts`` split the backward's lam^T A x by depth, value rows
+        apart from gradient rows.  The diagonal is a constant."""
         shapes = self._shapes()
         n = len(shapes)
         sg = self.support(normal_xyz, normal_sup_idx, grad=True)
-        if fused and any(s.dbasis.requires_grad for s in sg):
-            raise ValueError("fused_mode recomputes the supports in every "
-                             "matvec and cannot be differentiated; solve "
-                             "unfused under autograd")
         # the scatters' summation orders follow the host support rows
         # only: built once for the whole solve
         og = S.scatter_orders(sg, shapes)
         rhs = S.scatter_rows(sg, shapes, normal_w[:, None] * normal_value,
                              grad=True, orders=og)
-        sv = self.support(pos_xyz, pos_sup_idx)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not fused):
+            sv = self.support(pos_xyz, pos_sup_idx)
         ov = S.scatter_orders(sv, shapes)
         with torch.no_grad():
             dg = S.diag_contrib(sg, shapes, normal_w, grad=True, orders=og)
             dv = S.diag_contrib(sv, shapes, pos_w, orders=ov)
             diag = tuple(a + b + reg_weight for a, b in zip(dv, dg))
-        def apply(a, sup_v, sup_g):
-            out = S.scatter_rows(sup_v, shapes, pos_w * S.predict(sup_v, a),
-                                 orders=ov)
+
+        def value_rows(a, sup_v):
+            return S.scatter_rows(sup_v, shapes, pos_w * S.predict(sup_v, a),
+                                  orders=ov)
+
+        def grad_rows(a, sup_g):
             _, fg = S.predict(sup_g, a, grad=True)
-            out_g = S.scatter_rows(sup_g, shapes, normal_w[:, None] * fg,
-                                   grad=True, orders=og)
+            return S.scatter_rows(sup_g, shapes, normal_w[:, None] * fg,
+                                  grad=True, orders=og)
+
+        def total(a, out_v, out_g):
             return tuple(v + g + reg_weight * ai
-                         for v, g, ai in zip(out, out_g, a))
+                         for v, g, ai in zip(out_v, out_g, a))
 
         if fused:
             del sg, sv
-
-            def matvec(a):
-                sup_v = self.support(pos_xyz, pos_sup_idx)
-                sup_g = self.support(normal_xyz, normal_sup_idx, grad=True)
-                return apply(a, sup_v, sup_g)
-            return matvec, (), rhs, diag
+            matvec, op, parts = self._fused_system(
+                pos_xyz, normal_xyz, pos_w, normal_w, pos_sup_idx,
+                normal_sup_idx, value_rows, grad_rows, total)
+            return matvec, op, rhs, diag, parts
 
         k = self.kernel_dim
         idx_v = tuple(s.idx_k for s in sv)
@@ -295,12 +301,63 @@ class KernelField(HostJoinedField):
         fixed_g = tuple((s.idx_k, s.basis.detach()) for s in sg)
 
         def matvec_op(a, *op):
-            return apply(a, tuple(S.DepthSupport(i, b, None, k)
-                                  for i, b in zip(idx_v, op[:n])),
-                         tuple(S.DepthSupport(i, b, g, k)
-                               for (i, b), g in zip(fixed_g, op[n:])))
+            return total(a, value_rows(a, tuple(
+                S.DepthSupport(i, b, None, k)
+                for i, b in zip(idx_v, op[:n]))), grad_rows(a, tuple(
+                    S.DepthSupport(i, b, g, k)
+                    for (i, b), g in zip(fixed_g, op[n:]))))
         op = tuple(s.basis for s in sv) + tuple(s.dbasis for s in sg)
-        return matvec_op, op, rhs, diag
+        return matvec_op, op, rhs, diag, None
+
+    def _fused_system(self, pos_xyz, normal_xyz, pos_w, normal_w,
+                      pos_sup_idx, normal_sup_idx, value_rows, grad_rows,
+                      total):
+        """(matvec, op, parts) of ``_system``'s fused branch.  The
+        backward differentiates lam^T A x = sum_rows w (B lam)(B x) (B a
+        depth-summed row of values or gradients) depth by depth: with the
+        depth sums of B lam and B x taken once without a graph, depth d's
+        part w (B_d lam_d . Bx + B lam . B_d x_d) has that depth's
+        gradient, and only its supports' graph is alive."""
+        n = len(self.capacities)
+        n_mlp = [len(m.tensors()) for m in self.mlps]
+        op = self.features + tuple(t for m in self.mlps for t in m.tensors())
+        vss, approx = self.voxel_sizes, self.approx_kernel_grad
+
+        def unpack(op):
+            feats, rest, mlps = op[:n], op[n:], []
+            for m in n_mlp:
+                mlps.append(TensorMLP(rest[:m]))
+                rest = rest[m:]
+            return feats, mlps
+
+        def supports(feats, mlps, grad, depths=None):
+            x, idx = (normal_xyz, normal_sup_idx) if grad else \
+                (pos_xyz, pos_sup_idx)
+            return tuple(S.depth_support(vss[d], feats[d], mlps[d], x, idx[d],
+                                         grad, approx)
+                         for d in (range(n) if depths is None else depths))
+
+        def matvec(a, *op):
+            feats, mlps = unpack(op)
+            out_v = value_rows(a, supports(feats, mlps, False))
+            return total(a, out_v, grad_rows(a, supports(feats, mlps, True)))
+
+        def rows(sup, a, grad):
+            return S.predict(sup, a, grad=True)[1] if grad \
+                else S.predict(sup, a)
+
+        def parts(x, lam, *op):
+            feats, mlps = unpack(op)
+            for grad, w in ((False, pos_w), (True, normal_w[:, None])):
+                with torch.no_grad():
+                    sup = supports(feats, mlps, grad)
+                    bx, bl = rows(sup, x, grad), rows(sup, lam, grad)
+                    del sup
+                for d in range(n):
+                    sup = supports(feats, mlps, grad, (d,))
+                    yield (w * (rows(sup, lam[d:d + 1], grad) * bx
+                                + bl * rows(sup, x[d:d + 1], grad))).sum()
+        return matvec, op, parts
 
     def solve_non_fused(self, *args, solver_tol: float = 1e-5,
                         max_iters: int = 128, **kw) -> "KernelField":
@@ -313,15 +370,18 @@ class KernelField(HostJoinedField):
     def solve_fused(self, *args, solver_tol: float = 1e-5,
                     max_iters: int = 128, **kw) -> "KernelField":
         """``solve_non_fused``'s system with the supports recomputed in
-        every matvec (memory for compute; no gradient)."""
+        every matvec (memory for compute); differentiable (``solve_spd``
+        against the basis features and the interpolator MLPs) under
+        autograd."""
         return self._solve(*self._system(*args, fused=True, **kw),
                            solver_tol, max_iters)
 
-    def _solve(self, matvec, op, rhs, diag, tol, max_iters) -> "KernelField":
+    def _solve(self, matvec, op, rhs, diag, parts, tol, max_iters
+               ) -> "KernelField":
         def precond(r):
             return tuple(ri / di for ri, di in zip(r, diag))
         alpha = solve_spd(matvec, rhs, op, precond=precond, tol=tol,
-                          max_iters=max_iters)
+                          max_iters=max_iters, parts=parts)
         return self._with(alpha, solve_spd.last_stats)
 
     def solve(self, *args, fused: bool = False, **kw) -> "KernelField":

@@ -83,7 +83,9 @@ def depth_support(voxel_size: float, features: torch.Tensor, mlp: MLP,
                   approx_grad: bool = False) -> DepthSupport:
     """Support of (Q, 3) world points at one depth with voxel size
     ``voxel_size``, from the host rows ``idx`` (Q, 8) into
-    ``features`` (cap_d, Cb)."""
+    ``features`` (cap_d, Cb); ``mlp`` the depth's interpolator, an
+    ``MLP`` or a ``models/network.TensorMLP`` over tensors the caller
+    differentiates against (the fused solve's backward)."""
     q = x.shape[0]
     k = mlp.layers()[-1].out_features
     sk = 8 * k

@@ -5,7 +5,7 @@ JAX checkpoint onto them key for key."""
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, List, Sequence, Tuple
+from typing import TYPE_CHECKING, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,11 +28,44 @@ class MLP(nn.Module):
     def layers(self) -> List[nn.Linear]:
         return [getattr(self, f"Dense_{i}") for i in range(self.n_layers)]
 
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The layers' weights and biases in order (``TensorMLP``'s
+        input)."""
+        return tuple(t for layer in self.layers()
+                     for t in (layer.weight, layer.bias))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *hidden, last = self.layers()
         for layer in hidden:
             x = F.silu(layer(x))
         return last(x)
+
+
+class Dense(NamedTuple):
+    """A dense layer over given tensors, called as ``nn.Linear`` is."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+    @property
+    def out_features(self) -> int:
+        return self.weight.shape[0]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class TensorMLP:
+    """An ``MLP``'s layers over given tensors (its ``tensors()``, or
+    tensors of their shapes), so that a caller differentiates against
+    tensors it holds: the fused solve's operator inputs
+    (``fields/kernel_field.py``)."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._layers = [Dense(w, b) for w, b in zip(tensors[::2],
+                                                    tensors[1::2])]
+
+    def layers(self) -> List[Dense]:
+        return self._layers
 
 
 def mlp_with_tangents(mlp: MLP, x: torch.Tensor, n_tan: int

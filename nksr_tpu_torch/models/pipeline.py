@@ -8,8 +8,8 @@ on the predicted structure, and the inference forward with no GT
 
 ``PipelineConfig`` has the fields and defaults of
 nksr_tpu/models/pipeline.py so configurations carry over unchanged;
-the fields that only the JAX package reads (``cascade_engine``,
-``capacities``, ``fused_mode``) are kept for that reason.
+the fields that only the JAX package reads (``cascade_engine``) are
+kept for that reason.
 """
 
 from __future__ import annotations
@@ -383,11 +383,6 @@ def forward(cfg: PipelineConfig, net: NKSRNetwork, inp: TrainInputs,
     those statuses, built on the host after the UNet, are summed into
     "train: structure tables"."""
     from . import sparse_unet as SU   # it imports this module
-    if cfg.fused_mode and cfg.geometry == "kernel":
-        raise NotImplementedError(
-            "fused_mode under training: the fused solve recomputes its "
-            "supports in every matvec and has no gradient (ROADMAP.md "
-            "queue 1, item 14)")
     caps = tuple(cfg.capacities)
     if use_gt_structure:
         if inp.levels is None:

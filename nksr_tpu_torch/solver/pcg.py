@@ -56,10 +56,12 @@ class _SolveSPD(torch.autograd.Function):
     A lam = x_bar by one more PCG (same preconditioner, tol and
     iteration cap; A is symmetric), then b_bar = lam and the operator's
     tensors get -lam^T d(A x)/d(theta), the matvec differentiated at the
-    detached solution.  The preconditioner is a constant."""
+    detached solution, or the sum of ``parts``' gradients, one part's
+    graph at a time.  The preconditioner is a constant."""
 
     @staticmethod
-    def forward(ctx, matvec, precond, tol, max_iters, n_rhs, *tensors):
+    def forward(ctx, matvec, precond, tol, max_iters, parts, n_rhs,
+                *tensors):
         rhs, op = tensors[:n_rhs], tensors[n_rhs:]
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -67,7 +69,7 @@ class _SolveSPD(torch.autograd.Function):
                                 precond=precond, tol=tol,
                                 max_iters=max_iters)
         solve_spd.last_seconds = time.perf_counter() - t0
-        ctx.matvec, ctx.precond = matvec, precond
+        ctx.matvec, ctx.precond, ctx.parts = matvec, precond, parts
         ctx.tol, ctx.max_iters, ctx.n = tol, max_iters, len(x)
         ctx.stats = [(iters, rel)]
         ctx.save_for_backward(*x, *op)
@@ -85,38 +87,56 @@ class _SolveSPD(torch.autograd.Function):
                                   max_iters=ctx.max_iters)
         solve_spd.last_backward_seconds = time.perf_counter() - t0
         solve_spd.last_backward_stats = (iters, rel)
-        need = [i for i, t in enumerate(op) if ctx.needs_input_grad[5 + ctx.n
-                                                                   + i]]
+        first = 6 + ctx.n       # the operator's first input
+        need = [i for i in range(len(op)) if ctx.needs_input_grad[first + i]]
         op_bar = [None] * len(op)
         if need:
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_(i in need)
                           for i, t in enumerate(op)]
-                ax = ctx.matvec(tuple(xi.detach() for xi in x), *leaves)
-                grads = torch.autograd.grad(
-                    ax, [leaves[i] for i in need], grad_outputs=lam,
-                    allow_unused=True)
+                wrt = [leaves[i] for i in need]
+                xd = tuple(xi.detach() for xi in x)
+                if ctx.parts is None:
+                    grads = torch.autograd.grad(
+                        ctx.matvec(xd, *leaves), wrt, grad_outputs=lam,
+                        allow_unused=True)
+                else:
+                    grads = [None] * len(need)
+                    for s in ctx.parts(xd, lam, *leaves):
+                        if not s.requires_grad:   # no needed input in it
+                            continue
+                        for j, g in enumerate(torch.autograd.grad(
+                                s, wrt, allow_unused=True)):
+                            if g is not None:
+                                grads[j] = g if grads[j] is None \
+                                    else grads[j] + g
             for i, g in zip(need, grads):
                 op_bar[i] = None if g is None else -g
-        return (None,) * 5 + tuple(lam) + tuple(op_bar)
+        return (None,) * 6 + tuple(lam) + tuple(op_bar)
 
 
 def solve_spd(matvec: Callable, b: Tuple[torch.Tensor, ...],
               op: Sequence[torch.Tensor] = (),
               precond: Optional[Callable] = None, tol: float = 1e-5,
-              max_iters: int = 100) -> Tuple[torch.Tensor, ...]:
+              max_iters: int = 100, parts: Optional[Callable] = None
+              ) -> Tuple[torch.Tensor, ...]:
     """Differentiable SPD solve (``nksr_tpu.solver.pcg.solve_spd``, i.e.
     ``lax.custom_linear_solve(..., symmetric=True)``): forward PCG,
     backward one more PCG on the cotangent.  ``matvec(a, *op)`` must be
     linear in ``a``; the tensors ``op`` it reads are the operator's
-    differentiable inputs (e.g. the support rows), so their gradients
-    flow on to whatever built them.  ``solve_spd.last_stats`` holds the
+    differentiable inputs (e.g. the support rows, or the tensors they
+    are built from), so their gradients flow on to whatever built them
+    (or into the ``.grad`` of those that are leaves).  ``parts(x, lam,
+    *op)``, if given, yields scalars that sum to lam^T A(op) x, each
+    built from a part of the operator: the backward differentiates them
+    one by one instead of the whole matvec, so only one part's graph is
+    alive at a time.  ``solve_spd.last_stats`` holds the
     forward's (iters, rel_residual), ``last_backward_stats`` the
     backward's; ``last_seconds`` and ``last_backward_seconds`` the two
     PCGs' host seconds (each reads its residual on the host every
     iteration, so the device is drained when it returns)."""
-    return _SolveSPD.apply(matvec, precond, tol, max_iters, len(b), *b,
-                           *op)
+    return _SolveSPD.apply(matvec, precond, tol, max_iters, parts, len(b),
+                           *b, *op)
 
 
 solve_spd.last_stats = None

@@ -15,10 +15,18 @@ orders, CG stopped at tol 1e-4): every loss term within 1e-3 relative,
 every gradient leaf within 1e-2 relative L2 (measured on this CPU: 2e-4
 and 5e-3), the structure logits within 1e-4 of their largest magnitude,
 and the teacher-forced candidate hierarchy voxel for voxel.
+
+The JAX side (``jax_parity``: about a minute of compile here) is kept in
+``tests/data/fused_train_reference.npz`` beside the fused step's of
+``tests/test_torch_fused_train.py``; rewrite it after a change to its
+inputs with
+
+    env -u PYTHONPATH JAX_PLATFORMS=cpu python scripts/fused_train_reference.py
 """
 
 import dataclasses
 import importlib
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -39,6 +47,12 @@ from nksr_tpu_torch.utils.checkpoint import params_to_torch, torch_to_params
 
 # the module, not the function that nksr_tpu.solver exports by that name
 JPCG = importlib.import_module("nksr_tpu.solver.pcg")
+# the JAX side of ``parity`` (``jax_parity``, about a minute of compile
+# on the CPU) under keys UNFUSED, and of test_torch_fused_train.py's
+# fused step under FUSED: written by scripts/fused_train_reference.py
+REF = Path(__file__).resolve().parent / "data" / \
+    "fused_train_reference.npz"
+UNFUSED, FUSED = "unfused_", "fused_"
 PARITY_ITERS = 600
 LOSS_RTOL = 1e-3
 GRAD_RTOL = 1e-2
@@ -67,10 +81,11 @@ def _flat(tree, prefix=()):
         yield "/".join(prefix), np.asarray(tree)
 
 
-def run_parity(udf: bool, monkeypatch_module):
-    """JAX's value-and-grad and the port's loss and gradients of one
-    teacher-forced step; returns a dict of both sides' numbers."""
-    jcfg = dataclasses.replace(JCFG, udf_enabled=udf,
+def jax_parity(udf: bool, monkeypatch_module, fused: bool = False):
+    """JAX's value-and-grad of one teacher-forced step (``fused``: with
+    ``fused_mode``), with its draws and the (iterations, relative
+    residual) of its forward and backward PCG solves."""
+    jcfg = dataclasses.replace(JCFG, udf_enabled=udf, fused_mode=fused,
                                solver_max_iters=PARITY_ITERS)
     batch = make_batch()
     params = JP.init_params(jcfg, jax.random.PRNGKey(0))
@@ -117,36 +132,102 @@ def run_parity(udf: bool, monkeypatch_module):
                                JLCFG.udf_samplers)
     samples = {k: torch.tensor(np.asarray(v)) for k, v in samples.items()}
     samples["surface"] = samples["surface"].long()
+    return dict(
+        params=dict(_flat(jax.tree_util.tree_map(np.asarray, params))),
+        jax_losses={k: float(v) for k, v in jl.items()},
+        jax_grads=dict(_flat(jax.tree_util.tree_map(np.asarray, jg))),
+        jax_stats=jstats,
+        jax_logits=[np.asarray(x) for x in jlogits],
+        jax_cand=[np.asarray(c)[:int(n)] for c, n in jcand],
+        samples=samples)
 
+
+def port_parity(udf: bool, samples, fused: bool = False, params=None):
+    """The port's loss and gradients of the same step from the same
+    parameters (``params_to_torch`` of the seeded JAX init, or of
+    ``params``, its flax tree) on ``samples``."""
+    jcfg = dataclasses.replace(JCFG, udf_enabled=udf, fused_mode=fused,
+                               solver_max_iters=PARITY_ITERS)
+    if params is None:
+        params = JP.init_params(jcfg, jax.random.PRNGKey(0))
     cfg, lcfg = port_configs(jcfg, JLCFG)
     net = NKSRNetwork(cfg)
     net.load_state_dict(params_to_torch(params), strict=True)
-    inp = P.prepare_inputs(cfg, {k: np.asarray(v) for k, v in batch.items()},
-                           "cpu")
+    batch = {k: np.asarray(v) for k, v in make_batch().items()}
+    inp = P.prepare_inputs(cfg, batch, "cpu")
     losses, _, out = T.loss_and_grads(cfg, lcfg, net, inp, samples)
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in net.named_parameters()}
     return dict(
-        jax_losses={k: float(v) for k, v in jl.items()},
         losses={k: float(v.detach()) for k, v in losses.items()},
-        jax_grads=dict(_flat(jax.tree_util.tree_map(np.asarray, jg))),
         grads=dict(_flat({"params": torch_to_params(grads)})),
-        jax_stats=jstats, stats=(out.field.cg_stats,
-                                 solve_spd.last_backward_stats),
-        jax_logits=[np.asarray(x) for x in jlogits],
+        stats=(out.field.cg_stats, solve_spd.last_backward_stats),
         logits=[x.detach().numpy() for x in out.structure_logits],
-        jax_cand=[np.asarray(c)[:int(n)] for c, n in jcand],
         cand=[lv.cand.coords for lv in inp.levels],
         tol=cfg.solver_tol)
 
 
+def run_parity(udf: bool, monkeypatch_module):
+    """JAX's value-and-grad and the port's loss and gradients of one
+    teacher-forced step; returns a dict of both sides' numbers."""
+    r = jax_parity(udf, monkeypatch_module)
+    r.update(port_parity(udf, r["samples"]))
+    return r
+
+
+def save_reference(out: dict, prefix: str, r) -> None:
+    """``jax_parity``'s numbers into the dict ``out`` of npz arrays, keys
+    under ``prefix`` (lists by position, names in their order); the
+    parameters, the same for every prefix, once."""
+    out.update({"param_names": np.array(list(r["params"]))})
+    out.update({f"param_{i}": v for i, v in enumerate(r["params"].values())})
+    out.update({
+        f"{prefix}loss_names": np.array(list(r["jax_losses"])),
+        f"{prefix}loss_values": np.array(list(r["jax_losses"].values()),
+                                         np.float64),
+        f"{prefix}grad_names": np.array(list(r["jax_grads"])),
+        f"{prefix}stats": np.array(r["jax_stats"], np.float64)})
+    out.update({f"{prefix}grad_{i}": v
+                for i, v in enumerate(r["jax_grads"].values())})
+    out.update({f"{prefix}sample_{k}": v.numpy()
+                for k, v in r["samples"].items()})
+    for name in ("jax_logits", "jax_cand"):
+        out.update({f"{prefix}{name}_{d}": v for d, v in enumerate(r[name])})
+
+
+def load_reference(prefix: str, path=REF) -> dict:
+    """Inverse of ``save_reference``."""
+    with np.load(path) as z:
+        depth = sum(k.startswith(f"{prefix}jax_cand_") for k in z.files)
+        r = {name: [z[f"{prefix}{name}_{d}"] for d in range(depth)]
+             for name in ("jax_logits", "jax_cand")}
+        r["jax_losses"] = {str(k): float(v) for k, v in
+                           zip(z[f"{prefix}loss_names"],
+                               z[f"{prefix}loss_values"])}
+        r["jax_grads"] = {str(k): z[f"{prefix}grad_{i}"]
+                          for i, k in enumerate(z[f"{prefix}grad_names"])}
+        r["jax_stats"] = [(int(i), float(rel))
+                          for i, rel in z[f"{prefix}stats"]]
+        samples = {k[len(f"{prefix}sample_"):]: torch.tensor(z[k])
+                   for k in z.files if k.startswith(f"{prefix}sample_")}
+        params = {}
+        for i, name in enumerate(z["param_names"]):
+            node = params
+            *path, leaf = str(name).split("/")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = z[f"param_{i}"]
+    r["params"] = params
+    samples["surface"] = samples["surface"].long()
+    r["samples"] = samples
+    return r
+
+
 @pytest.fixture(scope="module")
 def parity():
-    mp = pytest.MonkeyPatch()
-    try:
-        yield run_parity(False, mp)
-    finally:
-        mp.undo()
+    r = load_reference(UNFUSED)
+    r.update(port_parity(False, r["samples"], params=r["params"]))
+    return r
 
 
 def check_solves_converged(r):

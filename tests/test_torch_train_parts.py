@@ -466,16 +466,64 @@ def test_fit_checkpoints_resume_and_reconstruct(tmp_path):
     assert len(mesh.f) > 0 and np.isfinite(mesh.v).all()
 
 
-def test_unported_training_paths_raise():
-    """The fused solve under autograd raises, naming what is not ported
-    (data parallel, item 15b, is: tests/test_torch_dp_train.py)."""
-    cfg = P.PipelineConfig(**TINY)
+@pytest.mark.parametrize("udf,approx", [(False, False), (True, True)])
+def test_fused_train_step_matches_unfused(udf, approx, monkeypatch):
+    """The ``TINY`` ``train_step`` with ``fused_mode`` (the solve that
+    rebuilds its supports in every matvec, differentiated against the
+    basis features and the interpolators; tests/test_torch_fused_train.py
+    holds it against the JAX package) from the seeded init on the same
+    draws as the unfused step: the same CG iterations forward and
+    backward, the loss terms within 1e-5 relative, the gradient that
+    reaches the optimizer within 1e-5 relative L2 whole and 1e-4 per
+    leaf (``check_fused_grads``; UDF head and approximate basis
+    gradients off, then on)."""
+    cfg = P.PipelineConfig(**TINY, udf_enabled=udf, approx_kernel_grad=approx)
     tc = T.TrainConfig()
-    state = T.init_state(cfg, tc, device="cpu")
     lcfg = driver.loss_config_from_yaml(FIT_CFG)
-    with pytest.raises(NotImplementedError, match="fused_mode"):
-        T.train_step(dataclasses.replace(cfg, fused_mode=True), tc, lcfg,
-                     state, _sphere_batch(), torch.Generator())
+    grads, real = [], T.apply_optimizer
+
+    def recording(tc, net, opt_state):
+        grads.append({n: p.grad.clone() for n, p in net.named_parameters()
+                      if p.grad is not None})
+        return real(tc, net, opt_state)
+    monkeypatch.setattr(T, "apply_optimizer", recording)
+    runs = []
+    for fused in (False, True):
+        state = T.init_state(cfg, tc, device="cpu")
+        _, losses, _ = T.train_step(
+            dataclasses.replace(cfg, fused_mode=fused), tc, lcfg, state,
+            _sphere_batch(), torch.Generator().manual_seed(0))
+        runs.append((losses, solve_spd.last_stats[0],
+                     solve_spd.last_backward_stats[0]))
+    (ul, *uit), (fl, *fit) = runs
+    assert uit == fit and set(ul) == set(fl) and ("udf" in ul) == udf
+    for k in ul:
+        np.testing.assert_allclose(fl[k], ul[k], rtol=1e-5, err_msg=k)
+    check_fused_grads(*grads)
+
+
+# a conv bias that feeds a group norm has a gradient of zero up to
+# rounding: such a leaf (norm under ZERO_FLOOR of the whole gradient's)
+# is held within that floor (tests/test_torch_dp_train.py's rule)
+ZERO_FLOOR = 1e-6
+
+
+def check_fused_grads(ref, got, whole_rtol=1e-5, leaf_rtol=1e-4):
+    """Fused against unfused gradients by name: within ``whole_rtol``
+    relative L2 whole and ``leaf_rtol`` per leaf, a leaf of rounding
+    size within ``ZERO_FLOOR`` of the whole."""
+    assert set(ref) == set(got)
+    keys = sorted(ref)
+    whole = float(torch.cat([ref[k].flatten() for k in keys]).norm())
+    err = float(torch.cat([(got[k] - ref[k]).flatten() for k in keys]
+                          ).norm())
+    assert err <= whole_rtol * whole, err / whole
+    for k in keys:
+        d, e = float(ref[k].norm()), float((got[k] - ref[k]).norm())
+        if d < ZERO_FLOOR * whole:
+            assert e < ZERO_FLOOR * whole, k
+        else:
+            assert e <= leaf_rtol * d, (k, e / d)
 
 
 def test_train_and_overfit_scripts_on_the_cpu(tmp_path, capsys):
