@@ -30,8 +30,10 @@ Phases (any failure ends the run with a non-zero exit):
      bf16 forward, the two row gathers and their casts to f32); the
      fixed-order segment sum bit-equal to its plain version (CPU
      index_add_) at small shapes with heavy duplication and at the
-     encoder splat's rows (captured in the warm-up lap), timed beside
-     zeros + index_add_; the slot-row adjoint at small specs and at the
+     encoder splat's rows (captured in the warm-up lap), each of its
+     three designs forced and bit-equal, timed beside zeros + index_add_
+     with its order's build (no host sync) and the old two-launch sum's
+     parts (a zero fill, the compact sum); the slot-row adjoint at small specs and at the
      plan's real slot cells (random f32 slot rows), in bf16 and f32,
      equal to the dense adjoint kernel on the buffer CPU index_add_
      builds (up to the sign of a zero) and bit-equal from call to call,
@@ -57,7 +59,9 @@ Phases (any failure ends the run with a non-zero exit):
      ``lattice_solve: ...`` ranges);
   4. route B, the sparse fallback: the same call on a 100 m x 100 m tile
      of 1M points, whose lattice plan is over budget (gather-conv UNet,
-     support-row solve with the window kernel, host dual MC);
+     support-row solve with the window kernel, host dual MC); its
+     segment sums recorded by shape and timed after the lap, each design
+     forced, beside zeros + index_add_;
   5. route A: a 60 m x 60 m tile of 1M points, whose feature lattices are
      over the dense UNet's budget (gather-conv UNet, lattice solve with
      the cascade kernels, host dual MC over the lattice evaluator);
@@ -149,9 +153,11 @@ Phases (any failure ends the run with a non-zero exit):
      input points of 30,000), written under the checkout's data/: (a) the
      training step's two backwards at its shapes on the card, bit-equal
      to their plain versions on CPU copies and call to call, timed: the
-     gather's (the fixed-order segment sum over the order sorted once per
-     index table, at the depth-0 conv gather) and the segment sum's (a
-     row gather, at the encoder splat); (b) solve_spd's gradients on the card
+     gather's (the fixed-order segment sum over its index table's kept
+     order, at the depth-0 conv gather, in turns with zeros + index_add_,
+     each design forced, the order's build with no host sync) and the
+     segment sum's (its row-gather kernel, one launch, at the encoder
+     splat, in turns with index_select); (b) solve_spd's gradients on the card
      against its CPU run on an f64 system, and one step on
      tests/test_train.py's sphere with the solve converged, card against
      CPU; (c) one step from runs/scene_big/best.ckpt on the item, card
@@ -162,9 +168,14 @@ Phases (any failure ends the run with a non-zero exit):
      gradient gated (iterations printed); then three steps with the
      optimizer: seconds a warm step by phase, peak memory, the launches
      of one step (the segment sum and the window kernel must run), the
-     gathers' backwards and their sorts in a step, and the window kernel
-     against its plain version on every input the first of those steps
-     gave it, timed; (d) 30 overfit steps from the
+     step's segment sums by (columns, rows, targets), each shape timed
+     with each design forced beside zeros + index_add_, its orders'
+     lookups and device sorts (batched and alone), the batched sort
+     against one sort a table and against the host's radix argsort, one
+     more warm step under torch.profiler (the device's busy time and
+     idle share, the ten kernels by device time, the segment sum's
+     total), and the window kernel against its plain version on every
+     input the first of those steps gave it, timed; (d) 30 overfit steps from the
      port's seeded init, the last 3 sums under 0.85x the first 3; (e) two
      runs of 5 steps from one state, parameters and losses bit-equal;
      (f) ``train.driver.fit`` for 4 steps with one validation from the
@@ -194,7 +205,9 @@ Phases (any failure ends the run with a non-zero exit):
      those taken while it ran.  The kernels line gains each kernel's
      launches in one training step (``launches_train``) and in one
      predicted step (``launches_train_predicted``), the backwards' times
-     and the window kernel's at the step's inputs.
+     and the window kernel's at the step's inputs, and a record of its
+     own for the segment sum's backward kernel (``segment_sum_backward``:
+     its launches a training step, its times at the encoder splat).
  12. (run after phase 11) the in-graph route, structure=
      "predicted_ingraph" (capacities estimated from a subsample as the
      JAX package estimates them, the inference forward models/pipeline.
@@ -208,7 +221,9 @@ Phases (any failure ends the run with a non-zero exit):
      at 5e6 samples, each scene's chamfer-L1 under 1.1x the JAX
      package's in-graph figure (scripts/quality_reference_ingraph.py),
      seconds, vertices, faces, peak memory and launches printed (the
-     window kernel and the segment sum must run); (b) the (-x, -y) 20 m
+     window kernel and the segment sum must run), the first scene's
+     second lap's segment sums by shape, each timed with each design
+     forced beside zeros + index_add_; (b) the (-x, -y) 20 m
      quadrant of the 1M-point tile alone, under 1.5x the JAX package's
      in-graph terrain error there; (c) the same quadrant with
      chunk_size=10, four in-graph chunks each meshed alone and welded,
@@ -865,13 +880,18 @@ def seg_inputs(gen, r: int, c: int, t: int):
 def compare_segment_sum(SEG, values, index, n_rows: int, timed: bool):
     """Segment-sum kernel vs its plain version (CPU ``index_add_`` in
     index order, on CPU copies of the same inputs): bit-equal, dense and
-    compact, and two calls bit-equal.  Timed (dense, the splat's form,
-    the order built beforehand): kernel and plain version (on the card:
-    its mask and ``index_add_``) in turns, the library call (``zeros`` +
-    ``index_add_`` of the kept rows, f32 atomics) likewise, and the
-    order's build (stable sort and segment starts)."""
+    compact, in the design the wrapper picks, and every design dense
+    (``design_times``); two calls bit-equal.  Timed (dense, the splat's
+    form, the order built beforehand): kernel and plain version (on the
+    card: its mask and ``index_add_``) in turns, the library call
+    (``zeros`` + ``index_add_`` of the kept rows, f32 atomics) likewise,
+    each design forced, the order's build without a host sync and with
+    its range check (one sync), and, where the targets are at least as
+    many as the rows, the old two-launch sum's parts (the zero fill it
+    needs, the compact sum over the same runs: the old kernel's walk)."""
     order = SEG.segment_order(index, n_rows)
     cpu_order = SEG.segment_order(index.cpu(), n_rows)
+    c = values.shape[1]
     for compact in (False, True):
         got = SEG.segment_sum(values, order, compact=compact)
         again = SEG.segment_sum(values, order, compact=compact)
@@ -883,10 +903,11 @@ def compare_segment_sum(SEG, values, index, n_rows: int, timed: bool):
         if not torch.equal(got, again):
             raise AssertionError("segment_sum: two calls differ")
         del got, again, ref
+    lengths = torch.bincount(index[(index >= 0) & (index < n_rows)])
     out = {"err": 0.0, "rows": index.numel(), "segments":
-           order.targets.numel(), "longest": int(
-               (order.offsets[1:] - order.offsets[:-1]).max())
-           if order.targets.numel() else 0}
+           int((lengths > 0).sum()), "longest": int(lengths.max())
+           if lengths.numel() else 0, "design": auto_design(SEG, c, order),
+           "designs": design_times(SEG, values, order, 10 if timed else 0)}
     if timed:
         keep = index >= 0
         kv, ki = values[keep].contiguous(), index[keep]
@@ -902,14 +923,157 @@ def compare_segment_sum(SEG, values, index, n_rows: int, timed: bool):
         l2 = cuda_ms(library, 10)
         p2 = cuda_ms(lambda: SEG.segment_sum_plain(values, order), 5)
         n_kept = int(keep.sum())
-        c = values.shape[1]
         out.update(ms=min(k1, k2), ms_turns=(k1, k2), plain_ms=min(p1, p2),
                    library_ms=min(l1, l2),
-                   order_ms=cuda_ms(lambda: SEG.segment_order(index, n_rows),
-                                    3),
+                   order_ms=cuda_ms(lambda: SEG.segment_order(
+                       index, n_rows, check=False), 3),
+                   checked_order_ms=cuda_ms(lambda: SEG.segment_order(
+                       index, n_rows), 3),
                    bound=bound_ms(values.numel() * 4 + index.numel() * 8
                                   + n_rows * c * 4, n_kept * c))
+        if n_rows >= index.numel():
+            out.update(
+                zeros_ms=cuda_ms(lambda: torch.zeros(
+                    (n_rows, c), device="cuda"), 10),
+                compact_ms=cuda_ms(lambda: SEG.segment_sum(
+                    values, order, compact=True), 10))
     return out
+
+
+DESIGNS = ("thread", "warp", "tile")
+
+
+def design_times(SEG, values, order, reps: int) -> dict:
+    """Each design of the dense sum at one input, forced (the warp and
+    the tile where rows fit a warp): bit-equal to one another, and, with
+    ``reps``, each one's ms by CUDA events ({design: ms})."""
+    c = values.shape[1]
+    lanes = c // 4 if c % 4 == 0 else c
+    out, first = {}, None
+    for how, name in enumerate(DESIGNS):
+        if how != SEG.THREAD and lanes > 32:
+            continue
+        got = SEG._segment_sum(values, order, force=how)
+        if first is None:
+            first = got
+        elif not torch.equal(got, first):
+            raise AssertionError(f"segment_sum: the {name} design differs "
+                                 f"from the thread design at C {c}, R "
+                                 f"{order.index.numel()}, T "
+                                 f"{order.n_targets}")
+        if reps:
+            out[name] = cuda_ms(lambda: SEG._segment_sum(values, order,
+                                                         force=how), reps)
+    return out
+
+
+def auto_design(SEG, c: int, order) -> str:
+    """The design the wrapper takes for the dense sum over ``order``."""
+    return DESIGNS[SEG.design(c, order.index.numel(), order.n_targets)]
+
+
+def seg_bound(kept: int, rows: int, cols: int, targets: int):
+    """Bound of a dense segment sum (phase 11's reckoning): the kept rows
+    read once, an 8-byte target a row, the output written once; one add
+    a kept value."""
+    return bound_ms(kept * cols * 4 + rows * 8 + targets * cols * 4,
+                    kept * cols)
+
+
+class SegRecorder:
+    """Records every segment sum of a run by (columns, rows, targets):
+    the calls, and the first call's values and order of each shape
+    (``keep``); counts the orders looked up on their tables
+    (``table_order``), those built alone (``segment_order``, a device
+    sort each) and the batched builds (``segment_orders`` of two tables
+    or more, one sort for them), and keeps each built order's targets
+    (``orders``)."""
+
+    def __init__(self, SEG, keep: bool = True):
+        self.SEG, self.keep = SEG, keep
+        self.calls, self.inputs, self.orders = {}, {}, []
+        self.sorts = self.lookups = self.batches = self.batched = 0
+
+    def __enter__(self):
+        SEG = self.SEG
+        self._sum, self._order = SEG._segment_sum, SEG.segment_order
+        self._table, self._orders = SEG.table_order, SEG.segment_orders
+
+        def summed(values, order, compact=False, force=None):
+            c = 1 if values.dim() == 1 else values.shape[1]
+            key = (c, order.index.numel(), order.n_targets)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if self.keep and key not in self.inputs and not compact:
+                self.inputs[key] = (values.detach().reshape(
+                    values.shape[0], c).clone(), order)
+            return self._sum(values, order, compact, force)
+
+        def ordered(index, n, check=True):
+            self.sorts += 1
+            if self.keep:
+                self.orders.append((index.detach().reshape(-1).clone(), n))
+            return self._order(index, n, check)
+
+        def looked_up(table, n):
+            self.lookups += 1
+            return self._table(table, n)
+
+        def batched(tables):
+            # two tables or more make one sort (fewer: segment_order's)
+            if len(tables) >= 2:
+                self.batches += 1
+                self.batched += len(tables)
+                if self.keep:
+                    self.orders.extend((i.detach().reshape(-1).clone(), n)
+                                       for i, n in tables)
+            return self._orders(tables)
+        SEG._segment_sum, SEG.segment_order = summed, ordered
+        SEG.table_order, SEG.segment_orders = looked_up, batched
+        return self
+
+    def __exit__(self, *exc):
+        SEG = self.SEG
+        SEG._segment_sum, SEG.segment_order = self._sum, self._order
+        SEG.table_order, SEG.segment_orders = self._table, self._orders
+
+    def table(self) -> str:
+        return ", ".join(f"{n}x (C {c}, R {r}, T {t})" for (c, r, t), n in
+                         sorted(self.calls.items(), key=lambda kv: -kv[1]))
+
+    def time(self, reps: int = 10) -> list:
+        """Each kept shape: the wrapper's call and ``zeros + index_add_``
+        in turns, every design forced (``design_times``: bit-equal to one
+        another), the bound."""
+        SEG, out = self.SEG, []
+        for (c, r, t), (v, order) in sorted(self.inputs.items()):
+            keep = order.index >= 0
+            kv, ki = v[keep].contiguous(), order.index[keep].long()
+
+            def library():
+                return torch.zeros((t, c), device=v.device).index_add_(
+                    0, ki, kv)
+            k1, l1 = cuda_ms(lambda: SEG._segment_sum(v, order), reps), \
+                cuda_ms(library, reps)
+            k2, l2 = cuda_ms(lambda: SEG._segment_sum(v, order), reps), \
+                cuda_ms(library, reps)
+            out.append({"cols": c, "rows": r, "targets": t,
+                        "calls": self.calls[(c, r, t)],
+                        "design": auto_design(SEG, c, order),
+                        "ms": min(k1, k2), "library_ms": min(l1, l2),
+                        "designs": design_times(SEG, v, order, reps),
+                        "bound_ms": seg_bound(int(keep.sum()), r, c, t)[0]})
+        return out
+
+
+def print_seg_times(tag: str, times: list) -> None:
+    print(f"{tag} segment sums by shape (ms: the wrapper's call and its "
+          "design, each design forced, zeros + index_add_, bound): "
+          + "; ".join(
+              f"{x['calls']}x C {x['cols']} R {x['rows']} T {x['targets']} "
+              f"{x['ms']:.4f} {x['design']} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in x["designs"].items())
+              + f"), library {x['library_ms']:.4f}, bound "
+              f"{x['bound_ms']:.4f}" for x in times), flush=True)
 
 
 def random_slot_cells(spec, gen, r: int):
@@ -2142,10 +2306,13 @@ def compare_train_backwards(SEG, gs, inp, f_maps: int, gen):
     at its shapes, against their plain versions on CPU copies, bit-equal
     and bit-equal call to call, timed.  The gather's backward (the depth-0
     conv gather: n0 x 27 rows of f_maps onto n0 + 1 rows) is the
-    fixed-order segment sum over the order of its index table, sorted on
-    the table's first backward and reused after; the segment sum's
-    backward (the encoder splat: N x 8 rows of 7 from n0 rows) is a row
-    gather."""
+    fixed-order segment sum over the order of its index table, built on
+    the table's first backward without a host sync and kept on it; timed
+    as the backward calls it, in turns with ``zeros + index_add_``, beside
+    the other design, the order's build and the old build's range check
+    (one sync).  The segment sum's backward (the encoder splat: N x 8
+    rows of 7 from n0 rows) is its row-gather kernel, timed in turns with
+    the gather alone (``index_select``, no zeros) and through autograd."""
     n0 = inp.n_vox[0]
     raw = inp.enc_tables.nbr[0][:n0].reshape(-1)
     idx = torch.where(raw >= 0, raw, n0)
@@ -2171,11 +2338,11 @@ def compare_train_backwards(SEG, gs, inp, f_maps: int, gen):
                              "CPU index_add_ or between calls")
     keep = raw >= 0
     kc, kr = cot[keep].contiguous(), raw[keep]
-    order = SEG.segment_order(raw, n0 + 1)
+    order = SEG.table_order(raw, n0 + 1)
 
     def kernel():
-        # the backward's sum as a step runs it, the table sorted already
-        return SEG.segment_sum(cot, gs._backward_order(raw, n0 + 1))
+        # the backward's sum as a step runs it, the table's order kept
+        return SEG.segment_sum(cot, SEG.table_order(raw, n0 + 1))
 
     def plain():
         return SEG.segment_sum_plain(cot, order)
@@ -2183,16 +2350,20 @@ def compare_train_backwards(SEG, gs, inp, f_maps: int, gen):
     def library():
         return torch.zeros((n0 + 1, f_maps), device="cuda").index_add_(
             0, kr, kc)
-    k1, p1, l1 = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
-    k2, p2, l2 = cuda_ms(kernel, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
+    turns = [(cuda_ms(kernel, 20), cuda_ms(library, 20)) for _ in range(3)]
     r, rk = idx.numel(), int(keep.sum())
     gather = {"rows": r, "kept": rk, "cols": f_maps, "targets": n0 + 1,
-              "ms": min(k1, k2), "plain_ms": min(p1, p2),
-              "library_ms": min(l1, l2),
-              "order_ms": cuda_ms(lambda: SEG.segment_order(raw, n0 + 1), 10),
-              "sum_ms": cuda_ms(lambda: SEG.segment_sum(cot, order), 10),
-              "bound": bound_ms(rk * f_maps * 4 + r * 8
-                                + (n0 + 1) * f_maps * 4, rk * f_maps)}
+              "design": auto_design(SEG, f_maps, order),
+              "designs": design_times(SEG, cot, order, 20),
+              "ms": min(t[0] for t in turns),
+              "library_ms": min(t[1] for t in turns),
+              "turns": turns,
+              "plain_ms": min(cuda_ms(plain, 10), cuda_ms(plain, 10)),
+              "order_ms": cuda_ms(lambda: SEG.segment_order(
+                  raw, n0 + 1, check=False), 20),
+              "checked_order_ms": cuda_ms(lambda: SEG.segment_order(
+                  raw, n0 + 1), 20),
+              "bound": seg_bound(rk, r, f_maps, n0 + 1)}
 
     sidx = inp.splat_idx.reshape(-1)
     sorder = SEG.segment_order(sidx, n0)
@@ -2205,39 +2376,100 @@ def compare_train_backwards(SEG, gs, inp, f_maps: int, gen):
         return torch.autograd.grad(SEG.segment_sum(v, o), v, c)[0]
     sgot = seg_bwd(vals, sorder, scot)
     sref = seg_bwd(vals.cpu(), corder, scot.cpu())
-    if not (torch.equal(sgot.cpu(), sref)
+    before = SEG.segment_sum_backward.launches
+    skern = SEG.segment_sum_backward(scot, sorder)
+    if not (SEG.segment_sum_backward.launches == before + 1
+            and torch.equal(sgot.cpu(), sref) and torch.equal(skern, sgot)
             and torch.equal(sgot, seg_bwd(vals, sorder, scot))):
         raise AssertionError("[phase 11] the segment sum's backward differs "
                              "from its CPU run or between calls")
+    err = float((skern.cpu() - SEG.segment_sum_backward_plain(
+        scot.cpu(), corder)).abs().max())
     sv = vals.clone().requires_grad_()
     sout = SEG.segment_sum(sv, sorder)
 
-    def seg_backward():
+    def seg_autograd():
         return torch.autograd.grad(sout, sv, scot, retain_graph=True)[0]
-    keep = sidx >= 0
+    skeep = sidx >= 0
 
-    def seg_library():
-        return torch.where(keep[:, None],
-                           scot.index_select(0, sidx.clamp(min=0)), 0.0)
+    def seg_gather():
+        return scot.index_select(0, sidx.clamp(min=0))
+
+    def seg_plain():
+        return SEG.segment_sum_backward_plain(scot, sorder)
+
+    def seg_kernel():
+        return SEG.segment_sum_backward(scot, sorder)
+    sturns = [(cuda_ms(seg_kernel, 20), cuda_ms(seg_gather, 20))
+              for _ in range(2)]
     rs = sidx.numel()
-    seg = {"rows": rs, "ms": min(cuda_ms(seg_backward, 10),
-                                 cuda_ms(seg_backward, 10)),
-           "plain_ms": min(cuda_ms(seg_library, 10),
-                           cuda_ms(seg_library, 10)),
-           "bound": bound_ms(n0 * 7 * 4 + rs * 8 + rs * 7 * 4, 0)}
+    seg = {"rows": rs, "err": err, "ms": min(t[0] for t in sturns),
+           "gather_ms": min(t[1] for t in sturns), "turns": sturns,
+           "plain_ms": min(cuda_ms(seg_plain, 10), cuda_ms(seg_plain, 10)),
+           "autograd_ms": cuda_ms(seg_autograd, 10),
+           "bound": bound_ms(n0 * 7 * 4 + rs * 8 + rs * 7 * 4, 0),
+           "kept": int(skeep.sum())}
     print(f"[phase 11] (a) the gather's backward at the depth-0 conv "
-          f"({r} rows x {f_maps}, {rk} of them present, onto {n0}): "
+          f"({r} rows x {f_maps}, {rk} of them present, onto {n0 + 1}): "
           f"bit-equal to CPU index_add_ and call to call; the backward's "
-          f"sum over its table's kept order {gather['ms']:.4f} ms (the "
-          f"order given {gather['sum_ms']:.4f}; the sort, once a table, "
-          f"{gather['order_ms']:.4f}; plain, the order given, "
-          f"{gather['plain_ms']:.4f}; index_add_ {gather['library_ms']:.4f}"
-          f"; bound {gather['bound'][0]:.4f} by {gather['bound'][1]}); "
-          f"the segment sum's backward at the encoder splat ({rs} rows x 7 "
-          f"from {n0}): bit-equal to its CPU run and call to call, "
-          f"{seg['ms']:.4f} ms (the gather alone {seg['plain_ms']:.4f}; "
-          f"bound {seg['bound'][0]:.4f} by {seg['bound'][1]})", flush=True)
+          f"sum over its table's kept order ({gather['design']} design) "
+          f"{gather['ms']:.4f} ms against zeros + index_add_ "
+          f"{gather['library_ms']:.4f} ms (turns, kernel / library: "
+          + ", ".join(f"{k:.4f} / {lb:.4f}" for k, lb in turns)
+          + "; each design forced: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in gather["designs"].items())
+          + f"; plain "
+          f"{gather['plain_ms']:.4f}; bound {gather['bound'][0]:.4f} by "
+          f"{gather['bound'][1]}); its order, once a table, without a host "
+          f"sync {gather['order_ms']:.4f} ms (with the range check's sync "
+          f"{gather['checked_order_ms']:.4f}); the segment sum's backward "
+          f"at the encoder splat ({rs} rows x 7 from {n0}): one launch, "
+          f"bit-equal to its CPU run and call to call, kernel "
+          f"{seg['ms']:.4f} ms (turns, kernel / index_select alone: "
+          + ", ".join(f"{k:.4f} / {g:.4f}" for k, g in sturns)
+          + f"; plain {seg['plain_ms']:.4f}; through autograd "
+          f"{seg['autograd_ms']:.4f}; bound {seg['bound'][0]:.4f} by "
+          f"{seg['bound'][1]})", flush=True)
     return gather, seg
+
+
+def profile_step(step_fn):
+    """One step under torch.profiler (CPU and CUDA activity).  Returns
+    the step's host ms (profiler on), the device's busy ms (the union of
+    its kernels' and copies' intervals), the span from the first device
+    event to the last, the rows (device ms, name, calls) by device time,
+    and the segment sum's kernels' device ms and calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ivs = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type != torch.autograd.DeviceType.CPU)
+    busy, end = 0.0, None
+    for a, b in ivs:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = (ivs[-1][1] - ivs[0][0]) / 1e3 if ivs else 0.0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        if e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    seg = [r for r in rows if "segment_sum" in r[1] or
+           "gather_rows_kernel" in r[1]]
+    return (wall, busy / 1e3, span, rows, sum(r[0] for r in seg),
+            sum(r[2] for r in seg))
 
 
 def solve_spd_parity(ref):
@@ -2437,7 +2669,7 @@ def training_laps(params, counters, gen, ref):
     """Phase 11: training at runs/scene_big's width (see the module
     docstring); ``ref`` the CPU reference's process.  Returns (launches
     of one warm step, the backwards' records, the step's record)."""
-    from nksr_tpu_torch import Reconstructor
+    from nksr_tpu_torch import Reconstructor, native
     from nksr_tpu_torch.data import to_device_batch
     from nksr_tpu_torch.fields import support as S
     from nksr_tpu_torch.models import pipeline as P
@@ -2508,43 +2740,36 @@ def training_laps(params, counters, gen, ref):
 
     # (c) warm steps with the optimizer: seconds, phases, peak, launches;
     # the first (not timed) keeps each input of the window kernel and
-    # counts the gathers' backwards and the sorts they make
+    # records the segment sums and the orders they build (SegRecorder)
     state = T.init_state(cfg, tc, params=params, device="cuda")
     step_s, phases = [], {}
-    win_in, tally = [], {"gathers": 0, "sorts": 0}
-    real_win, real_bo = S.window_and_grad_fused, gs._backward_order
-    real_so = SEG.segment_order
+    win_in = []
+    real_win = S.window_and_grad_fused
+    rec = SegRecorder(SEG)
 
     def keep_win(x):
         win_in.append(x.detach().clone())
         return real_win(x)
 
-    def sort(*a):
-        tally["sorts"] += 1
-        return real_so(*a)
-
-    def backward_order(*a):
-        tally["gathers"] += 1
-        SEG.segment_order = sort
-        try:
-            return real_bo(*a)
-        finally:
-            SEG.segment_order = real_so
+    def step():
+        return T.train_step(cfg, tc, lcfg, state, batch, None,
+                            samples=samples, tm=tm)
     for i in range(3):
         if i == 0:
             S.window_and_grad_fused = keep_win
-            gs._backward_order = backward_order
+            rec.__enter__()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(counters.values())
         times = {}
         tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
         t1 = time.perf_counter()
-        state, losses, _ = T.train_step(cfg, tc, lcfg, state, batch, None,
-                                        samples=samples, tm=tm)
+        state, losses, _ = step()
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
-        S.window_and_grad_fused, gs._backward_order = real_win, real_bo
+        if i == 0:
+            S.window_and_grad_fused = real_win
+            rec.__exit__()
         launches = read_counts(counters)
         times["train: forward solve"] = solve_spd.last_seconds
         times["train: backward solve"] = solve_spd.last_backward_seconds
@@ -2557,8 +2782,71 @@ def training_laps(params, counters, gen, ref):
     if launches["segsum"] <= 0 or launches["window"] <= 0:
         raise AssertionError(f"[phase 11] a training step launched no "
                              f"segment sum or window kernel: {launches}")
-    print(f"[phase 11] (c) a step's gathers: {tally['gathers']} backwards, "
-          f"{tally['sorts']} sorts of their index tables", flush=True)
+    tally = {"gathers": rec.lookups, "sorts": rec.sorts + rec.batches,
+             "alone": rec.sorts, "batches": rec.batches,
+             "batched": rec.batched, "sums": sum(rec.calls.values())}
+    print(f"[phase 11] (c) a step's segment sums: {tally['sums']} calls, "
+          f"by (columns, rows, targets): {rec.table()}; {rec.lookups} "
+          f"orders looked up on their tables; {tally['sorts']} device "
+          f"sorts: {rec.batches} batched ({rec.batched} orders) and "
+          f"{rec.sorts} alone (none with a host sync)", flush=True)
+    seg_times = rec.time()
+    print_seg_times("[phase 11] (c) the step's", seg_times)
+    # the step's batched orders: one sort a table and one batched sort of
+    # all of them (segment_orders, as the step builds them), in turns
+    tabs = rec.orders
+
+    def per_table():
+        return [SEG.segment_order(t, n, check=False) for t, n in tabs]
+
+    def batched():
+        return SEG.segment_orders(tabs)
+    sort_turns = [(cuda_ms(per_table, 5), cuda_ms(batched, 5))
+                  for _ in range(2)]
+    # the host option: the port's radix argsort and a searchsorted of each
+    # table in numpy (as if built beside the table on the host), then
+    # their upload (pageable copies, each a sync)
+    host = [(t.cpu().numpy(), n) for t, n in tabs]
+    t1 = time.perf_counter()
+    built = []
+    for a, n in host:
+        p = native.radix_argsort(a)
+        built.append((p.astype(np.int32), np.searchsorted(
+            a[p], np.arange(n + 1)).astype(np.int32)))
+    t2 = time.perf_counter()
+    for p, o in built:
+        torch.as_tensor(p, device="cuda"), torch.as_tensor(o, device="cuda")
+    torch.cuda.synchronize()
+    tally.update(per_table_ms=min(t[0] for t in sort_turns),
+                 batched_ms=min(t[1] for t in sort_turns),
+                 batched_tables=len(tabs), host_sort_ms=(t2 - t1) * 1e3,
+                 host_upload_ms=(time.perf_counter() - t2) * 1e3)
+    del host, built
+    print(f"[phase 11] (c) the step's {len(tabs)} batched orders "
+          f"({sum(t.numel() for t, _ in tabs)} entries onto "
+          f"{sum(n for _, n in tabs)} targets): one sort a table "
+          f"{tally['per_table_ms']:.4f} ms, one batched sort "
+          f"{tally['batched_ms']:.4f} ms (turns: "
+          + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in sort_turns) + "); "
+          f"on the host instead (native.radix_argsort + searchsorted) "
+          f"{tally['host_sort_ms']:.3f} ms, their upload "
+          f"{tally['host_upload_ms']:.3f} ms", flush=True)
+    del tabs, rec
+    # one more warm teacher-forced step under torch.profiler
+    times = {}
+    tm = PhaseTimer(torch.device("cuda"), times, accumulate=True)
+    wall, busy, span, prows, seg_ms, seg_n = profile_step(step)
+    tally.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                 device_span_ms=span, idle_share=1.0 - busy / wall,
+                 segsum_device_ms=seg_ms, segsum_kernels=seg_n,
+                 top=[(name[:80], ms, n) for ms, name, n in prows[:10]])
+    print(f"[phase 11] (c) a warm teacher-forced step under torch.profiler: "
+          f"{wall:.1f} ms on the host's clock (profiler on), the device busy "
+          f"{busy:.1f} ms (its events span {span:.1f} ms), idle share "
+          f"{1.0 - busy / wall:.1%}; the segment sum's kernels {seg_ms:.3f} "
+          f"ms in {seg_n} launches; top ten by device time: "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}"
+                      for ms, name, n in prows[:10]), flush=True)
     del state
     if len(win_in) != launches["window"]:
         raise AssertionError(f"[phase 11] the step gave the window kernel "
@@ -2654,7 +2942,7 @@ def training_laps(params, counters, gen, ref):
                                    train_batches, run_dir, counters,
                                    pred_ref)
     step = {"warm_s": min(step_s[1:]), "peak_gib": peak, "phases": phases,
-            "window": wins, "gathers": tally,
+            "window": wins, "gathers": tally, "seg_times": seg_times,
             "at16": at16, "converged": conv, "sphere": sphere,
             "overfit_ratio": last / first, "predicted": predicted,
             "neural_ref": neural_ref}
@@ -2729,6 +3017,7 @@ def ingraph_laps(params, counters, WB, S, synthetic_scene):
     from nksr_tpu_torch import Reconstructor
     from nksr_tpu_torch.data import DatasetSpec as DS, build_dataset
     from nksr_tpu_torch.models import pipeline as PP
+    from nksr_tpu_torch.ops import segment_sum as SEG
     from nksr_tpu_torch.recon.reconstructor import estimate_capacities
     from nksr_tpu_torch.scripts import time_rows as TR
     from nksr_tpu_torch.train.driver import pipeline_config_from_yaml
@@ -2788,7 +3077,16 @@ def ingraph_laps(params, counters, WB, S, synthetic_scene):
             raise AssertionError(f"[phase 12] (a) {name}: the window kernel "
                                  f"or the segment sum did not run: {ln}")
         launches = launches or ln
-        tr2, tm2, field2, mesh2, _, _ = lap(xyz, nrm)
+        if i == 0:
+            # the in-graph route's sums by shape (the second lap's)
+            with SegRecorder(SEG) as seg_rec:
+                tr2, tm2, field2, mesh2, _, _ = lap(xyz, nrm)
+            rec["seg_times"] = seg_rec.time()
+            print_seg_times(f"[phase 12] (a) {name}: the in-graph lap's",
+                            rec["seg_times"])
+            del seg_rec
+        else:
+            tr2, tm2, field2, mesh2, _, _ = lap(xyz, nrm)
         same = lap_diff(([a.clone() for a in field.alpha], mesh.v, mesh.f),
                         (field2.alpha, mesh2.v, mesh2.f))
         if "coefficients bit-equal" not in same or \
@@ -3187,6 +3485,7 @@ def neural_infer(cfg, net, xyz, nrm, device):
     capacities: (candidate and decoder coords and logits on the CPU, the
     field)."""
     from nksr_tpu_torch.models import pipeline as PP
+    from nksr_tpu_torch.ops import segment_sum as SEG
     from nksr_tpu_torch.recon.reconstructor import estimate_capacities
     ecfg = dataclasses.replace(
         cfg, voxel_size=0.1, capacities=estimate_capacities(
@@ -4850,7 +5149,8 @@ def kernel_counters() -> dict:
     from nksr_tpu_torch.ops import window_basis as WB
     return {"fwd": LK.av0_cascade, "adj": LK.av0_adjoint_cascade,
             "window": WB.window_and_grad_fused, "rows": LK.av0_rows,
-            "adj_rows": LK.av0_adjoint_rows, "segsum": SEG.segment_sum}
+            "adj_rows": LK.av0_adjoint_rows, "segsum": SEG.segment_sum,
+            "segsum_bwd": SEG.segment_sum_backward}
 
 
 def main() -> int:
@@ -5030,9 +5330,15 @@ def main() -> int:
           f"segments, longest {seg_res['longest']}): bit-equal to the plain"
           f" version, two calls bit-equal; {seg_res['ms']:.4f} ms (turns "
           f"{seg_res['ms_turns'][0]:.4f}, {seg_res['ms_turns'][1]:.4f}; "
-          f"plain {seg_res['plain_ms']:.4f}; bound {sgb:.4f} by {sgby}); "
-          f"zeros + index_add_ {seg_res['library_ms']:.4f} ms; its order "
-          f"{seg_res['order_ms']:.4f} ms", flush=True)
+          f"plain {seg_res['plain_ms']:.4f}; bound {sgb:.4f} by {sgby}; "
+          f"the {seg_res['design']} design; each forced: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seg_res["designs"].items())
+          + f"); zeros + index_add_ {seg_res['library_ms']:.4f} ms; its "
+          f"order {seg_res['order_ms']:.4f} ms without a host sync "
+          f"({seg_res['checked_order_ms']:.4f} with the range check); "
+          f"the old two-launch sum's parts: the zero fill "
+          f"{seg_res['zeros_ms']:.4f}, the compact sum "
+          f"{seg_res['compact_ms']:.4f} ms", flush=True)
     del sv, si, splat_args
     torch.cuda.empty_cache()
     res = compare_kernels(LK, spec, gen, timed=True)
@@ -5121,9 +5427,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4: route B (plan over the lattice budget)
-    field, mesh, b_launches, lap = route_lap(recon, synthetic_scene, counters,
-                                             50.0)
+    with SegRecorder(SEG) as seg_rec:
+        field, mesh, b_launches, lap = route_lap(recon, synthetic_scene,
+                                                 counters, 50.0)
     print_route("phase 4", b_launches, lap)
+    b_seg_times = seg_rec.time()
+    print_seg_times("[phase 4] route B's lap:", b_seg_times)
+    del seg_rec
     if not (recon._last_unet_engine == "sparse" and field.lattice_ctx is None
             and "host dual mc" in field.phase_times):
         raise AssertionError("[phase 4] the 100 m tile did not take route B")
@@ -5217,6 +5527,7 @@ def main() -> int:
     # ---- phase 12: the in-graph route, its mesher and per-chunk meshing
     ingraph_launches, ingraph_rec, ingraph_win = ingraph_laps(
         params, counters, WB, S, synthetic_scene)
+    ingraph_seg_times = ingraph_rec.pop("seg_times")
     print("[phase 12] record " + json.dumps(ingraph_rec), flush=True)
     torch.cuda.empty_cache()
 
@@ -5338,8 +5649,23 @@ def main() -> int:
          "bound_ms": win["bound"][0], "bound_by": win["bound"][1],
          "library_ms": None},
     ]
+    # the segment sum's backward: its main path is the training step
+    # (no lap differentiates), its times phase 11 (a)'s at the encoder
+    # splat; no one PyTorch call gathers rows with zeros for the dropped
+    sb_, sby = train_segbwd["bound"]
+    kernels.append(
+        {"name": "segment_sum_backward", "route": "cuda",
+         "source": "nksr_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "nksr_tpu/fields/lattice.py:1231",
+         "launches": train_launches["segsum_bwd"],
+         "max_abs_err": train_segbwd["err"], "ms": train_segbwd["ms"],
+         "plain_ms": train_segbwd["plain_ms"], "bound_ms": sb_,
+         "bound_by": sby, "library_ms": None,
+         "index_select_ms": train_segbwd["gather_ms"],
+         "autograd_ms": train_segbwd["autograd_ms"],
+         "rows": train_segbwd["rows"]})
     for rec, key in zip(kernels, ("fwd", "rows", "adj", "adj_rows",
-                                  "segsum", "window")):
+                                  "segsum", "window", "segsum_bwd")):
         rec["floor_ms"] = floor_events      # each timed by CUDA events
         rec["launches_predicted"] = pred_launches[key]
         rec["launches_udf"] = udf_launches[key]
@@ -5361,21 +5687,32 @@ def main() -> int:
                                    for w in ("a", "b")}
         rec["launches_train_dp"] = dp_launches[key]
         rec["launches_train_fused"] = fused_launches[key]
-    # the training step's backwards at its shapes: the gather's (the
-    # segment sum over an order built in the backward) and the segment
-    # sum's own (a row gather, no kernel)
+    # the training step's gather backward at its shapes (the segment sum
+    # over its table's order), the step's sums by shape, its orders, its
+    # profile; the splat's other design and order builds; route B's and
+    # the in-graph route's sums by shape
     gb_, gby = train_gather["bound"]
-    sb_, sby = train_segbwd["bound"]
     kernels[4].update(
+        design=seg_res["design"], designs_ms=seg_res["designs"],
+        order_ms=seg_res["order_ms"],
+        checked_order_ms=seg_res["checked_order_ms"],
+        zeros_ms=seg_res.get("zeros_ms"),
+        compact_ms=seg_res.get("compact_ms"),
         train_gather_backward_ms=train_gather["ms"],
+        train_gather_backward_turns=train_gather["turns"],
+        train_gather_backward_design=train_gather["design"],
+        train_gather_backward_designs_ms=train_gather["designs"],
         train_gather_backward_plain_ms=train_gather["plain_ms"],
         train_gather_backward_library_ms=train_gather["library_ms"],
         train_gather_backward_bound_ms=gb_,
         train_gather_backward_bound_by=gby,
-        train_segment_sum_backward_ms=train_segbwd["ms"],
-        train_segment_sum_backward_gather_ms=train_segbwd["plain_ms"],
-        train_segment_sum_backward_bound_ms=sb_,
-        train_segment_sum_backward_bound_by=sby,
+        train_gather_order_ms=train_gather["order_ms"],
+        train_gather_checked_order_ms=train_gather["checked_order_ms"],
+        train_step_sums=train_rec["seg_times"],
+        train_step_orders={k: v for k, v in train_rec["gathers"].items()
+                           if k != "top"},
+        train_step_top_kernels=train_rec["gathers"]["top"],
+        route_b_sums=b_seg_times, ingraph_sums=ingraph_seg_times,
         train_step_s=train_rec["warm_s"],
         train_step_peak_gib=train_rec["peak_gib"],
         train_predicted_step_s=train_rec["predicted"]["warm_s"],

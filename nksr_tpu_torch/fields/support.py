@@ -153,10 +153,17 @@ def scatter_order(s: DepthSupport, n_flat: int) -> SEG.SegmentOrder:
     the n_flat = C_d * K flat coefficients, per voxel: row (q, corner) of
     K values goes to voxel ``idx_k[q, corner * K] // K``, an absent corner
     is dropped.  It depends on the host support rows only, so a solve
-    builds it once."""
+    builds it once, without a host sync: the rows are in range by
+    construction (``core/host_build.support_indices`` writes -1 past the
+    capacity), so the order is not checked."""
+    return SEG.segment_order(*_scatter_targets(s, n_flat), check=False)
+
+
+def _scatter_targets(s: DepthSupport, n_flat: int):
+    """(Q, 8) voxel of each (query, corner) row, -1 absent, and the voxel
+    count."""
     k = s.kernel_dim
-    vox = s.idx_k.reshape(s.idx_k.shape[0], 8, k)[..., 0] // k  # -1 stays
-    return SEG.segment_order(vox, n_flat // k)
+    return s.idx_k.reshape(s.idx_k.shape[0], 8, k)[..., 0] // k, n_flat // k
 
 
 def _scatter(s: DepthSupport, n_flat: int, contrib: torch.Tensor,
@@ -173,8 +180,10 @@ def _scatter(s: DepthSupport, n_flat: int, contrib: torch.Tensor,
 
 def scatter_orders(sup: Sequence[DepthSupport], shapes
                    ) -> Tuple[SEG.SegmentOrder, ...]:
-    """``scatter_order`` of each depth's support."""
-    return tuple(scatter_order(s, c * k) for s, (c, k) in zip(sup, shapes))
+    """``scatter_order`` of each depth's support, built in one sort
+    (``segment_orders``)."""
+    return tuple(SEG.segment_orders([_scatter_targets(s, c * k)
+                                     for s, (c, k) in zip(sup, shapes)]))
 
 
 def scatter_rows(sup: Sequence[DepthSupport], shapes, weights_times_resid,

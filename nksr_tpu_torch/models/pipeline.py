@@ -288,6 +288,39 @@ def _dev_i64(tables, dev) -> Tuple[torch.Tensor, ...]:
                  for t in tables)
 
 
+def checked_rows(table, n: int, what: str) -> np.ndarray:
+    """``table`` as an array, its rows checked to lie below ``n`` (-1
+    marks an absent row).  The fixed-order sums over an index table on
+    the card read no bound back (``ops/segment_sum.table_order``), so
+    each table a step or a lap sums over is checked here, on the host,
+    before its upload."""
+    a = np.asarray(table)
+    if a.size and int(a.max()) >= n:
+        raise ValueError(f"{what}: row {int(a.max())} outside [0, {n})")
+    return a
+
+
+def teacher_levels_on(levels, n_vox: Sequence[int], up):
+    """The teacher-forced decoder's tables (``core/svh.TeacherLevel``)
+    through ``up`` onto the device, their rows checked: ``nbr``,
+    ``dec_rows`` and ``parent`` index the level's candidates, ``skip``
+    the encoder level below (``n_vox``)."""
+    def rows(a, n, what):
+        return None if a is None else up(checked_rows(a, n, what))
+    out = []
+    for d, lv in enumerate(levels):
+        nc = len(lv.cand.keys)
+        out.append(lv._replace(
+            cand=None, status=up(lv.status),
+            nbr=rows(lv.nbr, nc, f"level {d} nbr"),
+            dec_rows=rows(lv.dec_rows, nc, f"level {d} dec_rows"),
+            parent=rows(lv.parent, nc, f"level {d} parent"),
+            octant=None if lv.octant is None else up(lv.octant),
+            skip=rows(lv.skip, n_vox[d - 1] if d else 0,
+                      f"level {d} skip")))
+    return tuple(out)
+
+
 def solve_supports(cfg: PipelineConfig, grids, xyz: np.ndarray, dev):
     """The solve rows' host supports in a decoder hierarchy, on ``dev``:
     the points' at every depth (the value rows; at the adaptive depths
@@ -297,8 +330,12 @@ def solve_supports(cfg: PipelineConfig, grids, xyz: np.ndarray, dev):
     centers = np.concatenate([
         get_voxel_centers(grids[d].coords, level_voxel_size(cfg, d))
         for d in range(cfg.adaptive_depth)], 0)
-    return (_dev_i64(HB.support_indices(grids, caps, xyz), dev),
-            _dev_i64(HB.support_indices(grids, caps, centers), dev))
+
+    def checked(sup, what):
+        return _dev_i64([checked_rows(t, cap, f"{what} rows of depth {d}")
+                         for d, (t, cap) in enumerate(zip(sup, caps))], dev)
+    return (checked(HB.support_indices(grids, caps, xyz), "point"),
+            checked(HB.support_indices(grids, caps, centers), "gradient"))
 
 
 def encoder_inputs(cfg: PipelineConfig, xyz: np.ndarray, dev):
@@ -309,11 +346,17 @@ def encoder_inputs(cfg: PipelineConfig, xyz: np.ndarray, dev):
     enc, orders = SVH.build_point_splatting(xyz, cfg.voxel_size,
                                             cfg.tree_depth, caps)
     ut = HB.build_unet_tables(enc, caps, stencil_offsets(3), decoder=False)
+    n = [len(g.keys) for g in enc]
+    for d, t in enumerate(ut.nbr):
+        checked_rows(t[:n[d]], n[d], f"encoder nbr of depth {d}")
+    for d, t in enumerate(ut.child):
+        checked_rows(t[:n[d + 1]], n[d], f"encoder child of depth {d}")
     enc_tables = HB.UNetTables(nbr=_dev_i64(ut.nbr, dev),
                                child=_dev_i64(ut.child, dev),
                                parent=(), skip=())
-    splat_idx = _dev_i64(HB.support_indices(enc[:1], caps[:1], xyz,
-                                            presorted=orders[:1]), dev)[0]
+    splat = HB.support_indices(enc[:1], caps[:1], xyz, presorted=orders[:1])
+    splat_idx = _dev_i64([checked_rows(splat[0], n[0], "splat rows")],
+                         dev)[0]
     return enc, enc_tables, splat_idx
 
 
@@ -347,13 +390,8 @@ def prepare_inputs(cfg: PipelineConfig, batch: Dict[str, Any],
     levels = levels_t = pt_sup = grad_sup = None
     if use_gt_structure:
         levels = SVH.teacher_hierarchy(enc, gt, caps, stencil_offsets(3))
-        levels_t = tuple(lv._replace(
-            cand=None, status=up(lv.status), nbr=up(lv.nbr),
-            dec_rows=up(lv.dec_rows),
-            parent=None if lv.parent is None else up(lv.parent),
-            octant=None if lv.octant is None else up(lv.octant),
-            skip=None if lv.skip is None else up(lv.skip))
-            for lv in levels)
+        levels_t = teacher_levels_on(levels, [len(g.keys) for g in enc],
+                                     up)
         if cfg.geometry == "kernel":
             pt_sup, grad_sup = solve_supports(cfg, gt, xyz, dev)
     onet = None
@@ -459,12 +497,8 @@ def infer(cfg: PipelineConfig, net: NKSRNetwork, xyz: np.ndarray,
     if cfg.structure_mode == "splat":
         levels = SVH.teacher_hierarchy(enc, enc, caps, stencil_offsets(3))
 
-        def up(a):
-            return None if a is None else _dev_i64([a], dev)[0]
-        levels_t = tuple(lv._replace(
-            cand=None, status=up(lv.status), nbr=up(lv.nbr),
-            dec_rows=up(lv.dec_rows), parent=up(lv.parent),
-            octant=up(lv.octant), skip=up(lv.skip)) for lv in levels)
+        levels_t = teacher_levels_on(levels, n_vox,
+                                     lambda a: _dev_i64([a], dev)[0])
         basis, normal, logits, udf = SU.teacher_forced_unet(
             cfg, net, enc_tables, n_vox, levels_t, n_vox, caps, xyz_t, feat,
             splat_idx)

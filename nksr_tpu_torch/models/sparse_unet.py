@@ -36,7 +36,7 @@ from ..core.grid import grid_to_world, point_splat_coords, world_to_grid
 from ..ops import gather_scatter as gs
 from ..ops import segment_sum as SEG
 from .network import ConvBlock, NKSRNetwork
-from .pipeline import PipelineConfig
+from .pipeline import PipelineConfig, checked_rows
 
 
 def conv_taps(conv: torch.nn.Conv3d) -> torch.Tensor:
@@ -344,10 +344,14 @@ def predicted_unet(cfg: PipelineConfig, net: NKSRNetwork, enc_grids,
                                 enc_grids[d - 1] if d else None,
                                 caps[d - 1] if d else 0, stencil)
         dec_grids[d] = step.dec
-        dec_rows = dev_i64(step.dec_rows)
+        nc = len(cand.keys)
+        dec_rows = dev_i64(checked_rows(step.dec_rows, nc, "dec_rows"))
         if d > 0:
-            parent, octant = dev_i64(step.parent), dev_i64(step.octant)
-            skip, nbr = dev_i64(step.skip), dev_i64(step.nbr)
+            parent = dev_i64(checked_rows(step.parent, nc, "parent"))
+            octant = dev_i64(step.octant)
+            skip = dev_i64(checked_rows(step.skip, n_vox[d - 1], "skip"))
+            nbr = dev_i64(checked_rows(step.nbr, len(step.nxt.keys),
+                                       "nbr"))
         lap("train: structure tables")
         basis[d], normal[d] = heads(up, d, gs.take_rows(g, dec_rows),
                                     len(step.dec.keys), caps[d])

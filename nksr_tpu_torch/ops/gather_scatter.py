@@ -8,7 +8,9 @@ no TPU kernel did.
 Every row gather here is ``gather_rows``, whose backward (the scatter of
 the cotangent rows onto the source) sums each source row's entries in
 index order through the fixed-order segment sum (``ops/segment_sum``),
-over an order sorted once per index table.
+over an order sorted once per index table (``segment_sum.table_order``,
+kept on the table, built without a host sync; the forward notes each
+table, and the first backward builds all their orders in one sort).
 Autograd's own backward of ``index_select`` is CUDA ``index_add_``,
 whose f32 atomics add repeated rows in no fixed order, so two training
 steps from one state would differ.
@@ -48,37 +50,22 @@ def octant_id(coords: torch.Tensor) -> torch.Tensor:
     return o[..., 0] * 4 + o[..., 1] * 2 + o[..., 2]
 
 
-def _backward_order(order_idx: torch.Tensor, n: int) -> SEG.SegmentOrder:
-    """The summation order of ``order_idx``'s entries onto ``n`` rows,
-    kept on the index table it reads (the root tensor of its views): a
-    batch's tables are fixed, so each part of one is sorted on its first
-    backward and reused while the table lives and is not written to."""
-    root = order_idx if order_idx._base is None else order_idx._base
-    orders = root.__dict__.setdefault("_gather_orders", {})
-    key = (order_idx.storage_offset(), tuple(order_idx.shape),
-           order_idx.stride(), n)
-    hit = orders.get(key)
-    if hit is None or hit[0] != order_idx._version:
-        # sorted over a copy: a view of the table would keep it alive
-        hit = (order_idx._version,
-               SEG.segment_order(order_idx.reshape(-1).clone(), n))
-        orders[key] = hit
-    return hit[1]
-
-
 class _GatherRows(torch.autograd.Function):
     """``src.index_select(0, idx)``; the backward sums the cotangent rows
     of each source row in index order (``segment_sum`` over the order of
-    ``order_idx``, ``_backward_order``'s).  ``order_idx`` is ``idx`` with
-    the entries whose cotangent is zero by construction (an absent
-    neighbour reading a zero row) set to -1: dropped from the order, they
-    change no sum, and kept they would make one long segment that a
-    single thread walks."""
+    ``order_idx``, ``segment_sum.table_order``'s).  ``order_idx`` is
+    ``idx`` with the entries whose cotangent is zero by construction (an
+    absent neighbour reading a zero row) set to -1: dropped from the
+    order, they change no sum, and kept they would make one long segment
+    that a single warp walks."""
 
     @staticmethod
     def forward(ctx, src, idx, order_idx):
         ctx.save_for_backward(order_idx)
         ctx.src_shape, ctx.src_dtype = src.shape, src.dtype
+        if ctx.needs_input_grad[0]:
+            # the backward's order, built with the others a step needs
+            SEG.expect_order(order_idx, src.shape[0])
         return src.index_select(0, idx)
 
     @staticmethod
@@ -87,7 +74,7 @@ class _GatherRows(torch.autograd.Function):
         n = ctx.src_shape[0]
         g = grad.reshape(order_idx.shape[0], ctx.src_shape[1:].numel())
         g = g.float().contiguous()
-        out = SEG.segment_sum(g, _backward_order(order_idx, n))
+        out = SEG.segment_sum(g, SEG.table_order(order_idx, n))
         return out.to(ctx.src_dtype).reshape(ctx.src_shape), None, None
 
 

@@ -555,6 +555,147 @@ def test_segment_sum_rejects_bad_input(gen):
         SEG.segment_order(idx.clamp(min=0) + 20, 20)
 
 
+# the segment sum at the training step's shapes (rows, columns, targets):
+# the depth-0 conv's gather backward, the encoder splat, a support
+# scatter, a long hot run, the reconstruction's splat (more targets than
+# rows: the tile design, at 128-row tiles) and 128-lane rows (the thread
+# design), and more targets than rows at the tile design's full 512-row
+# tiles, in floats and in float4
+STEP_SEG_SHAPES = [(173232, 32, 6417), (64000, 7, 6416), (51200, 4, 2048),
+                   (50000, 3, 400), (80000, 7, 90000), (4096, 128, 900),
+                   (600000, 7, 2000000), (300000, 4, 1200000)]
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("design", ["thread", "warp", "tile"])
+@pytest.mark.parametrize("r,c,t", STEP_SEG_SHAPES)
+def test_segment_sum_designs_match_plain(gen, r, c, t, design, compact):
+    """Every design of the sum (forced; the wrapper picks one by shape)
+    bit-equal to the plain version, CPU ``index_add_`` in index order,
+    dense and compact (the tile design dense only), and bit-equal call to
+    call."""
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    how = ("thread", "warp", "tile").index(design)
+    if how != SEG.THREAD and (c // 4 if c % 4 == 0 else c) > 32:
+        pytest.skip("rows wider than a warp take the thread design")
+    if how == SEG.TILE and compact:
+        pytest.skip("the tile design writes the dense form")
+    idx, vals = _seg_inputs(gen, r, c, t)
+    order = SEG.segment_order(idx, t)
+    got = SEG._segment_sum(vals, order, compact, force=how)
+    again = SEG._segment_sum(vals, order, compact, force=how)
+    ref = SEG.segment_sum_plain(vals.cpu(), SEG.segment_order(idx.cpu(), t),
+                                compact=compact)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("r,c,t", STEP_SEG_SHAPES)
+def test_segment_sum_backward_matches_plain(gen, r, c, t, compact):
+    """The backward kernel (a row gather) bit-equal to its plain version
+    and to autograd of CPU ``index_add_``, call to call, one launch."""
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    idx, vals = _seg_inputs(gen, r, c, t)
+    order = SEG.segment_order(idx, t)
+    cpu_order = SEG.segment_order(idx.cpu(), t)
+    n = order.targets.numel() if compact else t
+    cot = torch.randn((n, c), device="cuda", generator=gen)
+    before = SEG.segment_sum_backward.launches
+    got = SEG.segment_sum_backward(cot, order, compact)
+    again = SEG.segment_sum_backward(cot, order, compact)
+    assert SEG.segment_sum_backward.launches == before + 2
+    ref = SEG.segment_sum_backward_plain(cot.cpu(), cpu_order, compact)
+    assert torch.equal(got.cpu(), ref) and torch.equal(got, again)
+    v = vals.cpu().requires_grad_()
+    (auto,) = torch.autograd.grad(
+        SEG.segment_sum(v, cpu_order, compact), v, cot.cpu())
+    assert torch.equal(got.cpu(), auto)
+
+
+def _kernels_of(fn):
+    """The device kernels one call of ``fn`` launches (profiler), those
+    between two spin kernels: a profile that did not see both spins
+    (CUPTI at times drops a profile's first or last events) is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "memcpy" not in e.name.lower()
+                        and "memset" not in e.name.lower())
+        spins = [i for i, (_, n) in enumerate(events) if "spin" in n.lower()]
+        if len(spins) == 2:
+            return [n for _, n in events[spins[0] + 1:spins[1]]]
+    raise AssertionError("the profiler did not see the call's bounds in "
+                         "three profiles")
+
+
+@pytest.mark.parametrize("r,c,t", STEP_SEG_SHAPES[:2] + STEP_SEG_SHAPES[4:])
+def test_segment_sum_is_one_launch(gen, r, c, t):
+    """The dense sum and the backward are one kernel each on the device,
+    no zero fill beside them."""
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    idx, vals = _seg_inputs(gen, r, c, t)
+    order = SEG.segment_order(idx, t)
+    fwd = _kernels_of(lambda: SEG.segment_sum(vals, order))
+    cot = torch.randn((t, c), device="cuda", generator=gen)
+    bwd = _kernels_of(lambda: SEG.segment_sum_backward(cot, order))
+    assert len(fwd) == 1 and "segment_sum" in fwd[0], fwd
+    assert len(bwd) == 1 and "gather_rows" in bwd[0], bwd
+
+
+def test_orders_sums_and_backwards_make_no_host_sync(gen):
+    """Building an order (unchecked, as a step does) and a batch of them
+    (``segment_orders``), summing over them, a gather's backward through
+    ``table_order`` and the segment sum's own backward run under
+    ``set_sync_debug_mode("error")``."""
+    from nksr_tpu_torch.ops import gather_scatter as gs
+    from nksr_tpu_torch.ops import segment_sum as SEG
+    r, c, t = STEP_SEG_SHAPES[0]
+    idx, vals = _seg_inputs(gen, r, c, t)
+    table = idx.reshape(-1, 27)
+    src = torch.randn((t, c), device="cuda", generator=gen)
+    splat = idx[:64000].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        order = SEG.segment_order(idx, t, check=False)
+        out = SEG.segment_sum(vals, order)
+        pair = SEG.segment_orders([(idx, t), (splat, t), (table[:9], t)])
+        outs = [SEG.segment_sum(v.contiguous(), o) for v, o in
+                zip((vals, vals[:64000], vals[:243]), pair)]
+        a = src.clone().requires_grad_()
+        g = gs.gather_rows(a, table.clamp(min=0), order_idx=table)
+        (g * 2.0).sum().backward()
+        v = vals[:64000].clone().requires_grad_()
+        s = SEG.index_sum(v, splat, t)
+        (s * 3.0).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), SEG.segment_sum_plain(
+        vals.cpu(), SEG.segment_order(idx.cpu(), t)))
+    for o, w, (i, n) in zip(outs, (vals, vals[:64000], vals[:243]),
+                            ((idx, t), (splat, t), (table[:9], t))):
+        assert torch.equal(o.cpu(), SEG.segment_sum_plain(
+            w.cpu(), SEG.segment_order(i.cpu(), n, check=False)))
+    b = src.cpu().requires_grad_()
+    (b.index_select(0, table.clamp(min=0).reshape(-1).cpu()).reshape(
+        *table.shape, c) * torch.where((table >= 0)[..., None].cpu(), 2.0,
+                                       0.0)).sum().backward()
+    assert torch.equal(a.grad.cpu(), b.grad)
+    assert torch.equal(v.grad.cpu(), torch.where(
+        (splat >= 0)[:, None].cpu(), 3.0, 0.0).expand(64000, c))
+
+
 # ---------------------------------------------------- slot-row adjoint
 def _slot_cells(spec, gen, r):
     """R sorted slot cells with heavy repeats (a third on a few cells),

@@ -44,18 +44,17 @@ def _add_at(idx, vals, t):
 
 
 def _fold(order: SEG.SegmentOrder, vals: np.ndarray, compact: bool):
-    """What the kernel computes from the tables: each segment's rows in
-    ``perm`` order added to 0.0 one at a time, in f32."""
+    """What the kernel computes from the tables: each target's run of
+    ``perm`` added to 0.0 one row at a time, in f32."""
     perm = order.perm.numpy()
     offs = order.offsets.numpy()
-    tgt = order.targets.numpy()
-    rows = len(tgt) if compact else order.n_targets
-    out = np.zeros((rows,) + vals.shape[1:], np.float32)
-    for s in range(len(tgt)):
+    tgt = order.targets.numpy() if compact else np.arange(order.n_targets)
+    out = np.zeros((len(tgt),) + vals.shape[1:], np.float32)
+    for s, t in enumerate(tgt):
         acc = np.zeros(vals.shape[1:], np.float32)
-        for i in perm[offs[s]:offs[s + 1]]:
+        for i in perm[offs[t]:offs[t + 1]]:
             acc = acc + vals[i]
-        out[s if compact else tgt[s]] = acc
+        out[s] = acc
     return out
 
 
@@ -80,19 +79,23 @@ def test_plain_matches_add_at(r, c, t):
 @pytest.mark.parametrize("r,c,t", [(2000, 3, 500), (800, 128, 40),
                                    (300, 2, 3)])
 def test_order_tables_fold_to_add_at(r, c, t):
-    """``segment_order``'s tables: entries sorted by (target, entry), one
-    segment per distinct kept target, ascending; the kernel's fold over
+    """``segment_order``'s tables: entries sorted by (target, entry), the
+    dropped ones first, and a run for every target (empty where no entry
+    has it), the distinct kept targets ascending; the kernel's fold over
     them equals ``np.add.at`` bit for bit in both forms."""
     idx, vals = _inputs(r * 3 + c, r, c, t)
     order = SEG.segment_order(torch.from_numpy(idx), t)
     perm = order.perm.numpy()
     offs = order.offsets.numpy()
     assert order.perm.dtype == order.offsets.dtype == torch.int32
+    assert order.index.dtype == torch.int32
     np.testing.assert_array_equal(perm, np.argsort(idx, kind="stable"))
     kept = idx[idx >= 0]
-    uniq, counts = np.unique(kept, return_counts=True)
+    uniq = np.unique(kept)
     np.testing.assert_array_equal(order.targets.numpy(), uniq)
-    np.testing.assert_array_equal(np.diff(offs), counts)
+    assert offs.shape == (t + 1,)
+    np.testing.assert_array_equal(np.diff(offs),
+                                  np.bincount(kept, minlength=t))
     assert offs[-1] == len(idx) and offs[0] == (idx < 0).sum()
     ref = _add_at(idx, vals, t)
     np.testing.assert_array_equal(_fold(order, vals, False), ref)
@@ -134,12 +137,13 @@ def test_empty_and_out_of_range():
     """No entries gives zeros (dense) and no rows (compact); a target past
     the range raises."""
     order = SEG.segment_order(torch.zeros(0, dtype=torch.int64), 5)
-    assert order.offsets.tolist() == [0]
+    assert order.offsets.tolist() == [0] * 6
     assert not SEG.segment_sum(torch.zeros((0, 3)), order).any()
     assert SEG.segment_sum(torch.zeros((0, 3)), order,
                            compact=True).shape == (0, 3)
     dropped = SEG.segment_order(torch.tensor([-1, -1]), 5)
-    assert dropped.targets.numel() == 0 and dropped.offsets.tolist() == [2]
+    assert dropped.targets.numel() == 0
+    assert dropped.offsets.tolist() == [2] * 6
     with pytest.raises(ValueError, match="outside"):
         SEG.segment_order(torch.tensor([0, 5]), 5)
 
@@ -160,11 +164,13 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         raise AssertionError("plain version called for a device tensor")
 
     monkeypatch.setattr(SEG, "segment_sum_plain", fail)
+    monkeypatch.setattr(SEG, "segment_sum_backward_plain", fail)
     m = dict(device="meta")
     order = SEG.SegmentOrder(
-        torch.zeros(8, dtype=torch.int64, **m),
         torch.zeros(8, dtype=torch.int32, **m),
-        torch.zeros(3, dtype=torch.int32, **m),
-        torch.zeros(2, dtype=torch.int64, **m), 4)
+        torch.zeros(8, dtype=torch.int32, **m),
+        torch.zeros(5, dtype=torch.int32, **m), 4)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         SEG.segment_sum(torch.zeros((8, 4), **m), order)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        SEG.segment_sum_backward(torch.zeros((4, 4), **m), order)
