@@ -39,7 +39,12 @@ Phases (any failure ends the run with a non-zero exit):
      builds (up to the sign of a zero) and bit-equal from call to call,
      timed in turns against the chain it replaces (zeros, two
      index_add_ and the dense adjoint), with its two kernels' device
-     time under torch.profiler;
+     time under torch.profiler; the fused basis kernels (rows and field,
+     ``scripts/time_basis.py``) at small cases and at the warm-up lap's
+     own inputs (the solve's rows, the dense mesher's corner values and
+     its Newton step) within time_basis' tolerances of their plain
+     versions and bit-equal from call to call, timed in turns beside
+     their plain chains, with their bounds and profiler device times;
   3. the splat path on the dense lattice at the bench's size: the
      scene_big checkpoint, utils.scenes.synthetic_scene(1_000_000),
      reconstruct(structure="splat", voxel_size=0.1, solver_tol=1e-4,
@@ -48,7 +53,8 @@ Phases (any failure ends the run with a non-zero exit):
      slot-row launch a matvec, one slot-row adjoint a matvec plus the
      rhs and the Jacobi diagonal, no dense adjoint, the dense forward
      once, for the evaluator tables, the segment sum at the two splats
-     only), the two laps' coefficients and
+     only, the fused basis rows twice and the fused field at least
+     once), the two laps' coefficients and
      meshes bit-equal (a gate), and the terrain vertex error against the
      analytic height field, of the whole tile and of its four 20 m
      quadrants reconstructed alone (the JAX reference's configuration);
@@ -666,6 +672,15 @@ SENSOR_Z = 10.0
 KNN, MAX_ANGLE = 64, 85.0
 KNN_CHECK_QUERIES = 4096
 SMALL_DIMS = ((24, 24, 16), (16, 16, 8), (8, 8, 8))
+# the fused basis kernels' small cases (scripts/time_basis.basis_case):
+# (depth, k, basis width, hidden width, hidden layers, tables' dtype,
+# approx_kernel_grad), the CPU tests' and scene_big's widths; each held
+# within time_basis.ROWS_TOL / FIELD_TOL of its plain version
+BASIS_SMALL = ((2, 2, 4, 8, 1, torch.float32, False),
+               (3, 4, 8, 16, 2, torch.bfloat16, False),
+               (3, 4, 6, 20, 2, torch.float32, True),
+               (2, 8, 8, 8, 2, torch.bfloat16, False),
+               (4, 4, 16, 16, 2, torch.bfloat16, False))
 BISECT_DIMS = ((16, 16, 8), (8, 8, 8))   # scripts/probe_mosaic_cascade.py
 # the adjoint's input forms: (buffer dtype, compute dtype) of the solve's
 # matvec and right-hand side, of a bf16 buffer, of the Jacobi diagonal
@@ -1409,17 +1424,19 @@ def check_lattice_launches(tag, launches, field, segsum=2, dual=False):
     iteration), the slot-row adjoint once a matvec and, in the primal,
     for the rhs and the Jacobi diagonal, in the ``dual`` for the
     back-substitution, the dense adjoint never, the dense forward once
-    (the evaluator tables), and the segment sum ``segsum`` times: at the
+    (the evaluator tables), the segment sum ``segsum`` times: at the
     encoder's splat and the normal prior's, one a gradient depth (the
-    slot-row adjoint sums its rows itself)."""
+    slot-row adjoint sums its rows itself); the fused basis rows twice
+    (the point rows, the gradient rows) and the fused field at least
+    once (the mesher's corner values)."""
     iters = field.solver_stats.iters
     want = {"fwd": 1, "rows": iters, "adj_rows": iters + (1 if dual else 2),
-            "adj": 0, "segsum": segsum}
+            "adj": 0, "segsum": segsum, "basis_rows": 2}
     got = {k: launches[k] for k in want}
-    if not (iters > 0 and got == want):
+    if not (iters > 0 and got == want and launches["basis_field"] >= 1):
         raise AssertionError(
             f"[{tag}] launches {launches}: expected {want} ({iters} CG "
-            "iterations)")
+            "iterations) and basis_field at least once")
 
 
 def lap_diff(a, b) -> str:
@@ -1953,12 +1970,13 @@ def chunked_laps(recon, counters, synthetic_scene):
         raise AssertionError(f"[phase 9] chunks not on the card for the "
                              f"mesh: {on_card}")
     want = {"fwd": n, "rows": sum(iters), "adj_rows": sum(iters) + 2 * n,
-            "adj": 0}
-    if solve_launches["fwd"] != 0 or \
+            "adj": 0, "basis_rows": 2 * n}
+    if solve_launches["fwd"] != 0 or launches["basis_field"] < n or \
             {k: launches[k] for k in want} != want:
         raise AssertionError(f"[phase 9] launches {launches} (after the "
                              f"solves {solve_launches}): expected {want}, "
-                             "the dense forward only at the mesh")
+                             "the dense forward only at the mesh, the "
+                             "fused field at least once a chunk")
     if not len(mesh.f) or not np.isfinite(mesh.v).all():
         raise AssertionError("[phase 9] empty or non-finite mesh")
     if not err.mean() <= CHUNKED_ERR_LIMIT:
@@ -5144,13 +5162,15 @@ def fused_alone() -> int:
 
 def kernel_counters() -> dict:
     """The main path's counted kernel wrappers, by key."""
+    from nksr_tpu_torch.fields import basis_kernels as BK
     from nksr_tpu_torch.fields import lattice_kernels as LK
     from nksr_tpu_torch.ops import segment_sum as SEG
     from nksr_tpu_torch.ops import window_basis as WB
     return {"fwd": LK.av0_cascade, "adj": LK.av0_adjoint_cascade,
             "window": WB.window_and_grad_fused, "rows": LK.av0_rows,
             "adj_rows": LK.av0_adjoint_rows, "segsum": SEG.segment_sum,
-            "segsum_bwd": SEG.segment_sum_backward}
+            "segsum_bwd": SEG.segment_sum_backward,
+            "basis_rows": BK.basis_rows, "basis_field": BK.basis_field}
 
 
 def main() -> int:
@@ -5170,6 +5190,7 @@ def main() -> int:
     from nksr_tpu_torch.scripts import microbench_scatter as MB
     from nksr_tpu_torch.scripts import probe_kernels as PK
     from nksr_tpu_torch.scripts import time_adjoint as TA
+    from nksr_tpu_torch.scripts import time_basis as TB
     from nksr_tpu_torch.scripts import time_rows as TR
     from nksr_tpu_torch.train.driver import pipeline_config_from_yaml
     from nksr_tpu_torch.utils.checkpoint import load_tree
@@ -5269,6 +5290,23 @@ def main() -> int:
     win_small = compare_window(WB, window_offsets(1000, gen), timed=False)
     print(f"[phase 2] window kernel at Q 1000: max err "
           f"{win_small['err']:.3e}", flush=True)
+    basis_err = {"rows": 0.0, "field": 0.0}
+    for params in BASIS_SMALL:
+        bc = TB.basis_case(*params[:5], seed=sum(params[:2]), n_points=900,
+                           compute_dtype=params[5], approx_grad=params[6],
+                           device="cuda")
+        br = TB.compare_rows(bc.rows, timed=False)
+        bf = [TB.compare_field(bc.field(bc.queries, g), timed=False)
+              for g in (False, True)]
+        basis_err["rows"] = max(basis_err["rows"], br["err"])
+        basis_err["field"] = max([basis_err["field"]]
+                                 + [f["err"] for f in bf])
+        print(f"[phase 2] fused basis kernels at {params[:5]} "
+              f"{params[5]} approx {params[6]}: rows max err {br['err']:.3e}"
+              f" (of {max(br['scale'].values()):.3e}), field max err "
+              f"{bf[0]['err']:.3e} value, {bf[1]['err']:.3e} gradient at "
+              f"{bf[0]['q']} queries; two calls bit-equal", flush=True)
+        del bc
 
     xyz, nrm = synthetic_scene(N_POINTS)
     params = load_tree(os.path.join(REPO, "runs", "scene_big", "best.ckpt"))
@@ -5276,16 +5314,48 @@ def main() -> int:
                           params=params)
     # warm-up lap, capturing the slot cells and the first matvec's
     # coefficients
-    (((tr, tm, field, mesh), _, slot_cells, xs_mv), (_, adj_kept)), \
-        splat_args = TR.capture_first(
+    ((basis_cap, _, slot_cells, xs_mv), (_, adj_kept)), splat_args = \
+        TR.capture_first(
             SEG, "index_sum", lambda: TR.capture_first(
                 LK, "adjoint_rows_tables", lambda: TR.capture_rows(
-                    LK, lambda: main_path_lap(recon, xyz, nrm))))
+                    LK, lambda: TB.capture_main_path(
+                        lambda: main_path_lap(recon, xyz, nrm)))))
+    tr, tm, field, mesh = basis_cap.pop("result")
     print(f"[phase 3] warm-up lap: reconstruct_s {tr:.3f} extract_mesh_s "
           f"{tm:.3f}", flush=True)
     spec = field.lattice_ctx.spec
     del field, mesh
     torch.cuda.empty_cache()
+    # the fused basis kernels at the warm-up lap's own inputs: the solve's
+    # rows, the dense mesher's corner values and its Newton step
+    b_rows = TB.compare_rows(basis_cap["rows"], timed=True)
+    b_vals = TB.compare_field(basis_cap["values"], timed=True)
+    b_newton = TB.compare_field(basis_cap["newton"], timed=True)
+    del basis_cap
+    torch.cuda.empty_cache()
+    basis_err["rows"] = max(basis_err["rows"], b_rows["err"])
+    basis_err["field"] = max(basis_err["field"], b_vals["err"],
+                             b_newton["err"])
+    print(f"[phase 2] fused basis rows at the main path ({spec.s_pt} point "
+          f"slots, {spec.s_gr} gradient slots, lanes {spec.lanes}): max err "
+          f"{b_rows['err_pt']:.3e} point rows, {b_rows['err_gr']:.3e} "
+          f"gradient rows (largest |row| {b_rows['scale']}), two calls "
+          f"bit-equal; {b_rows['ms']:.4f} ms a call (turns "
+          f"{b_rows['ms_turns'][0]:.4f}, {b_rows['ms_turns'][1]:.4f}; "
+          f"its kernels, profiler device ms: {b_rows['kernel_ms']}); the "
+          f"plain chain {b_rows['plain_ms']:.3f} ms; bound "
+          f"{b_rows['bound'][0]:.4f} by {b_rows['bound'][1]} (points "
+          f"{b_rows['bound_points'][0]:.4f} by {b_rows['bound_points'][1]}"
+          f", gradients {b_rows['bound_grads'][0]:.4f} by "
+          f"{b_rows['bound_grads'][1]})", flush=True)
+    for tag, r in (("corner values", b_vals), ("Newton step", b_newton)):
+        print(f"[phase 2] fused field at the dense mesher's {tag} "
+              f"({r['q']} queries): max err {r['err']:.3e} (largest "
+              f"|output| {r['scale']:.3e}), two calls bit-equal; "
+              f"{r['ms']:.4f} ms (turns {r['ms_turns'][0]:.4f}, "
+              f"{r['ms_turns'][1]:.4f}; profiler device ms "
+              f"{r['kernel_ms']}); the plain chain {r['plain_ms']:.3f} ms; "
+              f"bound {r['bound'][0]:.4f} by {r['bound'][1]}", flush=True)
     rows_res = compare_rows(LK, spec, xs_mv, slot_cells, timed=True)
     rb, rby = rows_res["bound"]
     n_distinct = int(torch.unique(slot_cells).numel())
@@ -5664,8 +5734,37 @@ def main() -> int:
          "index_select_ms": train_segbwd["gather_ms"],
          "autograd_ms": train_segbwd["autograd_ms"],
          "rows": train_segbwd["rows"]})
+    # the fused basis kernels: rows at the solve's inputs, the field at
+    # the dense mesher's corner values (its Newton step beside them); no
+    # one PyTorch call computes either
+    kernels += [
+        {"name": "basis_rows", "route": "cuda",
+         "source": "nksr_tpu_torch/csrc/basis_eval.cu",
+         "replaces": "nksr_tpu/ops/pallas/window_basis.py:53",
+         "launches": splat_launches["basis_rows"],
+         "max_abs_err": basis_err["rows"], "ms": b_rows["ms"],
+         "plain_ms": b_rows["plain_ms"], "bound_ms": b_rows["bound"][0],
+         "bound_by": b_rows["bound"][1], "library_ms": None,
+         "kernel_ms": b_rows["kernel_ms"],
+         "bound_points_ms": b_rows["bound_points"][0],
+         "bound_grads_ms": b_rows["bound_grads"][0]},
+        {"name": "basis_field", "route": "cuda",
+         "source": "nksr_tpu_torch/csrc/basis_eval.cu",
+         "replaces": "nksr_tpu/ops/pallas/window_basis.py:53",
+         "launches": splat_launches["basis_field"],
+         "max_abs_err": basis_err["field"], "ms": b_vals["ms"],
+         "plain_ms": b_vals["plain_ms"], "bound_ms": b_vals["bound"][0],
+         "bound_by": b_vals["bound"][1], "library_ms": None,
+         "q": b_vals["q"], "kernel_ms": b_vals["kernel_ms"],
+         "newton": {"q": b_newton["q"], "ms": b_newton["ms"],
+                    "plain_ms": b_newton["plain_ms"],
+                    "bound_ms": b_newton["bound"][0],
+                    "bound_by": b_newton["bound"][1],
+                    "kernel_ms": b_newton["kernel_ms"],
+                    "max_abs_err": b_newton["err"]}}]
     for rec, key in zip(kernels, ("fwd", "rows", "adj", "adj_rows",
-                                  "segsum", "window", "segsum_bwd")):
+                                  "segsum", "window", "segsum_bwd",
+                                  "basis_rows", "basis_field")):
         rec["floor_ms"] = floor_events      # each timed by CUDA events
         rec["launches_predicted"] = pred_launches[key]
         rec["launches_udf"] = udf_launches[key]

@@ -18,7 +18,9 @@ sums each cell's rows in a fixed order (``fields/lattice_kernels.py``).
 The dual matvec runs the same two kernels the other way round: the
 adjoint of the slot rows, then AV0's rows of the result.  No depth-0
 buffer is built in the solve, and two solves on one input are bit-equal
-on the card.  The whole of AV0 is built only for the evaluator
+on the card.  The slots' basis blocks are written once a solve by the
+fused basis kernel (``fields/basis_kernels.basis_rows``: the point rows
+in one launch, the gradient rows in one more).  The whole of AV0 is built only for the evaluator
 (``fields/lattice_eval.py``).
 
 The lattice is exact integer geometry: a point's support cell at depth d
@@ -38,9 +40,10 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..core.host_build import unpack64
-from ..models.network import Interpolators, mlp_with_tangents
+from ..models.network import Interpolators
 from ..native import coord_minmax, flat_cells
 from ..solver.pcg import pcg
+from . import basis_kernels as BK
 from . import lattice_kernels as LK
 
 # dense coefficient lattice cells (all depths) x k that ``plan_lattice``
@@ -355,35 +358,11 @@ def plan_lattice(grids, caps: Sequence[int], xyz: np.ndarray,
 
 
 # ------------------------------------------------------- device primitives
-CORNER_OFFS = np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
-                        -1).reshape(8, 3).astype(np.float32)
-
-
 def corner_table(tab: torch.Tensor, spec: LatticeSpec, d: int
                  ) -> torch.Tensor:
     """(n_cells_d, v) per-cell table, zero-padded at the end so that row
     ``cell + s`` exists for every corner stride s of depth d."""
     return F.pad(tab, (0, 0, 0, spec.corner_strides(d)[-1]))
-
-
-def corner_rows(tabp: torch.Tensor, cells: torch.Tensor, spec: LatticeSpec,
-                d: int) -> torch.Tensor:
-    """(C,) flat cells -> (C, 8, v) rows of their 8 cell corners: corner c
-    of cell m is row ``m + stride_c`` of the padded table, exactly the
-    rows ``_corner_cat`` of the JAX package materializes."""
-    strides = torch.tensor(spec.corner_strides(d), device=cells.device)
-    return tabp[cells[:, None] + strides]
-
-
-def window_grad(t: torch.Tensor):
-    """C1 bump window prod (1-t_a^2)^2 and its gradient, (..., 3)."""
-    u = torch.clamp(1.0 - t * t, min=0.0)
-    u2 = u * u
-    w = u2.prod(-1)
-    du = -4.0 * t * u
-    g = torch.stack([du[..., a] * u2[..., (a + 1) % 3] * u2[..., (a + 2) % 3]
-                     for a in range(3)], -1)
-    return w, g
 
 
 def scatter_tables(spec, basis_features, vox_cell, vox_active):
@@ -410,77 +389,15 @@ def assemble_rows(spec: LatticeSpec, interp: Interpolators, fdp, adp,
                   pt_dest: torch.Tensor, slot_cells_pt: torch.Tensor,
                   gr_coords: torch.Tensor, gr_depth: torch.Tensor,
                   gr_active: torch.Tensor, slot_cells_gr: torch.Tensor,
-                  voxel_size: float, approx_grad: bool,
-                  chunk: int = 1 << 16):
-    """Per-slot basis blocks of the solve rows.
-
-    Returns ``b_pt`` (s_pt, p_rows, lanes) with its row-occupancy mask
-    ``m_pt`` (s_pt, p_rows), and ``b_gr`` (s_gr, 3, lanes): the three
-    gradient-component rows of each decoder-voxel slot.  The chunk loops
-    stand in for the JAX package's ``lax.map``."""
-    k, depth = spec.k, spec.depth
-    dev = xyz_sorted.device
-    offs = torch.as_tensor(CORNER_OFFS, device=dev)
-    lanes = spec.lanes
-
-    # ---------------- point rows ----------------
-    n = xyz_sorted.shape[0]
-    slot = pt_dest % spec.s_pt
-    cells_pp = slot_cells_pt[:, slot]                    # (depth, n)
-    rows = torch.empty((n, lanes), device=dev)
-    for s in range(0, n, chunk):
-        x, c0 = xyz_sorted[s:s + chunk], pt_cell0[s:s + chunk]
-        for d in range(depth):
-            vs_d = voxel_size * (2.0 ** d)
-            z0 = (x / vs_d)[:, None, :] - (c0 >> d).float()[:, None, :] \
-                - offs
-            cells = cells_pp[d, s:s + chunk]
-            fc = corner_rows(fdp[d], cells, spec, d)
-            raw, _ = mlp_with_tangents(interp.level(d),
-                                       torch.cat([z0, fc], -1), 0)
-            act = corner_rows(adp[d], cells, spec, d)[..., 0]
-            w, _ = window_grad(z0)
-            rows[s:s + chunk, d * 8 * k:(d + 1) * 8 * k] = \
-                (raw * (w * act)[..., None]).reshape(-1, 8 * k)
-    # JAX layout (p_rows, s_pt) flattened is row * s_pt + slot; here the
-    # slot is the leading axis so the per-slot contraction is one bmm
-    dest = slot * spec.p_rows + pt_dest // spec.s_pt
-    b_pt = torch.zeros((spec.s_pt * spec.p_rows, lanes), device=dev)
-    b_pt.index_add_(0, dest, rows)
-    m_pt = torch.zeros(spec.s_pt * spec.p_rows, device=dev)
-    m_pt.index_add_(0, dest, torch.ones(n, device=dev))
-    b_pt = b_pt.view(spec.s_pt, spec.p_rows, lanes)
-    m_pt = torch.clamp(m_pt, max=1.0).view(spec.s_pt, spec.p_rows)
-
-    # ---------------- gradient rows ----------------
-    s_gr = spec.s_gr
-    b_gr = torch.empty((s_gr, 3, lanes), device=dev)
-    for s in range(0, s_gr, chunk):
-        c, dd = gr_coords[s:s + chunk], gr_depth[s:s + chunk]
-        x = c.float() * (torch.exp2(dd.float()) * voxel_size)[:, None]
-        am = gr_active[s:s + chunk].float()[:, None, None]
-        for d in range(depth):
-            vs_d = voxel_size * (2.0 ** d)
-            rel = (dd - d)[:, None]
-            cell_d = torch.where(rel >= 0, c << rel.clamp(min=0),
-                                 c >> (-rel).clamp(min=0)).float()
-            z0 = (x / vs_d)[:, None, :] - cell_d[:, None, :] - offs
-            cells = slot_cells_gr[d, s:s + chunk]
-            fc = corner_rows(fdp[d], cells, spec, d)
-            act = corner_rows(adp[d], cells, spec, d)[..., 0]
-            raw, draws = mlp_with_tangents(
-                interp.level(d), torch.cat([z0, fc], -1),
-                0 if approx_grad else 3)
-            w, dw = window_grad(z0)
-            wa = (w * act)[..., None]
-            for a in range(3):
-                db = raw * (dw[..., a] * act)[..., None]
-                if not approx_grad:
-                    db = db + draws[a] * wa
-                b_gr[s:s + chunk, a, d * 8 * k:(d + 1) * 8 * k] = \
-                    (db / vs_d).reshape(-1, 8 * k)
-        b_gr[s:s + chunk] *= am
-    return b_pt, m_pt, b_gr
+                  voxel_size: float, approx_grad: bool):
+    """Per-slot basis blocks of the solve rows: ``b_pt`` (s_pt, p_rows,
+    lanes) with its row-occupancy mask ``m_pt`` (s_pt, p_rows), and
+    ``b_gr`` (s_gr, 3, lanes), the three gradient-component rows of each
+    decoder-voxel slot (``basis_kernels.basis_rows``: two launches on the
+    card, the plain chunk loops on the CPU)."""
+    return BK.basis_rows(spec, interp, fdp, adp, xyz_sorted, pt_cell0,
+                         pt_dest, slot_cells_pt, gr_coords, gr_depth,
+                         gr_active, slot_cells_gr, voxel_size, approx_grad)
 
 
 # ------------------------------------------------------------------- solve

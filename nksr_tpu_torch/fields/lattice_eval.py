@@ -8,7 +8,9 @@ field, then one AV0 row gather and one corner-feature gather per query.
     trust mask (the union of the depths' supports) and the depth-0 voxel
     occupancy gives the extraction shell.
   * per query: integer cells from ``floor(x / voxel_size)``, then the
-    basis MLP, window and (optionally) gradient in f32.
+    basis MLP, window and (optionally) gradient in f32: on the card one
+    launch of the fused field kernel a wave
+    (``basis_kernels.basis_field``), on the CPU its plain version.
 
 Queries outside the lattice alias to dense cell 0, whose margin is
 structurally inactive: value 0, mask False.  Waves are sized by memory
@@ -22,9 +24,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import basis_kernels as BK
 from . import lattice as LAT
 from . import lattice_kernels as LK
-from ..models.network import Interpolators, mlp_with_tangents
+from ..models.network import Interpolators
 
 # bytes of temporaries one evaluation wave may hold
 _WAVE_BYTES = 1 << 30
@@ -62,7 +65,7 @@ def tables_from(spec, dense_xs, fdp, adp, compute_dtype
     for d in range(spec.depth):
         n = spec.n_cells(d)
         cells = torch.arange(n, device=av0.device)
-        any_c = (LAT.corner_rows(adp[d], cells, spec, d)[..., 0] > 0).any(-1)
+        any_c = (BK.corner_rows(adp[d], cells, spec, d)[..., 0] > 0).any(-1)
         m = _upsample_to_0(any_c, spec, d)
         mask0 = m if mask0 is None else mask0 | m
         if d < spec.adaptive_depth:
@@ -92,6 +95,7 @@ class LatticeEvalContext:
         self.compute_dtype = compute_dtype
         self.dense_xs = dense_xs
         self._tables = tables
+        self._packed: Optional[BK.PackedMLP] = None
 
     def to(self, device) -> "LatticeEvalContext":
         """Move the solved field, and its tables once built, to
@@ -102,6 +106,7 @@ class LatticeEvalContext:
         self.vox_cell = mv(self.vox_cell)
         self.vox_active = mv(self.vox_active)
         self.dense_xs = mv(self.dense_xs)
+        self._packed = None
         if self._tables is not None:
             tab = self._tables
             self._tables = LatticeEvalTables(
@@ -116,7 +121,12 @@ class LatticeEvalContext:
                 self.vox_cell, self.vox_active, self.compute_dtype)
         return self._tables
 
-    def _wave(self, grad: bool) -> int:
+    def _wave(self, grad: bool, kernel: bool) -> int:
+        """Queries a wave: by the plain version's temporaries, or on the
+        kernel path by the outputs alone (the kernel holds no
+        temporaries), so a mesher's call is one launch or a few."""
+        if kernel:
+            return max(1024, _WAVE_BYTES // (5 + (12 if grad else 0)))
         spec = self.spec
         cb = self.basis_features[0].shape[-1]
         width = 3 + cb + 2 * self.interp.level(0).layers()[0].out_features
@@ -124,62 +134,41 @@ class LatticeEvalContext:
             + spec.lanes * 6
         return max(1024, _WAVE_BYTES // per_q)
 
+    def _mlp_pack(self) -> BK.PackedMLP:
+        """The MLPs packed for the field kernel, once per context (``to``
+        drops the packing; the next call on the card packs again)."""
+        if self._packed is None:
+            self._packed = BK.pack_mlps(self.interp, self.spec.depth)
+        return self._packed
+
     @torch.no_grad()
     def evaluate(self, x: torch.Tensor, grad: bool = False,
                  max_chunk: Optional[int] = None):
         """values (n,), mask (n,) [, gradients (n, 3)] at (n, 3) f32
-        device points."""
-        spec, k, vs = self.spec, self.spec.k, self.voxel_size
+        device points, in waves of ``basis_kernels.basis_field``."""
         tab = self.tables()
-        dev = tab.av0.device
-        cdt = self.compute_dtype
-        offs = torch.as_tensor(LAT.CORNER_OFFS, device=dev)
-        origins = torch.as_tensor(self.origins.astype(np.int64), device=dev)
-        dims = [torch.tensor(dd, device=dev) for dd in spec.dims]
-        want_tan = grad and not self.approx_grad
+        kernel = x.device.type != "cpu"
+        packed = self._mlp_pack() if kernel else None
         n = x.shape[0]
-        chunk = self._wave(grad)
+        chunk = self._wave(grad, kernel)
         if max_chunk is not None:
             chunk = max(1, min(chunk, int(max_chunk)))
-        val = torch.empty(n, device=dev)
-        mask = torch.empty(n, dtype=torch.bool, device=dev)
-        gout = torch.empty((n, 3), device=dev) if grad else None
-        w8 = 8 * k
+
+        def wave(xc):
+            return BK.basis_field(self.spec, self.interp, tab, self.origins,
+                                  xc, self.voxel_size, grad,
+                                  self.approx_grad, self.compute_dtype,
+                                  packed)
+        if n <= chunk:
+            return wave(x)
+        dev = tab.av0.device
+        outs = (torch.empty(n, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev)) + \
+            ((torch.empty((n, 3), device=dev),) if grad else ())
         for s in range(0, n, chunk):
-            xc = x[s:s + chunk]
-            c0 = torch.floor(xc / vs).long()
-            cells = []
-            for d in range(spec.depth):
-                _, Y, Z = spec.dims[d]
-                loc = (c0 >> d) - origins[d]
-                ok = ((loc >= 0) & (loc < dims[d])).all(-1)
-                flat = (loc[:, 0] * Y + loc[:, 1]) * Z + loc[:, 2]
-                cells.append(torch.where(ok, flat, 0))
-            avr = tab.av0.index_select(0, cells[0])
-            v = torch.zeros(xc.shape[0], device=dev)
-            g = torch.zeros((xc.shape[0], 3), device=dev) if grad else None
-            for d in range(spec.depth):
-                vs_d = vs * (2.0 ** d)
-                z0 = (xc / vs_d)[:, None, :] \
-                    - (c0 >> d).float()[:, None, :] - offs
-                fc = LAT.corner_rows(tab.fdp[d], cells[d], spec, d)
-                xin = torch.cat([z0.to(cdt), fc], -1).float()
-                raw, draws = mlp_with_tangents(self.interp.level(d), xin,
-                                               3 if want_tan else 0)
-                w, dw = LAT.window_grad(z0)
-                av_d = avr[:, d * w8:(d + 1) * w8].float().view(-1, 8, k)
-                v += (raw * w[..., None] * av_d).sum((1, 2))
-                if grad:
-                    for a in range(3):
-                        db = raw * dw[..., a, None]
-                        if want_tan:
-                            db = db + draws[a] * w[..., None]
-                        g[:, a] += (db * av_d).sum((1, 2)) / vs_d
-            val[s:s + chunk] = v
-            mask[s:s + chunk] = tab.mask0[cells[0]]
-            if grad:
-                gout[s:s + chunk] = g
-        return (val, mask, gout) if grad else (val, mask)
+            for o, part in zip(outs, wave(x[s:s + chunk])):
+                o[s:s + chunk] = part
+        return outs
 
     def eval_batched(self, x: np.ndarray, grad: bool = False):
         """``evaluate`` on host arrays: numpy in, numpy out."""

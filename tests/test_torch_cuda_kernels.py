@@ -1,5 +1,6 @@
 """The CUDA kernels (the AV0 cascade pair and slot rows, the dual's
-middle built of them, the window, the sorted scatters and the probes)
+middle built of them, the window, the fused basis rows and field, the
+sorted scatters and the probes)
 against their plain PyTorch versions on the card (marker ``cuda``;
 skipped where there is no CUDA device).  Run on a
 machine with the card, where JAX need not be installed (``--noconftest``
@@ -12,10 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from nksr_tpu_torch.fields import basis_kernels as BK
 from nksr_tpu_torch.fields import lattice as LAT
 from nksr_tpu_torch.fields import lattice_kernels as LK
 from nksr_tpu_torch.ops import probes as P
 from nksr_tpu_torch.ops import sorted_scatter as SS
+from nksr_tpu_torch.scripts import time_basis as TB
+
+from test_torch_basis_kernels import CASES as BASIS_CASES
+from test_torch_basis_kernels import CASE_IDS as BASIS_IDS
+from test_torch_basis_kernels import CELL_VS, cell_queries
 
 pytestmark = pytest.mark.cuda
 
@@ -314,6 +321,118 @@ def test_window_kernel_rejects_bad_input(gen):
                                              dtype=torch.float64))
     with pytest.raises(ValueError):
         WB.window_and_grad_fused(torch.zeros((4, 3, 8), device="cuda"))
+
+
+def _basis_case(params, **kw):
+    depth, k, cb, hidden, layers, cdt, approx = params
+    return TB.basis_case(depth, k, cb, hidden, layers, seed=depth + k,
+                         n_points=900, compute_dtype=cdt, approx_grad=approx,
+                         device="cuda", **kw)
+
+
+@pytest.mark.parametrize("params", BASIS_CASES, ids=BASIS_IDS)
+def test_basis_rows_match_plain(gen, params):
+    """The fused row kernel (points, then gradients) against its plain
+    version on the same CUDA tensors within ROWS_TOL of the largest |row|
+    (the MLP's sums in another order), the row mask equal, two calls
+    bit-equal; two launches a call."""
+    case = _basis_case(params)
+    before = BK.basis_rows.launches
+    TB.compare_rows(case.rows, timed=False)
+    torch.cuda.synchronize()
+    assert BK.basis_rows.launches - before == 4
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["value", "grad"])
+@pytest.mark.parametrize("params", BASIS_CASES, ids=BASIS_IDS)
+def test_basis_field_matches_plain(gen, params, grad):
+    """The fused field kernel against its plain version on the same CUDA
+    tensors within FIELD_TOL of the largest |output|, the mask equal, two
+    calls bit-equal; one launch a call."""
+    case = _basis_case(params)
+    before = BK.basis_field.launches
+    TB.compare_field(case.field(case.queries, grad), timed=False)
+    torch.cuda.synchronize()
+    assert BK.basis_field.launches - before == 2
+
+
+def test_lattice_paths_launch_the_basis_kernels(gen, monkeypatch):
+    """On CUDA tensors ``assemble_rows`` and the evaluator launch the
+    fused kernels and never the plain loops: two row launches a solve's
+    rows, one field launch a wave."""
+    from nksr_tpu_torch.fields.lattice_eval import LatticeEvalContext
+
+    def fail(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    case = _basis_case(BASIS_CASES[1])
+    monkeypatch.setattr(BK, "basis_rows_plain", fail)
+    monkeypatch.setattr(BK, "basis_field_plain", fail)
+    rows, field = BK.basis_rows.launches, BK.basis_field.launches
+    LAT.assemble_rows(*case.rows)
+    spec, interp, tab, origins, _, vs, _, approx, cdt = case.field(None,
+                                                                  False)
+    ctx = LatticeEvalContext(spec, origins, interp, None, None, None, vs,
+                             approx, cdt, None, tables=tab)
+    v, m = ctx.evaluate(case.queries)
+    v3, m3 = ctx.evaluate(case.queries, max_chunk=700)
+    _, _, g = ctx.evaluate(case.queries, grad=True)
+    torch.cuda.synchronize()
+    n = case.queries.shape[0]
+    assert BK.basis_rows.launches - rows == 2
+    assert BK.basis_field.launches - field == 2 + -(-n // 700)
+    assert torch.equal(v, v3) and torch.equal(m, m3) and g.shape == (n, 3)
+
+
+def test_basis_kernels_reject_bad_input(gen):
+    """A CUDA tensor of another shape, type or placement raises instead of
+    falling back to the plain version."""
+    case = _basis_case(BASIS_CASES[1])
+    rows = list(case.rows)
+    bad = list(rows)
+    bad[2] = [t.to(torch.bfloat16) for t in rows[2]]
+    with pytest.raises(ValueError, match="features"):
+        BK.basis_rows(*bad)
+    bad = list(rows)
+    bad[5] = rows[5][:-1]
+    with pytest.raises(ValueError, match="pt_cell0"):
+        BK.basis_rows(*bad)
+    bad = list(rows)
+    bad[3] = [t.cpu() for t in rows[3]]
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        BK.basis_rows(*bad)
+    args = list(case.field(case.queries, True))
+    bad = list(args)
+    bad[4] = case.queries.double()
+    with pytest.raises(ValueError, match="basis_field x"):
+        BK.basis_field(*bad)
+    bad = list(args)
+    bad[8] = torch.float32
+    with pytest.raises(ValueError, match="features"):
+        BK.basis_field(*bad)
+    bad = list(args)
+    bad[4] = case.queries[:, :2].contiguous()
+    with pytest.raises(ValueError, match="basis_field x"):
+        BK.basis_field(*bad)
+
+
+def test_evaluator_cells_divide_correctly_on_the_card(gen):
+    """At points where ``x * fl(1 / vs)`` floors into the next cell, a
+    division by the host scalar does so on the card (CUDA multiplies by
+    the reciprocal: the fault the evaluator had), while the evaluator's
+    cells, its plain version's and the field kernel's mask are numpy's
+    correctly rounded ``floor(x / vs)``."""
+    case = TB.basis_case(2, 4, 4, 8, 2, seed=3, n_points=900,
+                         voxel_size=CELL_VS, device="cuda")
+    q, cells, mask0, want = cell_queries(case, np.random.default_rng(0))
+    xq = torch.as_tensor(q, device="cuda")
+    assert (torch.floor(xq / CELL_VS).long().cpu().numpy() != cells).any()
+    assert np.array_equal(BK.query_cells0(xq, CELL_VS).cpu().numpy(), cells)
+    args = list(case.field(xq, False))
+    args[2] = args[2]._replace(mask0=mask0.cuda())
+    for fn in (BK.basis_field, BK.basis_field_plain):
+        _, mask = fn(*args)
+        assert np.array_equal(mask.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("dup", [False, True], ids=["unique", "dup"])
